@@ -1,0 +1,364 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases (each one fails the run when it fails):
+  1. build: compile csrc/flash_fwd.cu with nvcc (sm_90a) into
+     longcat_video_tta_tpu_torch/csrc/build/ and print the build time and
+     ptxas resource lines;
+  2. kernel check: the flash-attention kernel against its plain PyTorch
+     version (``attention_reference``) in bf16 at the main path's shapes
+     (decode self-attention, cross-attention, the no-cache prefix-masked
+     self-attention), the decode self-attention of the runner's default
+     geometry, plus small ragged / fp16 / head_dim 32 and 64 cases,
+     with the error against a stated tolerance; times of the kernel, the
+     plain version and torch's scaled_dot_product_attention (yardstick
+     only; the port never calls it) beside the least time the card could
+     take (the bound);
+  3. small-input agreement: ``generate_vc`` on the card against the same
+     weights and noise on the CPU (plain path), longcat_demo widths;
+  4. main path: the port's runner (``--method none``) answers 2 requests
+     at LongCat-13.6B width (DiT 4096 / 32x128 heads / ffn 11008 / 48
+     blocks, UMT5-XXL, WAN VAE base 96; bf16, random weights drawn on the
+     card from a seed) at 480x832 with 5 conditioning frames, 8 generated
+     frames, 4 denoising steps and guidance 4.0. The kernel's launch
+     count over this run must equal the number of attention calls on the
+     path, and PSNR/SSIM must be finite.
+
+The line before the last is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}. Without a CUDA GPU the script exits with
+code 2 and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+RUN_DIR = os.path.join(ROOT, ".chip_smoke")
+
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (SXM, 700 W)
+H100_BYTES_PER_S = 3.35e12  # HBM3 bandwidth
+# Gates on o, set by the reference's own scale (|o| shrinks as the
+# softmax spreads over more keys). A sound kernel's o differs from the
+# reference's by the two roundings to the 16-bit output (at most one ulp
+# of each element) plus P rounded at another running max (far less):
+#   max|o - o_ref|   <= 2 eps * max|o_ref|   (2 to 4 ulp of the largest |o|)
+#   ||o - o_ref||_2  <=   eps * ||o_ref||_2  (a spread error, such as a
+#                                             dropped or rounded PV term)
+# with eps the dtype's machine epsilon (bf16 2^-7, fp16 2^-10).
+O_EPS = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+LSE_TOL = 1e-3  # fp32 log-sum-exp: summation order only
+E2E_PSNR_MIN = 30.0  # card vs CPU generate_vc on the same weights and noise
+
+# main-path geometry (LongCat-13.6B widths, full 480x832 frames)
+MAIN = dict(height=480, width=832, cond_frames=5, gen_frames=8, steps=4,
+            guidance=4.0, requests=2)
+
+
+def _events_ms(fn, iters: int, warmup: int = 1) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _allowed_pairs(Sq: int, Sk: int, ncond: int, kv_valid=None) -> int:
+    """(query, key) pairs the mask lets through: the work this input needs."""
+    kv = Sk if kv_valid is None else min(Sk, kv_valid)
+    pairs = Sq * kv
+    if ncond > 0 and Sq == Sk:
+        cond_rows = min(ncond, Sq)
+        noise_keys = max(0, kv - ncond)
+        pairs -= cond_rows * noise_keys
+    return pairs
+
+
+def _bound_ms(B, H, Sq, Sk, D, ncond, kv_valid, elem_bytes):
+    flops = 4.0 * B * H * D * _allowed_pairs(Sq, Sk, ncond, kv_valid)
+    nbytes = (2 * B * Sq * H * D + 2 * B * Sk * H * D) * elem_bytes + B * Sq * H * 4
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _reference_chunked(fa, q, k, v, ncond, kv_valid, heads_per_chunk):
+    """attention_reference over head chunks (the S x S fp32 matrix of all
+    heads at once does not fit beside the inputs)."""
+    import torch
+
+    outs, lses = [], []
+    for h0 in range(0, q.shape[2], heads_per_chunk):
+        sl = slice(h0, h0 + heads_per_chunk)
+        o, lse = fa.attention_reference(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                        num_cond_tokens=ncond,
+                                        kv_valid_len=kv_valid)
+        outs.append(o)
+        lses.append(lse)
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+def case_inputs(B, H, Sq, Sk, D, *, dtype_name="bfloat16", fused_kv=False, seed=0):
+    """Seeded q, k, v on the card; with ``fused_kv`` k and v are strided
+    views of one [B, Sk, 2, H, D] tensor (the cross-attention layout)."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, Sq, H, D), generator=g, device="cuda").to(dtype)
+    if fused_kv:  # k, v as strided views of a fused [B, Sk, 2, H, D] output
+        kv = torch.randn((B, Sk, 2, H, D), generator=g, device="cuda").to(dtype)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+    else:
+        k = torch.randn((B, Sk, H, D), generator=g, device="cuda").to(dtype)
+        v = torch.randn((B, Sk, H, D), generator=g, device="cuda").to(dtype)
+    return q, k, v
+
+
+def reference(fa, q, k, v, ncond, kv_valid):
+    """The plain version, chunked over heads to fit beside the inputs."""
+    B, Sq, H, _ = q.shape
+    chunk = max(1, min(H, int(2e9 // (4 * B * Sq * k.shape[1] * 4)) or 1))
+    return _reference_chunked(fa, q, k, v, ncond, kv_valid, chunk)
+
+
+def kernel_errors(o, lse, o_ref, lse_ref, dtype_name):
+    """The kernel's errors against the plain version, each gate's limit,
+    and whether every gate holds."""
+    d = o.float() - o_ref.float()
+    eps = O_EPS[dtype_name]
+    e = {"max_abs_err": float(d.abs().max()),
+         "o_tol": 2 * eps * float(o_ref.float().abs().max()),
+         "l2_err": float(d.norm()),
+         "l2_tol": eps * float(o_ref.float().norm()),
+         "max_abs_err_lse": float((lse - lse_ref).abs().max())}
+    e["ok"] = (math.isfinite(e["max_abs_err"]) and e["max_abs_err"] <= e["o_tol"]
+               and e["l2_err"] <= e["l2_tol"] and e["max_abs_err_lse"] <= LSE_TOL)
+    return e
+
+
+def check_kernel_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
+                      dtype_name="bfloat16", fused_kv=False, timed=False, seed=0):
+    """Kernel vs plain version on one shape; returns a result dict."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = case_inputs(B, H, Sq, Sk, D, dtype_name=dtype_name, fused_kv=fused_kv,
+                          seed=seed)
+    o, lse = fa.flash_attention(q, k, v, num_cond_tokens=ncond, kv_valid_len=kv_valid)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = reference(fa, q, k, v, ncond, kv_valid)
+    torch.cuda.synchronize()
+    err = kernel_errors(o, lse, o_ref, lse_ref, dtype_name)
+    ok = err.pop("ok")
+    res = {"case": name, "B": B, "H": H, "Sq": Sq, "Sk": Sk, "D": D, "ncond": ncond,
+           "kv_valid": kv_valid, "dtype": dtype_name, **err}
+    if not ok:
+        raise AssertionError(f"kernel case {name}: {json.dumps(res)} "
+                             f"(lse tol {LSE_TOL})")
+    del o_ref, lse_ref
+    if timed:
+        res["ms"] = _events_ms(lambda: fa.flash_attention(
+            q, k, v, num_cond_tokens=ncond, kv_valid_len=kv_valid), iters=10)
+        res["plain_ms"] = _events_ms(lambda: reference(fa, q, k, v, ncond, kv_valid),
+                                     iters=1, warmup=0)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = None
+        if ncond > 0 and Sq == Sk:
+            idx = torch.arange(Sq, device="cuda")
+            mask = (idx[:, None] >= ncond) | (idx[None, :] < ncond)
+        res["library_ms"] = _events_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), iters=10)
+        res["bound_ms"], res["bound_by"] = _bound_ms(
+            B, H, Sq, Sk, D, ncond, kv_valid, q.element_size())
+    return res
+
+
+def main_path_cases(dit_cfg, tokens_per_frame):
+    """(name, shape args, options) of the attention calls the main path
+    makes, plus the decode self-attention of the runner's default
+    geometry (14 cond frames -> 4 latents, 28 -> 29 generated frames ->
+    8 latents)."""
+    B, H, D = 2, dit_cfg.num_heads, dit_cfg.head_dim  # CFG batch
+    n_cond_lat = 1 + (MAIN["cond_frames"] - 1) // 4
+    n_gen_frames = ((MAIN["gen_frames"] - 1 + 3) // 4) * 4 + 1
+    n_gen_lat = (n_gen_frames - 1) // 4 + 1
+    s_cond, s_gen = n_cond_lat * tokens_per_frame, n_gen_lat * tokens_per_frame
+    return [
+        ("decode_self", (B, H, s_gen, s_cond + s_gen, D), {}),
+        ("cross", (B, H, s_gen, dit_cfg.text_len, D), dict(fused_kv=True, seed=1)),
+        ("nocache_prefix", (B, H, s_cond + s_gen, s_cond + s_gen, D),
+         dict(ncond=s_cond, seed=2)),
+        ("decode_self_default_geometry",
+         (B, H, 8 * tokens_per_frame, 12 * tokens_per_frame, D), dict(seed=7)),
+    ]
+
+
+def phase_kernel_checks(fa, dit_cfg, tokens_per_frame):
+    cases = [check_kernel_case(fa, name, *shape, timed=True, **opts)
+             for name, shape, opts in main_path_cases(dit_cfg, tokens_per_frame)]
+    cases += [
+        check_kernel_case(fa, "ragged_kv_valid", 1, 3, 200, 333, 64,
+                          kv_valid=250, seed=3),
+        check_kernel_case(fa, "ragged_prefix_d32", 2, 2, 150, 150, 32, ncond=37,
+                          seed=4),
+        check_kernel_case(fa, "fp16_d128", 1, 2, 96, 130, 128,
+                          dtype_name="float16", seed=5),
+        check_kernel_case(fa, "no_visible_key", 1, 2, 64, 64, 64, kv_valid=0, seed=6),
+    ]
+    for c in cases:
+        print("[kernel] " + json.dumps(c))
+    return cases
+
+
+def phase_small_agreement():
+    """generate_vc on the card vs the CPU plain path, same weights and
+    noise (longcat_demo widths at a small frame size)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import longcat_demo
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle, generate_vc
+
+    cpu = ModelBundle.init_random(longcat_demo(), seed=3, device="cpu")
+    gpu = dataclasses.replace(
+        cpu, dit=copy.deepcopy(cpu.dit).cuda(), vae=copy.deepcopy(cpu.vae).cuda(),
+        text=copy.deepcopy(cpu.text).cuda(), device=torch.device("cuda"))
+    rng = np.random.default_rng(0)
+    cond = rng.uniform(-1, 1, (1, 3, 5, 64, 128)).astype(np.float32)
+    noise = torch.from_numpy(rng.standard_normal((1, 16, 2, 8, 16)).astype(np.float32))
+    kw = dict(num_frames=5, num_inference_steps=2, init_noise=noise)
+    a = generate_vc(cpu, cond, "a ball moving across the scene", **kw)
+    b = generate_vc(gpu, cond, "a ball moving across the scene", **kw)
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    psnr = float("inf") if mse == 0 else -10 * math.log10(mse)
+    print(f"[agree] longcat_demo generate_vc card vs cpu: shape {b.shape}, "
+          f"max|diff| {float(np.abs(a - b).max()):.4g}, psnr {psnr:.2f} dB "
+          f"(min {E2E_PSNR_MIN})")
+    if not (np.isfinite(b).all() and psnr >= E2E_PSNR_MIN):
+        raise AssertionError("card and CPU generate_vc disagree")
+
+
+def phase_main_path(fa, depth):
+    import numpy as np
+
+    from longcat_video_tta_tpu_torch.runners import run_tta
+
+    out_dir = os.path.join(RUN_DIR, "run")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--method", "none", "--preset", "longcat_13b",
+            "--synthetic", str(MAIN["requests"]), "--output-dir", out_dir,
+            "--device", "cuda", "--height", str(MAIN["height"]),
+            "--width", str(MAIN["width"]),
+            "--num-cond-frames", str(MAIN["cond_frames"]),
+            "--num-frames", str(MAIN["gen_frames"]),
+            "--num-inference-steps", str(MAIN["steps"]),
+            "--guidance-scale", str(MAIN["guidance"]), "--no-save-videos"]
+    print("[main] run_tta " + " ".join(argv))
+    print(f"[main] geometry: {MAIN}; cuts: none (full depth {depth}, full widths)")
+    fa.reset_launches()
+    t0 = time.time()
+    summary = run_tta.main(argv)
+    wall = time.time() - t0
+    launches = fa.launches
+    shutil.rmtree(os.path.join(out_dir, "synthetic_data"), ignore_errors=True)
+
+    per_request = [(r.get("gen_time"), r.get("total_time")) for r in summary["results"]]
+    for i, r in enumerate(summary["results"]):
+        print(f"[main] request {i}: success={r['success']} gen_time={r.get('gen_time')} s "
+              f"total_time={r.get('total_time')} s psnr={r.get('psnr')} ssim={r.get('ssim')}"
+              + (f" error={r['error']}" if "error" in r else ""))
+    # attention calls per request: (cond-cache precompute + one decode
+    # per step) x depth x (self + cross)
+    expected = MAIN["requests"] * depth * 2 * (1 + MAIN["steps"])
+    print(f"[main] wall {wall:.1f} s; flash_fwd launches {launches} (expected {expected})")
+    if summary["num_success"] != MAIN["requests"]:
+        raise AssertionError(f"{summary['num_success']}/{MAIN['requests']} requests succeeded")
+    for r in summary["results"]:
+        if not (np.isfinite(r["psnr"]) and np.isfinite(r["ssim"])):
+            raise AssertionError(f"non-finite metrics: {r}")
+    if launches <= 0 or launches != expected:
+        raise AssertionError(f"flash_fwd launched {launches} times on the main path, "
+                             f"expected {expected}")
+    return launches, per_request
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from longcat_video_tta_tpu_torch.config import longcat_13b
+    from longcat_video_tta_tpu_torch.ops import flash_attention as fa
+
+    # stated precision: fp32 matmuls and convolutions in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    path, log, seconds = fa.build_library()
+    print(f"[build] {os.path.relpath(path, ROOT)} in {seconds:.1f} s")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print(f"[build] {line.strip()}")
+
+    cfg = longcat_13b()
+    sf = cfg.vae.spatial_factor * cfg.dit.patch_size[1]
+    tokens_per_frame = (MAIN["height"] // sf) * (MAIN["width"] // sf)
+    cases = phase_kernel_checks(fa, cfg.dit, tokens_per_frame)
+    torch.cuda.empty_cache()
+    phase_small_agreement()
+    torch.cuda.empty_cache()
+    launches, _ = phase_main_path(fa, cfg.dit.depth)
+
+    main_case = cases[0]
+    kernels = [{
+        "name": "flash_fwd",
+        "route": "cuda",
+        "source": "longcat_video_tta_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "longcat_video_tta_tpu/ops/flash_attention.py:133",
+        "launches": launches,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,296 @@
+"""Typed configuration for the PyTorch port (its own copy of the
+reference's ``config.py``: the model dataclasses, the frame and
+generation configs, and the LongCat presets).
+
+Dtypes are stored by name so the dataclasses stay JSON-serializable;
+``resolve_dtype`` maps a name to the ``torch.dtype``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+import torch
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
+
+
+def resolve_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Model configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DiTConfig:
+    """LongCat-style video diffusion transformer: adaLN blocks with fused
+    qkv self-attention (RMS qk-norm, 3D RoPE), affine pre-norm
+    cross-attention over packed text, SwiGLU ffn w1/w2/w3."""
+
+    hidden_size: int = 4096
+    depth: int = 48
+    num_heads: int = 32
+    in_channels: int = 16
+    out_channels: int = 16
+    patch_size: Tuple[int, int, int] = (1, 2, 2)  # (p_t, p_h, p_w)
+    adaln_tembed_dim: int = 512
+    ffn_dim: int = 11008  # SwiGLU inner dim (w1/w3 out, w2 in)
+    text_dim: int = 4096  # UMT5-XXL hidden size
+    text_len: int = 512
+    qk_norm: bool = True
+    cross_qk_norm: bool = True
+    text_tokens_zero_pad: bool = True
+    # 3D RoPE per-axis channel split; must sum to head_dim and be even.
+    rope_dims: Tuple[int, int, int] = (32, 48, 48)
+    rope_theta: float = 10000.0
+    t_embed_freq_dim: int = 256
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    def __post_init__(self):
+        if self.hidden_size % self.num_heads != 0:
+            raise ValueError("hidden_size must be divisible by num_heads")
+        if sum(self.rope_dims) != self.head_dim:
+            raise ValueError(f"rope_dims {self.rope_dims} must sum to "
+                             f"head_dim {self.head_dim}")
+
+
+@dataclass(frozen=True)
+class VAEConfig:
+    """Causal WAN-style 3D VAE: 4x temporal / 8x spatial factors,
+    z_dim-channel latents with per-channel latents_mean/latents_std."""
+
+    z_dim: int = 16
+    base_dim: int = 96
+    dim_mults: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    # spatial downsample between scales 0-1, 1-2, 2-3 (8x total);
+    # temporal downsample between scales 1-2 and 2-3 (4x total)
+    temporal_downsample: Tuple[bool, ...] = (False, True, True)
+    attn_mid_block: bool = True
+    latents_mean: Tuple[float, ...] = (
+        -0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508,
+        0.4134, -0.0715, 0.5517, -0.3632, -0.1922, -0.9497, 0.2503, -0.2921,
+    )
+    latents_std: Tuple[float, ...] = (
+        2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052, 2.0743,
+        3.2687, 2.1526, 2.8652, 1.5579, 1.6382, 1.1253, 2.8251, 1.9160,
+    )
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+
+    @property
+    def temporal_factor(self) -> int:
+        return 2 ** sum(self.temporal_downsample)
+
+    @property
+    def spatial_factor(self) -> int:
+        return 2 ** (len(self.dim_mults) - 1)
+
+
+@dataclass(frozen=True)
+class TextEncoderConfig:
+    """UMT5 encoder, padded to max_length."""
+
+    vocab_size: int = 256384
+    d_model: int = 4096
+    d_kv: int = 64
+    num_heads: int = 64
+    d_ff: int = 10240
+    num_layers: int = 24
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_eps: float = 1e-6
+    max_length: int = 512
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class SchedulerConfig:
+    """Flow-match Euler discrete scheduler."""
+
+    num_train_timesteps: int = 1000
+    shift: float = 5.0  # resolution-dependent timestep shift
+    sigma_min: float = 0.001
+    sigma_max: float = 1.0
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    dit: DiTConfig = field(default_factory=DiTConfig)
+    vae: VAEConfig = field(default_factory=VAEConfig)
+    text: TextEncoderConfig = field(default_factory=TextEncoderConfig)
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    arch: str = "longcat"
+
+
+# ---------------------------------------------------------------------------
+# Presets (same geometry as the reference presets of the same name)
+# ---------------------------------------------------------------------------
+
+
+def longcat_13b() -> ModelConfig:
+    """The 13.6B-param LongCat-Video DiT geometry (48 blocks, hidden
+    4096, 32 heads of 128, t-embed 512) with UMT5-XXL and the WAN VAE."""
+    return ModelConfig(
+        vae=VAEConfig(param_dtype="bfloat16", compute_dtype="bfloat16"),
+    )
+
+
+def longcat_tiny() -> ModelConfig:
+    """Tiny config for unit tests and CPU dry runs."""
+    return ModelConfig(
+        dit=DiTConfig(
+            hidden_size=64,
+            depth=2,
+            num_heads=2,
+            ffn_dim=128,
+            adaln_tembed_dim=32,
+            text_dim=48,
+            text_len=16,
+            rope_dims=(8, 12, 12),
+            t_embed_freq_dim=32,
+            param_dtype="float32",
+            compute_dtype="float32",
+        ),
+        vae=VAEConfig(
+            z_dim=16,
+            base_dim=8,
+            dim_mults=(1, 2, 4, 4),
+            num_res_blocks=1,
+        ),
+        text=TextEncoderConfig(
+            vocab_size=512,
+            d_model=48,
+            d_kv=8,
+            num_heads=2,
+            d_ff=64,
+            num_layers=2,
+            max_length=16,
+            param_dtype="float32",
+            compute_dtype="float32",
+        ),
+    )
+
+
+def longcat_bench() -> ModelConfig:
+    """Full 480p token geometry with a 1.2B DiT (hidden 2048, 16 blocks,
+    16 heads of 128)."""
+    return ModelConfig(
+        dit=DiTConfig(
+            hidden_size=2048,
+            depth=16,
+            num_heads=16,
+            ffn_dim=5504,
+            adaln_tembed_dim=512,
+            text_dim=2048,
+            text_len=512,
+            rope_dims=(32, 48, 48),
+        ),
+        vae=VAEConfig(param_dtype="bfloat16", compute_dtype="bfloat16"),
+        text=TextEncoderConfig(
+            vocab_size=32128,
+            d_model=2048,
+            d_kv=64,
+            num_heads=32,
+            d_ff=5120,
+            num_layers=8,
+        ),
+    )
+
+
+def longcat_demo() -> ModelConfig:
+    """~93M-param demo DiT with the flagship's kernel layout (head_dim
+    128); pairs with 192x320 video (latents 24x40, 240 tokens/frame)."""
+    return ModelConfig(
+        dit=DiTConfig(
+            hidden_size=768,
+            depth=8,
+            num_heads=6,
+            ffn_dim=2048,
+            adaln_tembed_dim=256,
+            text_dim=256,
+            text_len=64,
+            rope_dims=(32, 48, 48),
+        ),
+        vae=VAEConfig(
+            base_dim=32,
+            num_res_blocks=1,
+        ),
+        text=TextEncoderConfig(
+            vocab_size=512,
+            d_model=256,
+            d_kv=32,
+            num_heads=8,
+            d_ff=512,
+            num_layers=2,
+            max_length=64,
+            param_dtype="float32",
+            compute_dtype="float32",
+        ),
+    )
+
+
+MODEL_PRESETS = {
+    "longcat_13b": longcat_13b,
+    "longcat_tiny": longcat_tiny,
+    "longcat_bench": longcat_bench,
+    "longcat_demo": longcat_demo,
+}
+
+
+def get_model_config(preset: str) -> ModelConfig:
+    if preset not in MODEL_PRESETS:
+        raise KeyError(f"unknown model preset {preset!r}")
+    return MODEL_PRESETS[preset]()
+
+
+# ---------------------------------------------------------------------------
+# Run configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FrameConfig:
+    """Anchor-based frame layout: conditioning frames end at
+    ``gen_start_frame``; generated frames start there."""
+
+    num_cond_frames: int = 14
+    num_frames: int = 28  # generated frames (rounded up to 4k+1)
+    gen_start_frame: int = 32  # anchor
+    tta_total_frames: Optional[int] = None  # default: num_cond_frames
+    tta_context_frames: Optional[int] = None  # default: num_cond_frames
+    height: int = 480
+    width: int = 832
+    fps: int = 24
+
+
+@dataclass(frozen=True)
+class GenerationConfig:
+    num_inference_steps: int = 50
+    guidance_scale: float = 4.0
+    use_kv_cache: bool = True
+    negative_prompt: str = ""
+
+
+@dataclass(frozen=True)
+class CaptionGuardConfig:
+    mode: str = "fail"  # "fail" | "warn" | "off"
+    min_nonempty_ratio: float = 0.95
+    min_unique_ratio: float = 0.10
+    max_top1_ratio: float = 0.50
+    max_generic_top1_ratio: float = 0.20
+    topk: int = 5

@@ -1,0 +1,259 @@
+"""Weights for the port's modules: the bridge from the reference's
+parameter trees (nested dicts of numpy arrays, e.g.
+``jax.tree.map(np.asarray, bundle.dit_params)``) and a seeded random
+init that draws on the device.
+
+One traversal per model walks the module and, for every leaf, asks a
+``get(path, index, shape, init)`` callback for a tensor in the
+reference's layout:
+  - linear kernels are [in, out] (``nn.Linear.weight`` is [out, in]);
+  - conv kernels are [kt, kh, kw, Cin, Cout] (the port's are
+    [Cout, Cin, kt, kh, kw]);
+  - depth-stacked leaves (DiT blocks, UMT5 layers) are asked for per
+    block with ``index`` set.
+The numpy getter reads the tree; the random getter draws from the
+distributions of ``init_dit`` (with ``zero_init=False``, as
+``ModelBundle.init_random`` uses), ``init_vae`` and ``init_umt5``. At
+full width the DiT alone is 27 GB in bf16, so the draws happen on the
+device, one leaf at a time.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import DiTConfig, ModelConfig, TextEncoderConfig, VAEConfig
+from .dit import LongCatDiT
+from .umt5 import UMT5Encoder
+from .vae import WanVAE, decoder_channel_plan
+
+# init spec: ("normal", std) | ("zeros",) | ("ones",)
+Getter = Callable[[Tuple[Any, ...], Optional[int], Tuple[int, ...], tuple],
+                  torch.Tensor]
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16 from a jax array
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def numpy_getter(tree: Dict[str, Any]) -> Getter:
+    def get(path, index, shape, init):
+        node = tree
+        for key in path:
+            node = node[key]
+        a = node if index is None else np.asarray(node)[index]
+        if tuple(np.shape(a)) != tuple(shape):
+            raise ValueError(f"{'/'.join(map(str, path))}[{index}]: shape "
+                             f"{np.shape(a)} != expected {tuple(shape)}")
+        return _to_torch(a)
+    return get
+
+
+def random_getter(generator: torch.Generator, device) -> Getter:
+    """Draws in place of reading, in fp32 on ``device`` (the leaf is cast
+    to its parameter's dtype when set, as the reference casts its fp32
+    draws)."""
+    def get(path, index, shape, init):
+        if init[0] == "zeros":
+            return torch.zeros(shape, device=device)
+        if init[0] == "ones":
+            return torch.ones(shape, device=device)
+        t = torch.empty(shape, device=device)
+        return t.normal_(0.0, init[1], generator=generator)
+    return get
+
+
+# ---------------------------------------------------------------------------
+# Leaf setters
+# ---------------------------------------------------------------------------
+
+
+def _set(param: torch.Tensor, value: torch.Tensor) -> None:
+    with torch.no_grad():
+        param.copy_(value.to(device=param.device, dtype=param.dtype))
+
+
+def _vec(param, get, path, index=None, init=("zeros",)):
+    _set(param, get(path, index, tuple(param.shape), init))
+
+
+def _kernel(weight, get, path, index=None, init=("normal", 0.02)):
+    """A linear kernel: [in, out] in the reference, [out, in] here."""
+    out_f, in_f = weight.shape
+    _set(weight, get(path, index, (in_f, out_f), init).t())
+
+
+def _dense(layer: nn.Linear, get, path, index=None, std=0.02,
+           zero_kernel: bool = False):
+    _kernel(layer.weight, get, path + ("kernel",), index,
+            ("zeros",) if zero_kernel else ("normal", std))
+    if layer.bias is not None:
+        _vec(layer.bias, get, path + ("bias",), index)
+
+
+def _conv(p, get, path, index=None):
+    cout, cin, kt, kh, kw = p.weight.shape
+    std = (kt * kh * kw * cin) ** -0.5
+    w = get(path + ("kernel",), index, (kt, kh, kw, cin, cout), ("normal", std))
+    _set(p.weight, w.permute(4, 3, 0, 1, 2))
+    _vec(p.bias, get, path + ("bias",), index)
+
+
+# ---------------------------------------------------------------------------
+# Traversals
+# ---------------------------------------------------------------------------
+
+
+def _fill_dit(m: LongCatDiT, get: Getter) -> None:
+    _dense(m.x_embed, get, ("x_embed",))
+    for w, b in (("w1", "b1"), ("w2", "b2")):  # {w1, b1, w2, b2} in the reference
+        _kernel(m.t_embed[w].weight, get, ("t_embed", w))
+        _vec(m.t_embed[w].bias, get, ("t_embed", b))
+    _dense(m.y_embed["in"], get, ("y_embed", "in"))
+    _dense(m.y_embed["out"], get, ("y_embed", "out"))
+    for i, blk in enumerate(m.blocks):
+        b = ("blocks",)
+        _dense(blk.adaln, get, b + ("adaln",), i)
+        _dense(blk.attn.qkv, get, b + ("attn", "qkv"), i)
+        _dense(blk.attn.proj, get, b + ("attn", "proj"), i)
+        _vec(blk.attn.q_norm, get, b + ("attn", "q_norm"), i, ("ones",))
+        _vec(blk.attn.k_norm, get, b + ("attn", "k_norm"), i, ("ones",))
+        ca = blk.cross_attn
+        _dense(ca.q, get, b + ("cross_attn", "q"), i)
+        _dense(ca.kv, get, b + ("cross_attn", "kv"), i)
+        _dense(ca.proj, get, b + ("cross_attn", "proj"), i)
+        _vec(ca.q_norm, get, b + ("cross_attn", "q_norm"), i, ("ones",))
+        _vec(ca.k_norm, get, b + ("cross_attn", "k_norm"), i, ("ones",))
+        _vec(blk.pre_crs_norm.weight, get, b + ("pre_crs_norm", "weight"), i,
+             ("ones",))
+        _vec(blk.pre_crs_norm.bias, get, b + ("pre_crs_norm", "bias"), i)
+        for name in ("w1", "w3", "w2"):
+            _dense(getattr(blk.ffn, name), get, b + ("ffn", name), i)
+    _dense(m.final["adaln"], get, ("final", "adaln"), zero_kernel=True)
+    _dense(m.final["proj"], get, ("final", "proj"))
+
+
+def _fill_umt5(m: UMT5Encoder, get: Getter) -> None:
+    cfg = m.cfg
+    d, dkv, dff = cfg.d_model, cfg.d_kv, cfg.d_ff
+    inner = cfg.num_heads * dkv
+    _vec(m.embed, get, ("embed",), None, ("normal", 1.0))
+    stds = {"q": (d * dkv) ** -0.5, "k": d ** -0.5, "v": d ** -0.5,
+            "o": inner ** -0.5, "wi0": d ** -0.5, "wi1": d ** -0.5,
+            "wo": dff ** -0.5}
+    for i, blk in enumerate(m.blocks):
+        b = ("blocks",)
+        _vec(blk.ln1, get, b + ("ln1",), i, ("ones",))
+        _vec(blk.ln2, get, b + ("ln2",), i, ("ones",))
+        _vec(blk.rel_bias, get, b + ("rel_bias",), i)
+        for name, std in stds.items():
+            _kernel(getattr(blk, name).weight, get, b + (name,), i, ("normal", std))
+    _vec(m.final_ln, get, ("final_ln",), None, ("ones",))
+
+
+def _fill_norm(p, get, path):
+    _vec(p.weight, get, path + ("weight",), None, ("ones",))
+    _vec(p.bias, get, path + ("bias",))
+
+
+def _fill_resblock(p, get, path):
+    _fill_norm(p.norm1, get, path + ("norm1",))
+    _conv(p.conv1, get, path + ("conv1",))
+    _fill_norm(p.norm2, get, path + ("norm2",))
+    _conv(p.conv2, get, path + ("conv2",))
+    if p.shortcut is not None:
+        _conv(p.shortcut, get, path + ("shortcut",))
+
+
+def _fill_mid(p, get, path):
+    _fill_resblock(p.res1, get, path + ("res1",))
+    a = p.attn
+    _fill_norm(a.norm, get, path + ("attn", "norm"))
+    c = a.q.weight.shape[0]
+    for name in ("q", "k", "v", "proj"):
+        _dense(getattr(a, name), get, path + ("attn", name), std=c ** -0.5)
+    _fill_resblock(p.res2, get, path + ("res2",))
+
+
+def _fill_vae(m: WanVAE, get: Getter) -> None:
+    cfg = m.cfg
+    e, d = m.enc, m.dec
+    _conv(e.conv_in, get, ("enc", "conv_in"))
+    for i, sc in enumerate(e.scales):
+        p = ("enc", "scales", i)
+        for j, rb in enumerate(sc.res):
+            _fill_resblock(rb, get, p + ("res", j))
+        if i < len(cfg.dim_mults) - 1:
+            _conv(sc.sdown, get, p + ("sdown",))
+            if cfg.temporal_downsample[i]:
+                _conv(sc.tdown, get, p + ("tdown",))
+    _fill_mid(e.mid, get, ("enc", "mid"))
+    _fill_norm(e.norm_out, get, ("enc", "norm_out"))
+    _conv(e.conv_out, get, ("enc", "conv_out"))
+    _conv(e.quant, get, ("enc", "quant"))
+
+    _conv(d.post_quant, get, ("dec", "post_quant"))
+    _conv(d.conv_in, get, ("dec", "conv_in"))
+    _fill_mid(d.mid, get, ("dec", "mid"))
+    for i, (sc, (_, _, has_rs, has_t)) in enumerate(
+            zip(d.scales, decoder_channel_plan(cfg))):
+        p = ("dec", "scales", i)
+        for j, rb in enumerate(sc.res):
+            _fill_resblock(rb, get, p + ("res", j))
+        if has_rs:
+            if has_t:
+                _conv(sc.tup, get, p + ("tup",))
+            _conv(sc.sup, get, p + ("sup",))
+    _fill_norm(d.norm_out, get, ("dec", "norm_out"))
+    _conv(d.conv_out, get, ("dec", "conv_out"))
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
+def _empty(cls, cfg, device) -> nn.Module:
+    """Build a module without running any init (parameters unset)."""
+    with torch.device("meta"):
+        m = cls(cfg)
+    return m.to_empty(device=device).eval().requires_grad_(False)
+
+
+def load_dit_from_numpy(tree, cfg: DiTConfig, device="cuda") -> LongCatDiT:
+    m = _empty(LongCatDiT, cfg, device)
+    _fill_dit(m, numpy_getter(tree))
+    return m
+
+
+def load_vae_from_numpy(tree, cfg: VAEConfig, device="cuda") -> WanVAE:
+    m = _empty(WanVAE, cfg, device)
+    _fill_vae(m, numpy_getter(tree))
+    return m
+
+
+def load_umt5_from_numpy(tree, cfg: TextEncoderConfig, device="cuda") -> UMT5Encoder:
+    m = _empty(UMT5Encoder, cfg, device)
+    _fill_umt5(m, numpy_getter(tree))
+    return m
+
+
+def init_random(cfg: ModelConfig, device, generator: torch.Generator):
+    """Random (dit, vae, text) modules drawn on ``device`` from
+    ``generator`` (which must live on that device), with the reference
+    inits' distributions."""
+    out = []
+    for cls, sub, fill in ((LongCatDiT, cfg.dit, _fill_dit),
+                           (WanVAE, cfg.vae, _fill_vae),
+                           (UMT5Encoder, cfg.text, _fill_umt5)):
+        m = _empty(cls, sub, device)
+        fill(m, random_getter(generator, device))
+        out.append(m)
+    return tuple(out)
