@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # from the repository root
 
 Phases (each one fails the run when it fails):
-  1. build: compile csrc/flash_fwd.cu with nvcc (sm_90a) into
-     longcat_video_tta_tpu_torch/csrc/build/ and print the build time and
+  1. build: compile csrc/flash_fwd.cu and csrc/flash_bwd.cu with nvcc
+     (sm_90a, one nvcc per source, started together) into
+     longcat_video_tta_tpu_torch/csrc/build/ and print the build times and
      ptxas resource lines;
   2. kernel check: the flash-attention kernel against its plain PyTorch
      version (``attention_reference``) in bf16 at the main path's shapes
@@ -16,19 +17,38 @@ Phases (each one fails the run when it fails):
      plain version and torch's scaled_dot_product_attention (yardstick
      only; the port never calls it) beside the least time the card could
      take (the bound);
-  3. small-input agreement: ``generate_vc`` on the card against the same
-     weights and noise on the CPU (plain path), longcat_demo widths;
-  4. main path: the port's runner (``--method none``) answers 2 requests
-     at LongCat-13.6B width (DiT 4096 / 32x128 heads / ffn 11008 / 48
-     blocks, UMT5-XXL, WAN VAE base 96; bf16, random weights drawn on the
-     card from a seed) at 480x832 with 5 conditioning frames, 8 generated
-     frames, 4 denoising steps and guidance 4.0. The kernel's launch
-     count over this run must equal the number of attention calls on the
-     path, and PSNR/SSIM must be finite.
+  3. backward kernel check: the dQ and dK/dV kernels against
+     ``attention_backward_reference`` on the card at the training shapes
+     (the delta_a train step's self-attention, 10 920 tokens with a
+     6240-token prefix, and its cross-attention dQ against 512 text
+     tokens) plus small ragged / fp16 / no-visible-key cases, with the
+     per-output gates below; times of each kernel, the plain version and
+     torch's scaled_dot_product_attention backward (yardstick only)
+     beside each kernel's bound;
+  4. small-input agreement: ``generate_vc`` on the card against the same
+     weights and noise on the CPU (plain path), and one delta_a train
+     step's loss and delta gradient on the card against the CPU, same
+     weights and injected sigma and noise, longcat_demo widths;
+  5. main path, serving: the port's runner (``--method none``) answers 2
+     requests at LongCat-13.6B width (DiT 4096 / 32x128 heads / ffn 11008
+     / 48 blocks, UMT5-XXL, WAN VAE base 96; bf16, random weights drawn
+     on the card from a seed) at 480x832 with 5 conditioning frames, 8
+     generated frames, 4 denoising steps and guidance 4.0. The forward
+     kernel's launch count over this run must equal the number of
+     attention calls on the path, and PSNR/SSIM must be finite;
+  6. main path, TTA: the runner's ``--method delta_a`` on 2 videos at the
+     same widths and depth: a 29-frame TTA window (4 cond, 3 train, 1 val
+     latents: one 10 920-token train sequence), 6 AdamW steps with the
+     anchor check every 3, then generation as in 5 with the trained
+     delta. Each kernel's launch count must equal the count the code
+     implies (``tta_launches``); losses, the anchor history and
+     PSNR/SSIM must be finite and the adapter must have moved.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Without a CUDA GPU the script exits with
-code 2 and prints no result.
+The counts of every kernel are set to 0 just before each main path and
+read just after; a kernel's ``launches`` in the kernels line is its sum
+over the two main paths. The line before the last is {"kernels": [...]};
+the last line is {"ok": true, "device": {...}}. Without a CUDA GPU the
+script exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -56,11 +76,29 @@ H100_BYTES_PER_S = 3.35e12  # HBM3 bandwidth
 # with eps the dtype's machine epsilon (bf16 2^-7, fp16 2^-10).
 O_EPS = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 LSE_TOL = 1e-3  # fp32 log-sum-exp: summation order only
+# Backward gates, per output d of (dq, dk, dv), against the plain version
+# on the same o, lse and do: the two roundings of the 16-bit output, plus
+# P and dS rounded to 16 bits at fp32 values that differ in the last bits
+# (summation order of S and dP), each a flip of at most one ulp on a few
+# elements of a long sum:
+#   max|d - d_ref|   <= 4 eps * max|d_ref|
+#   ||d - d_ref||_2  <= 2 eps * ||d_ref||_2
+GRAD_MAX_EPS, GRAD_L2_EPS = 4.0, 2.0
+GRAD_NAMES = {"flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
 E2E_PSNR_MIN = 30.0  # card vs CPU generate_vc on the same weights and noise
+# card vs CPU delta_a train step (bf16 model, the CPU runs the plain path)
+STEP_LOSS_RTOL, STEP_GRAD_COS_MIN, STEP_GRAD_REL_L2 = 1e-2, 0.99, 5e-2
 
 # main-path geometry (LongCat-13.6B widths, full 480x832 frames)
 MAIN = dict(height=480, width=832, cond_frames=5, gen_frames=8, steps=4,
             guidance=4.0, requests=2)
+# delta_a main path: the demo campaign's 29-frame TTA window
+# (campaign/demo/_delta_a.yaml) at full width and depth. Cut: 13
+# conditioning frames, 8 generated frames, 6 TTA steps with the anchor
+# check every 3, 4 denoising steps, 2 videos.
+TTA = dict(height=480, width=832, cond_frames=13, tta_total_frames=29,
+           gen_frames=8, tta_steps=6, check_every=3, patience=3,
+           inference_steps=4, guidance=4.0, videos=2)
 
 
 def _events_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -92,6 +130,18 @@ def _allowed_pairs(Sq: int, Sk: int, ncond: int, kv_valid=None) -> int:
 def _bound_ms(B, H, Sq, Sk, D, ncond, kv_valid, elem_bytes):
     flops = 4.0 * B * H * D * _allowed_pairs(Sq, Sk, ncond, kv_valid)
     nbytes = (2 * B * Sq * H * D + 2 * B * Sk * H * D) * elem_bytes + B * Sq * H * 4
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _bwd_bound_ms(B, H, Sq, Sk, D, ncond, kv_valid, elem_bytes, dkv: bool):
+    """Least time of one backward kernel: 8*D FLOP per allowed pair for
+    dK/dV (S, dP, dV, dK), 6*D for dQ (S, dP, dQ); bytes: q, k, v, dO and
+    the fp32 lse and delta read once, dq (or dk and dv) written once."""
+    flops = (8.0 if dkv else 6.0) * B * H * D * _allowed_pairs(Sq, Sk, ncond, kv_valid)
+    n_out = 2 * Sk if dkv else Sq
+    nbytes = ((2 * Sq + 2 * Sk + n_out) * B * H * D * elem_bytes + 2 * B * Sq * H * 4)
     t_ops = flops / H100_BF16_FLOPS * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -226,6 +276,123 @@ def phase_kernel_checks(fa, dit_cfg, tokens_per_frame):
     return cases
 
 
+def backward_reference(fa, q, k, v, o, lse, do, ncond, kv_valid):
+    """The plain backward, chunked over heads: its fp32 S, P, dP and dS of
+    32 heads at 10 920^2 would not fit beside the inputs."""
+    import torch
+
+    B, Sq, H, _ = q.shape
+    chunk = max(1, min(H, int(6e9 // (8 * B * Sq * k.shape[1] * 4))))
+    outs = []
+    for h0 in range(0, H, chunk):
+        sl = slice(h0, h0 + chunk)
+        outs.append(fa.attention_backward_reference(
+            q[:, :, sl], k[:, :, sl], v[:, :, sl], o[:, :, sl], lse[:, :, sl],
+            do[:, :, sl], num_cond_tokens=ncond, kv_valid_len=kv_valid))
+    return tuple(torch.cat(parts, dim=2) for parts in zip(*outs))
+
+
+def grad_errors(d, d_ref, dtype_name):
+    eps = O_EPS[dtype_name]
+    diff, ref = d.float() - d_ref.float(), d_ref.float()
+    e = {"max_abs_err": float(diff.abs().max()),
+         "max_tol": GRAD_MAX_EPS * eps * float(ref.abs().max()),
+         "l2_err": float(diff.norm()),
+         "l2_tol": GRAD_L2_EPS * eps * float(ref.norm())}
+    e["ok"] = (bool(d.isfinite().all()) and e["max_abs_err"] <= e["max_tol"]
+               and e["l2_err"] <= e["l2_tol"])
+    return e
+
+
+def check_bwd_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
+                   dtype_name="bfloat16", fused_kv=False, timed=False, seed=0,
+                   dkv=True, all_zero=False):
+    """The dQ (and, with ``dkv``, dK/dV) kernel against the plain backward
+    on one shape, from the forward kernel's o and lse; returns a result
+    dict per kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = case_inputs(B, H, Sq, Sk, D, dtype_name=dtype_name, fused_kv=fused_kv,
+                          seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    kw = dict(num_cond_tokens=ncond, kv_valid_len=kv_valid)
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    got = {"flash_bwd_dq": (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),)}
+    if dkv:
+        got["flash_bwd_dkv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    ref_dq, ref_dk, ref_dv = backward_reference(fa, q, k, v, o, lse, do, ncond, kv_valid)
+    refs = {"flash_bwd_dq": (ref_dq,), "flash_bwd_dkv": (ref_dk, ref_dv)}
+    del ref_dq, ref_dk, ref_dv
+    results = []
+    for kname, outs in got.items():
+        res = {"kernel": kname, "case": name, "B": B, "H": H, "Sq": Sq, "Sk": Sk,
+               "D": D, "ncond": ncond, "kv_valid": kv_valid, "dtype": dtype_name}
+        for oname, d, d_ref in zip(GRAD_NAMES[kname], outs, refs[kname]):
+            e = grad_errors(d, d_ref, dtype_name)
+            ok = e.pop("ok")
+            if all_zero:
+                ok = ok and float(d.abs().max()) == 0.0
+            res.update({f"{oname}_{key}": val for key, val in e.items()})
+            if not ok:
+                raise AssertionError(f"backward case {name} {oname}: {json.dumps(res)}")
+        res["max_abs_err"] = max(v_ for key, v_ in res.items()
+                                 if key.endswith("_max_abs_err"))
+        results.append(res)
+    del refs, got
+    if timed:
+        plain_ms = _events_ms(lambda: backward_reference(fa, q, k, v, o, lse, do,
+                                                         ncond, kv_valid),
+                              iters=1, warmup=0)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        mask = None
+        if ncond > 0 and Sq == Sk:
+            idx = torch.arange(Sq, device="cuda")
+            mask = (idx[:, None] >= ncond) | (idx[None, :] < ncond)
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        dot = do.transpose(1, 2).contiguous()
+        library_ms = _events_ms(lambda: ot.backward(dot, retain_graph=True), iters=5)
+        del qt, kt, vt, ot, dot
+        for res in results:
+            is_dkv = res["kernel"] == "flash_bwd_dkv"
+            fn = fa.flash_attention_bwd_dkv if is_dkv else fa.flash_attention_bwd_dq
+            res["ms"] = _events_ms(lambda: fn(q, k, v, do, lse, delta, **kw), iters=10)
+            # the plain version and SDPA compute dq, dk and dv in one call
+            res["plain_ms"] = plain_ms
+            res["library_ms"] = library_ms
+            res["bound_ms"], res["bound_by"] = _bwd_bound_ms(
+                B, H, Sq, Sk, D, ncond, kv_valid, q.element_size(), is_dkv)
+    return results
+
+
+def phase_bwd_kernel_checks(fa, dit_cfg, tokens_per_frame):
+    """The backward kernels at the delta_a train step's shapes, then small
+    ragged cases."""
+    H, D = dit_cfg.num_heads, dit_cfg.head_dim
+    n_cond_lat, n_train_lat = tta_split()[:2]
+    s_train = (n_cond_lat + n_train_lat) * tokens_per_frame
+    ncond = n_cond_lat * tokens_per_frame
+    cases = check_bwd_case(fa, "train_self", 1, H, s_train, s_train, D, ncond=ncond,
+                           timed=True, seed=21)
+    cases += check_bwd_case(fa, "train_cross_dq", 1, H, s_train, dit_cfg.text_len, D,
+                            fused_kv=True, timed=True, seed=22, dkv=False)
+    cases += check_bwd_case(fa, "ragged_prefix_d32", 2, 2, 150, 150, 32, ncond=37,
+                            seed=23)
+    cases += check_bwd_case(fa, "ragged_kv_valid_d64", 1, 3, 200, 333, 64,
+                            kv_valid=250, seed=24)
+    cases += check_bwd_case(fa, "fp16_d128", 1, 2, 96, 130, 128,
+                            dtype_name="float16", seed=25)
+    cases += check_bwd_case(fa, "no_visible_key", 1, 2, 64, 64, 64, kv_valid=0,
+                            seed=26, all_zero=True)
+    for c in cases:
+        print("[bwd-kernel] " + json.dumps(c))
+    return cases
+
+
 def phase_small_agreement():
     """generate_vc on the card vs the CPU plain path, same weights and
     noise (longcat_demo widths at a small frame size)."""
@@ -255,6 +422,64 @@ def phase_small_agreement():
           f"(min {E2E_PSNR_MIN})")
     if not (np.isfinite(b).all() and psnr >= E2E_PSNR_MIN):
         raise AssertionError("card and CPU generate_vc disagree")
+
+
+def delta_step(dit, delta, cond, target, emb, mask, sigma, noise):
+    """Loss and d(loss)/d(delta) of one delta_a train step."""
+    import torch
+
+    from longcat_video_tta_tpu_torch.tta.losses import flow_matching_loss_conditioned
+
+    delta = delta.detach().clone().requires_grad_(True)
+    loss = flow_matching_loss_conditioned(dit, cond, target, emb, mask,
+                                          adapters={"delta_t": delta},
+                                          sigma=sigma, noise=noise)
+    (grad,) = torch.autograd.grad(loss, [delta])
+    return float(loss.detach()), grad.double().cpu()
+
+
+def phase_step_agreement():
+    """One delta_a train step (loss and delta gradient) on the card vs the
+    CPU plain path: longcat_demo widths (bf16), same weights, same injected
+    sigma and noise; 2 cond + 1 target latents of 8 x 16."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import longcat_demo
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle
+
+    cfg = longcat_demo()
+    cpu_dit = ModelBundle.init_random(cfg, seed=4, device="cpu").dit
+    gpu_dit = copy.deepcopy(cpu_dit).cuda()
+    rng = np.random.default_rng(1)
+    arrays = dict(
+        cond=rng.standard_normal((1, 16, 2, 8, 16)),
+        target=rng.standard_normal((1, 16, 1, 8, 16)),
+        emb=rng.standard_normal((1, cfg.dit.text_len, cfg.dit.text_dim)),
+        sigma=np.array([0.6]),
+        noise=rng.standard_normal((1, 16, 1, 8, 16)),
+        delta=0.1 * rng.standard_normal((cfg.dit.adaln_tembed_dim,)))
+    mask = np.ones((1, cfg.dit.text_len), np.int64)
+    mask[:, 20:] = 0
+    on = lambda dev: dict(
+        {k: torch.from_numpy(a.astype(np.float32)).to(dev) for k, a in arrays.items()},
+        mask=torch.from_numpy(mask).to(dev))
+    a, b = on("cpu"), on("cuda")
+    args = ("delta", "cond", "target", "emb", "mask", "sigma", "noise")
+    loss_c, grad_c = delta_step(cpu_dit, *(a[k] for k in args))
+    loss_g, grad_g = delta_step(gpu_dit, *(b[k] for k in args))
+    rel_loss = abs(loss_g - loss_c) / abs(loss_c)
+    cos = float((grad_g @ grad_c) / (grad_g.norm() * grad_c.norm()))
+    rel_l2 = float((grad_g - grad_c).norm() / grad_c.norm())
+    print(f"[agree] longcat_demo delta_a step card vs cpu: loss {loss_g:.6g} vs "
+          f"{loss_c:.6g} (rel {rel_loss:.3g}, max {STEP_LOSS_RTOL}); grad cosine "
+          f"{cos:.6f} (min {STEP_GRAD_COS_MIN}), rel L2 {rel_l2:.3g} "
+          f"(max {STEP_GRAD_REL_L2}), |grad| {float(grad_c.norm()):.4g}")
+    if not (rel_loss <= STEP_LOSS_RTOL and cos >= STEP_GRAD_COS_MIN
+            and rel_l2 <= STEP_GRAD_REL_L2):
+        raise AssertionError("card and CPU delta_a train steps disagree")
 
 
 def phase_main_path(fa, depth):
@@ -301,6 +526,91 @@ def phase_main_path(fa, depth):
     return launches, per_request
 
 
+def tta_split():
+    """(cond, train, val) latents of the TTA window, as the runner splits
+    it (tta/split.py)."""
+    from longcat_video_tta_tpu_torch.tta.split import estimate_tta_split_budget
+
+    s = estimate_tta_split_budget(TTA["tta_total_frames"],
+                                  min(TTA["cond_frames"], TTA["tta_total_frames"]))
+    return s["cond_latents"], s["train_latents"], s["val_latents"]
+
+
+def tta_launches(depth: int):
+    """Launches per kernel that the delta_a path implies for one video,
+    with 2 attention calls (self + cross) per block:
+      - a train step runs the forward once, then the full-remat backward
+        recomputes every block (forward kernel again) and runs dQ for
+        both attentions and dK/dV for self-attention only (cross-
+        attention's k, v come from the frozen text path): forward
+        2 x 2 x depth, dQ 2 x depth, dK/dV depth;
+      - an anchor eval is one batched forward: 2 x depth; there is one at
+        setup and one per check (steps // check_every, no early stop
+        since patience exceeds the number of checks);
+      - generation: the cond-cache precompute plus one decode per step,
+        each 2 x depth, as in the serving path."""
+    steps, checks = TTA["tta_steps"], TTA["tta_steps"] // TTA["check_every"]
+    assert checks < TTA["patience"]
+    per_attn = 2 * depth
+    return {
+        "flash_fwd": steps * 2 * per_attn + (1 + checks) * per_attn
+        + per_attn * (1 + TTA["inference_steps"]),
+        "flash_bwd_dq": steps * per_attn,
+        "flash_bwd_dkv": steps * depth,
+    }
+
+
+def phase_tta_path(fa, depth):
+    import numpy as np
+
+    from longcat_video_tta_tpu_torch.runners import run_tta
+
+    out_dir = os.path.join(RUN_DIR, "tta")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--method", "delta_a", "--preset", "longcat_13b",
+            "--synthetic", str(TTA["videos"]), "--output-dir", out_dir,
+            "--device", "cuda", "--height", str(TTA["height"]),
+            "--width", str(TTA["width"]),
+            "--num-cond-frames", str(TTA["cond_frames"]),
+            "--tta-total-frames", str(TTA["tta_total_frames"]),
+            "--num-frames", str(TTA["gen_frames"]),
+            "--steps", str(TTA["tta_steps"]),
+            "--es-check-every", str(TTA["check_every"]),
+            "--es-patience", str(TTA["patience"]),
+            "--num-inference-steps", str(TTA["inference_steps"]),
+            "--guidance-scale", str(TTA["guidance"]), "--no-save-videos"]
+    print("[tta] run_tta " + " ".join(argv))
+    print(f"[tta] geometry: {TTA}; split (cond, train, val) latents {tta_split()}; "
+          f"cuts: frame and step counts only (full depth {depth}, full widths)")
+    fa.reset_launches()
+    t0 = time.time()
+    summary = run_tta.main(argv)
+    wall = time.time() - t0
+    got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+           "flash_bwd_dkv": fa.bwd_dkv_launches}
+    shutil.rmtree(os.path.join(out_dir, "synthetic_data"), ignore_errors=True)
+
+    for i, r in enumerate(summary["results"]):
+        print(f"[tta] video {i}: success={r['success']} train_time={r.get('train_time')} s "
+              f"es_check_time={r.get('es_check_time')} s gen_time={r.get('gen_time')} s "
+              f"total_time={r.get('total_time')} s losses={r.get('losses')} "
+              f"adapter_norm={r.get('adapter_norm')} psnr={r.get('psnr')} "
+              f"ssim={r.get('ssim')} early_stopping_info={r.get('early_stopping_info')}"
+              + (f" error={r['error']}" if "error" in r else ""))
+    expected = {k: TTA["videos"] * n for k, n in tta_launches(depth).items()}
+    print(f"[tta] wall {wall:.1f} s; launches {got} (expected {expected})")
+    if summary["num_success"] != TTA["videos"]:
+        raise AssertionError(f"{summary['num_success']}/{TTA['videos']} videos succeeded")
+    for r in summary["results"]:
+        history = [loss for _, loss in r["early_stopping_info"]["loss_history"]]
+        finite = np.isfinite(r["losses"] + history + [r["psnr"], r["ssim"]]).all()
+        if not (finite and len(r["losses"]) == TTA["tta_steps"] and r["adapter_norm"] > 0):
+            raise AssertionError(f"delta_a video result out of bounds: {r}")
+    if got != expected or min(got.values()) <= 0:
+        raise AssertionError(f"kernel launches on the delta_a path {got}, expected {expected}")
+    return got
+
+
 def main() -> int:
     try:
         import torch
@@ -324,35 +634,47 @@ def main() -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    path, log, seconds = fa.build_library()
-    print(f"[build] {os.path.relpath(path, ROOT)} in {seconds:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {line.strip()}")
+    for path, log, seconds in fa.build_libraries():
+        print(f"[build] {os.path.relpath(path, ROOT)} in {seconds:.1f} s")
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                print(f"[build] {line.split(chr(39))[1]}")
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {line.strip()}")
 
     cfg = longcat_13b()
     sf = cfg.vae.spatial_factor * cfg.dit.patch_size[1]
     tokens_per_frame = (MAIN["height"] // sf) * (MAIN["width"] // sf)
     cases = phase_kernel_checks(fa, cfg.dit, tokens_per_frame)
     torch.cuda.empty_cache()
-    phase_small_agreement()
+    bwd_cases = phase_bwd_kernel_checks(fa, cfg.dit, tokens_per_frame)
     torch.cuda.empty_cache()
-    launches, _ = phase_main_path(fa, cfg.dit.depth)
+    phase_small_agreement()
+    phase_step_agreement()
+    torch.cuda.empty_cache()
+    serving_launches, _ = phase_main_path(fa, cfg.dit.depth)
+    torch.cuda.empty_cache()
+    tta = phase_tta_path(fa, cfg.dit.depth)
 
-    main_case = cases[0]
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "longcat_video_tta_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "longcat_video_tta_tpu/ops/flash_attention.py:133",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }]
+    def entry(name, source, replaces, launches, all_cases):
+        timed = next(c for c in all_cases if "ms" in c)
+        return {"name": name, "route": "cuda",
+                "source": f"longcat_video_tta_tpu_torch/csrc/{source}",
+                "replaces": f"longcat_video_tta_tpu/ops/flash_attention.py:{replaces}",
+                "launches": launches,
+                "max_abs_err": max(c["max_abs_err"] for c in all_cases),
+                **{key: timed[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}}
+
+    by_kernel = lambda name: [c for c in bwd_cases if c["kernel"] == name]
+    kernels = [
+        entry("flash_fwd", "flash_fwd.cu", 133,
+              serving_launches + tta["flash_fwd"], cases),
+        entry("flash_bwd_dq", "flash_bwd.cu", 327, tta["flash_bwd_dq"],
+              by_kernel("flash_bwd_dq")),
+        entry("flash_bwd_dkv", "flash_bwd.cu", 261, tta["flash_bwd_dkv"],
+              by_kernel("flash_bwd_dkv")),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,6 +54,11 @@ class DiTConfig:
     t_embed_freq_dim: int = 256
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    # per-block gradient checkpoint in training (ops/layers.py::remat_wrap):
+    # "full" recomputes the whole block in the backward; the reference's
+    # "dots" / "dots_attn" policies are not ported yet
+    remat: bool = True
+    remat_policy: str = "full"
 
     @property
     def head_dim(self) -> int:
@@ -165,6 +170,7 @@ def longcat_tiny() -> ModelConfig:
             t_embed_freq_dim=32,
             param_dtype="float32",
             compute_dtype="float32",
+            remat=False,
         ),
         vae=VAEConfig(
             z_dim=16,
@@ -199,6 +205,7 @@ def longcat_bench() -> ModelConfig:
             text_dim=2048,
             text_len=512,
             rope_dims=(32, 48, 48),
+            remat_policy="dots_attn",
         ),
         vae=VAEConfig(param_dtype="bfloat16", compute_dtype="bfloat16"),
         text=TextEncoderConfig(
@@ -225,6 +232,7 @@ def longcat_demo() -> ModelConfig:
             text_dim=256,
             text_len=64,
             rope_dims=(32, 48, 48),
+            remat=False,
         ),
         vae=VAEConfig(
             base_dim=32,
@@ -259,8 +267,42 @@ def get_model_config(preset: str) -> ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Run configs
+# Run / TTA configs
 # ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class EarlyStoppingConfig:
+    """Anchored early stopping (the reference's ``EarlyStoppingConfig``)."""
+
+    enabled: bool = True
+    check_every: int = 5
+    patience: int = 3
+    anchor_sigmas: Tuple[float, ...] = (0.25, 0.5, 0.75)
+    noise_draws: int = 2
+    strategy: str = "patience"  # "patience" | "first_rise"
+    holdout_fraction: float = 0.25
+
+
+@dataclass(frozen=True)
+class AdapterConfig:
+    """The TTA method; only ``delta_a`` (one delta on the t-embedding) is
+    ported, so the method's own knobs are not here yet."""
+
+    method: str = "delta_a"
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    optimizer: str = "adamw"  # "adamw" | "sgd"
+    lr: float = 1e-3
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-15
+    momentum: float = 0.0  # sgd (momentum-free by default)
+    grad_clip_norm: float = 1.0
+    steps: int = 20
+    warmup_steps: int = 0  # linear warmup 0 -> lr, then constant
+    weight_decay: float = 0.01
 
 
 @dataclass(frozen=True)

@@ -47,20 +47,19 @@
 //    the first noise key tile, and tiles past kv_valid are never loaded.
 // Later work: TMA loads, wgmma, warp specialisation.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
+
+using namespace flash;
 
 constexpr int BQ = 128;  // query rows per CTA
 constexpr int BK = 64;   // keys per tile
 constexpr int NWARPS = BQ / 16;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr float LSE_EMPTY = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
@@ -70,86 +69,6 @@ struct Smem {
   static constexpr int KV = BK * LD;
   static constexpr size_t BYTES = size_t(Q + 4 * KV) * 2;  // Q, 2 x K, 2 x V
 };
-
-template <typename T> struct Mma;
-
-template <> struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <> struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16-byte global -> shared copy; with valid == false nothing is read and
-// the 16 shared bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Start copying rows [row0, row0 + ROWS) of one head into a padded
-// shared tile; rows at or past `nrows` are zero-filled.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src, long long tstride,
-                                                int row0, int nrows) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  constexpr int LD = Smem<D>::LD;
-#pragma unroll
-  for (int c = threadIdx.x; c < ROWS * CHUNKS; c += NTHREADS) {
-    const int r = c / CHUNKS;
-    const int cc = c % CHUNKS;
-    const bool ok = row0 + r < nrows;
-    const T* g = ok ? src + (long long)(row0 + r) * tstride + cc * 8 : src;
-    cp_async16(dst + r * LD + cc * 8, g, ok);
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
@@ -192,10 +111,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (rows_all_cond) k_stop = min(k_stop, max(0, ncond - k_off));
   const int n_tiles = (k_stop + BK - 1) / BK;
 
-  load_tile_async<T, D, BQ>(sQ, qh, q_ts, q0, Sq);
+  load_tile_async<T, D, BQ, NTHREADS>(sQ, qh, q_ts, q0, Sq);
   if (n_tiles > 0) {
-    load_tile_async<T, D, BK>(sK, kh, k_ts, 0, Sk);
-    load_tile_async<T, D, BK>(sV, vh, v_ts, 0, Sk);
+    load_tile_async<T, D, BK, NTHREADS>(sK, kh, k_ts, 0, Sk);
+    load_tile_async<T, D, BK, NTHREADS>(sV, vh, v_ts, 0, Sk);
   }
   cp_async_commit();
 
@@ -220,8 +139,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     const int stage = t & 1;
     if (t + 1 < n_tiles) {
-      load_tile_async<T, D, BK>(sK + (stage ^ 1) * L::KV, kh, k_ts, (t + 1) * BK, Sk);
-      load_tile_async<T, D, BK>(sV + (stage ^ 1) * L::KV, vh, v_ts, (t + 1) * BK, Sk);
+      load_tile_async<T, D, BK, NTHREADS>(sK + (stage ^ 1) * L::KV, kh, k_ts, (t + 1) * BK, Sk);
+      load_tile_async<T, D, BK, NTHREADS>(sV + (stage ^ 1) * L::KV, vh, v_ts, (t + 1) * BK, Sk);
     }
     cp_async_commit();
     const T* cK = sK + stage * L::KV;

@@ -8,10 +8,13 @@ the text tokens; SwiGLU ffn w1/w2/w3}, per-latent-frame timesteps,
 unpatchify. Where the reference stacks blocks on a depth axis and scans,
 the port holds an ``nn.ModuleList``.
 
-Three entry points (adapter and PAB arguments are not ported yet):
+Three entry points (PAB arguments are not ported yet):
   - ``forward``                (reference ``dit_forward``)
   - ``precompute_cond_cache``  (``dit_precompute_cond_cache``)
   - ``forward_with_cache``     (``dit_forward_with_cache``)
+Each takes the reference's ``adapters`` dict; only ``delta_t`` (the
+delta_a adapter, added to the fp32 t-embedding) is ported. In training
+(grad enabled) ``forward`` checkpoints every block when ``cfg.remat``.
 
 Parameter names follow the reference's parameter tree (``x_embed``,
 ``blocks[i].attn.qkv`` ...) so ``models/weights.py`` maps one onto the
@@ -20,7 +23,7 @@ other. Linear weights are stored [out, in] (``nn.Linear``).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,12 +37,15 @@ from ..ops.layers import (
     linear,
     mlp_embedder,
     modulate,
+    remat_wrap,
     rms_norm,
     rope_3d_angles,
     timestep_embedding,
 )
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]  # (k, v) each [depth, B, S, H, D]
+AdapterDict = Optional[Dict[str, torch.Tensor]]
+PORTED_ADAPTERS = ("delta_t",)
 
 
 def patchify(x: torch.Tensor, patch: Tuple[int, int, int]) -> torch.Tensor:
@@ -210,9 +216,15 @@ class LongCatDiT(nn.Module):
         })
 
     # ------------------------------------------------------------------
-    def _embed_inputs(self, latents, timesteps, text_emb, text_mask):
+    def _embed_inputs(self, latents, timesteps, text_emb, text_mask,
+                      adapters: AdapterDict = None):
         """Returns (x [B,nt,nhw,D], t_emb fp32 [B,nt,Ct], y [B,L,D], dims)."""
         cfg = self.cfg
+        unported = sorted(set(adapters or {}) - set(PORTED_ADAPTERS))
+        if unported:
+            raise NotImplementedError(
+                f"DiT adapters {unported} are not yet ported (only delta_t; the "
+                "other TTA methods come in a later slice)")
         cdtype = resolve_dtype(cfg.compute_dtype)
         B, C, T, H, W = latents.shape
         pt, ph, pw = cfg.patch_size
@@ -226,6 +238,8 @@ class LongCatDiT(nn.Module):
             timesteps = timesteps[:, None].expand(B, nt)
         feats = timestep_embedding(timesteps, cfg.t_embed_freq_dim)
         t_emb = mlp_embedder(self.t_embed["w1"], self.t_embed["w2"], feats)
+        if adapters and "delta_t" in adapters:
+            t_emb = t_emb + adapters["delta_t"].float()[None, None, :]
 
         if text_emb.ndim == 4:  # the reference's [B, 1, L, C] layout
             text_emb = text_emb[:, 0]
@@ -251,28 +265,36 @@ class LongCatDiT(nn.Module):
 
     # ------------------------------------------------------------------
     def forward(self, latents, timesteps, text_emb, text_mask=None, *,
-                num_cond_latents: int = 0) -> torch.Tensor:
+                num_cond_latents: int = 0,
+                adapters: AdapterDict = None) -> torch.Tensor:
         """Full forward (training / no-cache sampling): latents
         [B, C, T, H, W], timesteps [B] or [B, N_t] (sigma * 1000).
         The first ``num_cond_latents`` latent frames get the prefix
         attention treatment."""
+        cfg = self.cfg
         x, t_emb, y, (nt, nh, nw) = self._embed_inputs(
-            latents, timesteps, text_emb, text_mask)
+            latents, timesteps, text_emb, text_mask, adapters)
         cos, sin = self._rope(nt, nh, nw, latents.device)
-        num_cond_tokens = (num_cond_latents // self.cfg.patch_size[0]) * nh * nw
+        num_cond_tokens = (num_cond_latents // cfg.patch_size[0]) * nh * nw
+
+        def block(blk, x, t_emb):
+            return blk(x, t_emb, y, cos, sin, num_cond_tokens)[0]
+
+        body = remat_wrap(block, cfg.remat and torch.is_grad_enabled(),
+                          cfg.remat_policy)
         for blk in self.blocks:
-            x, _ = blk(x, t_emb, y, cos, sin, num_cond_tokens)
+            x = body(blk, x, t_emb)
         return self._final_layer(x, t_emb, nt, nh, nw)
 
-    def precompute_cond_cache(self, cond_latents, text_emb,
-                              text_mask=None) -> KVCache:
+    def precompute_cond_cache(self, cond_latents, text_emb, text_mask=None, *,
+                              adapters: AdapterDict = None) -> KVCache:
         """Run the conditioning tokens (timestep 0) through every block
         once, collecting per-block K/V: (k, v) each
         [depth, B, S_cond, heads, head_dim]."""
         B = cond_latents.shape[0]
         t0 = torch.zeros((B,), dtype=torch.float32, device=cond_latents.device)
         x, t_emb, y, (nt, nh, nw) = self._embed_inputs(
-            cond_latents, t0, text_emb, text_mask)
+            cond_latents, t0, text_emb, text_mask, adapters)
         cos, sin = self._rope(nt, nh, nw, cond_latents.device)
         num_cond_tokens = nt * nh * nw  # every token is conditioning here
         k_all = v_all = None
@@ -286,12 +308,13 @@ class LongCatDiT(nn.Module):
         return k_all, v_all
 
     def forward_with_cache(self, noise_latents, timesteps, text_emb, text_mask,
-                           kv_cache: KVCache, *, num_cond_latents: int):
+                           kv_cache: KVCache, *, num_cond_latents: int,
+                           adapters: AdapterDict = None):
         """Decode-phase forward: noise tokens only, self-attention against
         [cached cond K/V ++ fresh noise K/V]. Returns the velocity of the
         noise region, fp32 [B, C_out, T_noise, H, W]."""
         x, t_emb, y, (nt, nh, nw) = self._embed_inputs(
-            noise_latents, timesteps, text_emb, text_mask)
+            noise_latents, timesteps, text_emb, text_mask, adapters)
         nt_cond = num_cond_latents // self.cfg.patch_size[0]
         # noise-frame tokens sit after the conditioning frames in RoPE space
         cos, sin = self._rope(nt, nh, nw, noise_latents.device, t_offset=nt_cond)

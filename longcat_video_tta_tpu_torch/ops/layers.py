@@ -1,15 +1,16 @@
 """Primitive layers shared across models: norms, modulation, linear,
-sinusoidal embeddings, 3D RoPE. Plain tensor functions; each computes in
-the same precision as its reference counterpart
-(``longcat_video_tta_tpu/ops/layers.py``)."""
+sinusoidal embeddings, 3D RoPE, and the per-block gradient-checkpoint
+wrapper. Plain tensor functions; each computes in the same precision as
+its reference counterpart (``longcat_video_tta_tpu/ops/layers.py``)."""
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -97,3 +98,23 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     c = cos[None, :, :, None, :].to(x.dtype)
     s = sin[None, :, :, None, :].to(x.dtype)
     return torch.cat([xa * c - xb * s, xb * c + xa * s], dim=-1)
+
+
+def remat_wrap(body: Callable, remat: bool, policy: str = "full") -> Callable:
+    """Per-block gradient checkpoint (the reference's ``remat_wrap``,
+    :141): with ``policy="full"`` the block keeps only its inputs and is
+    recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant, as the LongCat reference's torch checkpoint). The
+    reference's "dots" / "dots_attn" policies, which also save matmul
+    outputs and the flash o/lse, are not ported yet."""
+    if not remat:
+        return body
+    if policy != "full":
+        raise NotImplementedError(
+            f"remat policy {policy!r} is not yet ported (only 'full' is)")
+
+    def wrapped(*args, **kwargs):
+        return torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False,
+                                                 **kwargs)
+
+    return wrapped

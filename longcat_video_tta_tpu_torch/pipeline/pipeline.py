@@ -126,6 +126,7 @@ def generate_vc(
     negative_prompt: str = "",
     use_kv_cache: bool = True,
     init_noise: Optional[torch.Tensor] = None,
+    adapters: Optional[Dict[str, torch.Tensor]] = None,
     on_phase: Optional[Callable[[str], None]] = None,
 ) -> np.ndarray:
     """Video continuation. Returns the generated frames [N, H, W, 3] in
@@ -135,7 +136,8 @@ def generate_vc(
     ``init_noise`` ([1, C, L*, lat_h, lat_w], unit variance) overwrites
     its leading L* latent frames (the reference's carried-noise rule;
     tests pass a full-size draw so both packages start from the same
-    noise).
+    noise). ``adapters`` (a TTA scheme's ``to_forward`` output) reach
+    every DiT call of the sampler.
 
     ``on_phase(name)``, if given, is called as each phase begins:
     "vae_encode", "prompt_encode", "cond_cache" (KV-cache path only), one
@@ -166,7 +168,8 @@ def generate_vc(
         bundle.dit, cfg.scheduler, emb, mask, nemb, nmask, guidance_scale,
         num_gen_latents=n_gen_latents, num_steps=num_inference_steps,
         lat_h=lat_h, lat_w=lat_w, cond_latents=cond_latents,
-        use_kv_cache=use_kv_cache, init_noise=noise, on_phase=on_phase)
+        use_kv_cache=use_kv_cache, init_noise=noise, adapters=adapters,
+        on_phase=on_phase)
 
     # Decode [cond | gen] together so the causal decoder sees the real
     # temporal context; n_cond latents decode to 1 + (n_cond-1)*tf

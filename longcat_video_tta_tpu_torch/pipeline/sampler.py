@@ -19,12 +19,13 @@ import torch
 
 from ..config import SchedulerConfig
 from ..models import scheduler as sched
-from ..models.dit import LongCatDiT
+from ..models.dit import AdapterDict, LongCatDiT
 
 
 def _denoise_loop(dit: LongCatDiT, sched_cfg: SchedulerConfig, x, sigmas,
                   emb2, mask2, g: float, cond2, kv_cache, *, n_cond: int,
-                  use_kv_cache: bool, mark: Callable[[str], None]):
+                  use_kv_cache: bool, adapters: AdapterDict,
+                  mark: Callable[[str], None]):
     """The CFG Euler loop over ``sigmas`` ((n_steps + 1,) fp32)."""
     B = x.shape[0]
     nt_total = n_cond + x.shape[2]
@@ -34,17 +35,19 @@ def _denoise_loop(dit: LongCatDiT, sched_cfg: SchedulerConfig, x, sigmas,
         t_val = sched.sigma_to_timestep(sigma, sched_cfg)
         xb = torch.cat([x, x], dim=0)
         if n_cond == 0:
-            v2 = dit(xb, t_val.expand(2 * B), emb2, mask2, num_cond_latents=0)
+            v2 = dit(xb, t_val.expand(2 * B), emb2, mask2, num_cond_latents=0,
+                     adapters=adapters)
         elif use_kv_cache:
             v2 = dit.forward_with_cache(xb, t_val.expand(2 * B), emb2, mask2,
-                                        kv_cache, num_cond_latents=n_cond)
+                                        kv_cache, num_cond_latents=n_cond,
+                                        adapters=adapters)
         else:
             full = torch.cat([cond2, xb], dim=2)
             tsteps = torch.zeros((2 * B, nt_total), dtype=torch.float32,
                                  device=x.device)
             tsteps[:, n_cond:] = t_val
-            v2 = dit(full, tsteps, emb2, mask2,
-                     num_cond_latents=n_cond)[:, :, n_cond:]
+            v2 = dit(full, tsteps, emb2, mask2, num_cond_latents=n_cond,
+                     adapters=adapters)[:, :, n_cond:]
         v_u, v_c = v2[:B], v2[B:]
         x = sched.euler_step(x, v_u + g * (v_c - v_u), sigma, sigma_next)
     return x
@@ -67,6 +70,7 @@ def sample_latents(
     use_kv_cache: bool = True,
     init_noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    adapters: AdapterDict = None,
     on_phase: Optional[Callable[[str], None]] = None,
 ) -> torch.Tensor:
     """Returns denoised latents of the generated region
@@ -75,6 +79,8 @@ def sample_latents(
     ``init_noise``: unit-variance [B, C, num_gen_latents, H, W] initial
     noise (tests inject the same draw into both packages); otherwise it
     is drawn from ``generator``. It is scaled by the first sigma.
+    ``adapters`` (a TTA scheme's ``to_forward`` output) reach every DiT
+    call, the cond-cache precompute included.
     ``on_phase(name)`` is called as "cond_cache" and each "step" begin."""
     mark = on_phase or (lambda name: None)
     B = text_emb.shape[0]
@@ -98,7 +104,9 @@ def sample_latents(
         cond2 = torch.cat([cond_latents, cond_latents], dim=0)
         if use_kv_cache:
             mark("cond_cache")
-            kv_cache = dit.precompute_cond_cache(cond2, emb2, mask2)
+            kv_cache = dit.precompute_cond_cache(cond2, emb2, mask2,
+                                                 adapters=adapters)
     return _denoise_loop(dit, sched_cfg, x, sigmas, emb2, mask2,
                          float(guidance_scale), cond2, kv_cache, n_cond=n_cond,
-                         use_kv_cache=use_kv_cache, mark=mark)
+                         use_kv_cache=use_kv_cache, adapters=adapters,
+                         mark=mark)

@@ -1,32 +1,42 @@
 """TTA runner of the PyTorch port (counterpart of
-``longcat_video_tta_tpu/runners/run_tta.py``). Only the no-TTA baseline
-(``--method none``) is ported so far: per video, load the conditioning
-clip, run ``generate_vc`` (VAE encode, prompt encode, cond-cache
-precompute, CFG Euler loop, VAE decode), score PSNR/SSIM against the
-ground truth, write ``checkpoint.json``; at the end write
-``summary.json`` with the reference runner's keys.
+``longcat_video_tta_tpu/runners/run_tta.py``). Two methods are ported:
+the no-TTA baseline (``--method none``) and delta_a (one delta on the
+t-embedding, the reference runner's default). Per video: load and encode
+the TTA window that ends at the anchor; for delta_a, split it into
+cond/train/val latents, set up the anchored early stopper, run the
+chunked train loop (``check_every`` AdamW steps, then the anchor eval, one
+host sync per chunk), restore the best state; then ``generate_vc`` with
+the trained adapter (VAE encode, prompt encode, cond-cache precompute,
+CFG Euler loop, VAE decode), PSNR/SSIM against the ground truth,
+``checkpoint.json``; at the end ``summary.json`` with the reference
+runner's keys.
 
 CLI:
   python -m longcat_video_tta_tpu_torch.runners.run_tta \\
-      --method none --preset longcat_tiny --synthetic 2 \\
+      --method delta_a --preset longcat_tiny --synthetic 2 \\
       --output-dir /tmp/out --device cpu
 
 The default device is ``cuda``; asking for it on a machine without a GPU
-raises.
+raises. ``main(argv, on_phase=...)`` calls ``on_phase(name)`` as each
+phase of a video begins ("video", "encode_window", "setup_anchor",
+"train_chunk", "anchor_check", "generation" and ``generate_vc``'s own
+phases, "video_end"), so a profiler can time the code that serves.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 METHODS = ["none", "full", "lora", "delta_a", "delta_b", "delta_c",
            "norm_tune", "film", "dno"]
+PORTED_METHODS = ("none", "delta_a")
 
 # the per-video record of a disabled CLIP gate (reference defaults)
 CLIP_GATE_OFF = {
@@ -40,7 +50,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     from ..config import MODEL_PRESETS
 
     p = argparse.ArgumentParser(description="LongCat video TTA (PyTorch port)")
-    p.add_argument("--method", default="none", choices=METHODS)
+    p.add_argument("--method", default="delta_a", choices=METHODS)
     p.add_argument("--data-dir", default=None)
     p.add_argument("--output-dir", required=True)
     p.add_argument("--preset", default="longcat_13b", choices=sorted(MODEL_PRESETS))
@@ -52,14 +62,46 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--width", type=int, default=832)
+    # optimization (same defaults as the reference runner)
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--loss-fetch-every", type=int, default=0,
+                   help="host-sync cadence of the chunked train loop "
+                        "(0 = auto: es check_every, or 25 when ES is off)")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--weight-decay", type=float, default=0.01)
+    p.add_argument("--max-grad-norm", type=float, default=1.0)
+    # frames
     p.add_argument("--num-cond-frames", type=int, default=14)
     p.add_argument("--num-frames", type=int, default=28)
     p.add_argument("--gen-start-frame", type=int, default=32)
+    p.add_argument("--tta-total-frames", type=int, default=None)
+    p.add_argument("--tta-context-frames", type=int, default=None)
+    # generation
     p.add_argument("--num-inference-steps", type=int, default=50)
     p.add_argument("--guidance-scale", type=float, default=4.0)
     p.add_argument("--no-kv-cache", action="store_true")
     p.add_argument("--skip-generation", action="store_true")
     p.add_argument("--no-save-videos", action="store_true")
+    # early stopping
+    p.add_argument("--es-disable", action="store_true")
+    p.add_argument("--es-check-every", type=int, default=5)
+    p.add_argument("--es-patience", type=int, default=3)
+    p.add_argument("--es-anchor-sigmas", default="0.25,0.5,0.75")
+    p.add_argument("--es-noise-draws", type=int, default=2)
+    p.add_argument("--es-strategy", default="patience",
+                   choices=["patience", "first_rise"])
+    p.add_argument("--es-holdout-fraction", type=float, default=0.25)
+    p.add_argument("--feature-frame-guard-mode", default="fail",
+                   choices=["fail", "warn", "off"])
+    # reference options that are not ported yet: asking for one raises
+    p.add_argument("--bucket-shapes", action="store_true", help="not yet ported")
+    p.add_argument("--save-adapters", action="store_true", help="not yet ported")
+    p.add_argument("--aug-enabled", action="store_true", help="not yet ported")
+    p.add_argument("--batch-videos", type=int, default=1, help="not yet ported")
+    p.add_argument("--clip-gate-enabled", action="store_true", help="not yet ported")
+    # caption guard / override
     p.add_argument("--caption-guard-topk", type=int, default=5)
     p.add_argument("--caption-guard-min-nonempty-ratio", type=float, default=0.95)
     p.add_argument("--caption-guard-min-unique-ratio", type=float, default=0.10)
@@ -73,6 +115,48 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="Subsample frames to this fps (stride = round(24 / "
                         "target)); default: consecutive frames")
     return p
+
+
+def _check_ported(args) -> None:
+    if args.method not in PORTED_METHODS:
+        raise NotImplementedError(
+            f"--method {args.method} is not yet ported to the PyTorch runner "
+            f"(ported: {', '.join(PORTED_METHODS)})")
+    unported = [flag for on, flag in (
+        (args.bucket_shapes, "--bucket-shapes"),
+        (args.save_adapters, "--save-adapters"),
+        (args.aug_enabled, "--aug-enabled"),
+        (args.batch_videos > 1, "--batch-videos"),
+        (args.clip_gate_enabled, "--clip-gate-enabled")) if on]
+    if unported:
+        raise NotImplementedError(
+            f"{', '.join(unported)}: not yet ported to the PyTorch runner")
+
+
+def video_seed(seed: int, vid_idx: int) -> int:
+    """Seed of one video's training draws: distinct for every (seed,
+    video) pair, as the reference's fold_in keys are."""
+    return int(np.random.SeedSequence([seed, vid_idx]).generate_state(1)[0])
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _clock(device: torch.device):
+    """A point in time on the device's stream (a recorded CUDA event) or
+    on the host clock (the CPU path is synchronous)."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def _seconds(a, b) -> float:
+    """Seconds between two ``_clock`` points (after a sync)."""
+    return a.elapsed_time(b) / 1e3 if isinstance(a, torch.cuda.Event) else b - a
 
 
 def make_synthetic_dataset(out_dir: str, n: int, height: int, width: int,
@@ -114,12 +198,6 @@ def make_synthetic_dataset(out_dir: str, n: int, height: int, width: int,
         w.writeheader()
         w.writerows(rows)
     return out_dir
-
-
-def round_frames_4k1_down(num_frames: int) -> int:
-    """Largest 4k+1 <= num_frames (>= 1): the causal VAE encodes 4k+1
-    windows exactly, so the cond window is trimmed at its oldest end."""
-    return ((max(int(num_frames), 1) - 1) // 4) * 4 + 1
 
 
 def load_bundle(args):
@@ -167,14 +245,19 @@ def _summary(args, results: List[Dict], caption_stats, t_start) -> Dict[str, Any
     }
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+def main(argv: Optional[List[str]] = None,
+         on_phase: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
     args = build_arg_parser().parse_args(argv)
-    if args.method != "none":
-        raise NotImplementedError(
-            f"--method {args.method} is not yet ported to the PyTorch runner "
-            "(only 'none' is)")
+    _check_ported(args)
+    mark = on_phase or (lambda name: None)
 
-    from ..config import CaptionGuardConfig
+    from ..config import (
+        AdapterConfig,
+        CaptionGuardConfig,
+        EarlyStoppingConfig,
+        FrameConfig,
+        OptimConfig,
+    )
     from ..data.datasets import (
         apply_fixed_caption,
         load_video_list,
@@ -184,6 +267,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         load_video_frames, save_video
     from ..eval.metrics import evaluate_generation_metrics
     from ..pipeline.pipeline import generate_vc
+    from ..tta.adapters import build_scheme
+    from ..tta.early_stopping import build_early_stopper
+    from ..tta.engine import adapter_norm, build_optimizer
+    from ..tta.split import (
+        estimate_latent_len,
+        resolve_frame_window,
+        validate_tta_feature_budget,
+    )
     from ..utils.checkpoint import (
         load_checkpoint,
         save_checkpoint,
@@ -196,11 +287,23 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     t_start = time.time()
     os.makedirs(args.output_dir, exist_ok=True)
 
-    ncond = round_frames_4k1_down(args.num_cond_frames)
-    if ncond != args.num_cond_frames:
-        print(f"[WARN] num_cond_frames ({args.num_cond_frames}) is not 4k+1; "
-              f"using {ncond} (oldest frames dropped so the window stays "
-              "flush with the anchor).")
+    frames = resolve_frame_window(FrameConfig(
+        num_cond_frames=args.num_cond_frames, num_frames=args.num_frames,
+        gen_start_frame=args.gen_start_frame,
+        tta_total_frames=args.tta_total_frames,
+        tta_context_frames=args.tta_context_frames,
+        height=args.height, width=args.width))
+    is_tta = args.method != "none"
+    escfg = EarlyStoppingConfig(
+        enabled=(not args.es_disable) and is_tta,
+        check_every=args.es_check_every,
+        patience=args.es_patience,
+        anchor_sigmas=tuple(float(x) for x in args.es_anchor_sigmas.split(",")),
+        noise_draws=args.es_noise_draws,
+        strategy=args.es_strategy,
+        holdout_fraction=args.es_holdout_fraction)
+    validate_tta_feature_budget(frames, escfg, args.feature_frame_guard_mode,
+                                context=args.method)
 
     if args.synthetic:
         data_dir = make_synthetic_dataset(
@@ -221,6 +324,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     apply_fixed_caption(videos, args.fixed_caption)
 
     bundle = load_bundle(args)
+    dit_cfg = bundle.cfg.dit
+    scheme = opt = stopper = None
+    if is_tta:
+        scheme = build_scheme(dit_cfg, AdapterConfig(method=args.method))
+        opt = build_optimizer(OptimConfig(
+            optimizer=args.optimizer, lr=args.lr, steps=args.steps,
+            warmup_steps=args.warmup_steps, weight_decay=args.weight_decay,
+            grad_clip_norm=args.max_grad_norm))
+        stopper = build_early_stopper(escfg, scheme, dit_cfg)
 
     ckpt_path = os.path.join(args.output_dir, "checkpoint.json")
     ckpt = load_checkpoint(ckpt_path)
@@ -228,65 +340,88 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     results: List[Dict] = ckpt["results"] if ckpt else []
     save_config(os.path.join(args.output_dir, "config.json"), vars(args))
     videos_dir = os.path.join(args.output_dir, "videos")
+    n_ctx_lat = estimate_latent_len(frames.tta_context_frames)
+    tta_start = frames.gen_start_frame - frames.tta_total_frames
 
     for idx in range(start_idx, len(videos)):
         entry = videos[idx]
         vid_id = os.path.basename(entry["path"])
         print(f"\n[{idx + 1}/{len(videos)}] {vid_id}")
+        mark("video")
         t_vid = time.time()
         res: Dict[str, Any] = {"video": vid_id, "path": entry["path"],
                                "caption": entry["caption"], "index": idx,
                                "success": True}
         try:
-            # the conditioning window, encoded on its own as the reference
-            # runner does for every method (its TTA window defaults to the
-            # conditioning frames); generate_vc re-encodes the clip itself
+            # the TTA window, ending at the anchor (for --method none it
+            # is the conditioning window: tta_total defaults to it)
+            mark("encode_window")
             t0 = time.time()
-            cond_px = load_video_frames(
-                entry["path"], ncond, args.height, args.width,
-                start_frame=args.gen_start_frame - ncond,
-                target_fps=args.load_fps)
-            with torch.inference_mode():
-                bundle.encode_video(torch.from_numpy(cond_px))
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            window_px = load_video_frames(
+                entry["path"], frames.tta_total_frames, frames.height,
+                frames.width, start_frame=tta_start, target_fps=args.load_fps)
+            with torch.no_grad():
+                window_lat = bundle.encode_video(torch.from_numpy(window_px))
+            _sync(device)
             res["encode_time"] = time.time() - t0
             # no CLIP gate in the port: the reference's disabled-gate record
             res.update(CLIP_GATE_OFF)
             res["clip_gate_eval_time"] = 0.0
 
+            train_time = es_time = 0.0
+            tp = None
+            if is_tta:
+                tp, train_time, es_time = _adapt(
+                    args, res, bundle, scheme, opt, stopper, escfg, window_lat,
+                    n_ctx_lat, entry["caption"], idx, vid_id, mark)
+                res["adapter_norm"] = adapter_norm(tp)
+                res["trainable_params"] = scheme.num_params(tp)
+
             gen_time = 0.0
             if not args.skip_generation:
+                mark("generation")
+                gen_bundle, adapters = bundle, None
+                if tp is not None:
+                    dit, adapters = scheme.to_forward(tp, bundle.dit)
+                    if dit is not bundle.dit:
+                        gen_bundle = dataclasses.replace(bundle, dit=dit)
+                cond_px = load_video_frames(
+                    entry["path"], frames.num_cond_frames, frames.height,
+                    frames.width,
+                    start_frame=frames.gen_start_frame - frames.num_cond_frames,
+                    target_fps=args.load_fps)
                 t0 = time.time()
                 gen = generate_vc(
-                    bundle, cond_px, entry["caption"],
-                    num_frames=args.num_frames,
+                    gen_bundle, cond_px, entry["caption"],
+                    num_frames=frames.num_frames,
                     num_inference_steps=args.num_inference_steps,
                     guidance_scale=args.guidance_scale,
                     seed=args.seed + idx,
-                    use_kv_cache=not args.no_kv_cache)
+                    use_kv_cache=not args.no_kv_cache,
+                    adapters=adapters, on_phase=on_phase)
                 gen_time = time.time() - t0
-                gt = load_gt_frames(entry["path"], len(gen), args.height,
-                                    args.width, args.gen_start_frame,
+                gt = load_gt_frames(entry["path"], len(gen), frames.height,
+                                    frames.width, frames.gen_start_frame,
                                     target_fps=args.load_fps)
                 res.update(evaluate_generation_metrics(gen, gt, device=device))
                 if not args.no_save_videos:
-                    # baseline artifact: green GENERATED border
+                    # the baseline artifact has a green GENERATED border
                     res["video_path"] = save_video(
-                        annotate_borders(gen, (0, 200, 0)),
+                        gen if is_tta else annotate_borders(gen, (0, 200, 0)),
                         os.path.join(videos_dir, f"{idx:04d}_{vid_id}.mp4"))
-            res["train_time"] = 0.0
+            res["train_time"] = train_time
             res["gen_time"] = gen_time
-            res["es_check_time"] = 0.0
+            res["es_check_time"] = es_time
             res["total_time"] = time.time() - t_vid
             print(f"  psnr={res.get('psnr', float('nan')):.3f} "
-                  f"gen={gen_time:.1f}s")
+                  f"train={train_time:.1f}s gen={gen_time:.1f}s")
         except Exception as e:  # per-video fault tolerance, as the reference
             import traceback
 
             traceback.print_exc()
             res["success"] = False
             res["error"] = f"{type(e).__name__}: {e}"
+        mark("video_end")
         results.append(res)
         save_checkpoint(ckpt_path, idx + 1, results)
 
@@ -295,6 +430,73 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     print(f"\nDone: {summary['num_success']}/{len(results)} videos, "
           f"summary at {args.output_dir}/summary.json")
     return summary
+
+
+def _adapt(args, res, bundle, scheme, opt, stopper, escfg, window_lat, n_ctx_lat,
+           caption, idx, vid_id, mark):
+    """One video's TTA: split the window, set up the stopper, run the
+    chunked train loop and restore the best state. Writes ``losses`` and
+    ``early_stopping_info`` into ``res``; returns (train_params,
+    train_time, es_time) with the reference's accounting: es_time is the
+    stopper's setup plus every anchor check, train_time the loop's wall
+    time without the anchor checks."""
+    from ..tta.engine import train_chunk
+    from ..tta.split import split_tta_latents
+
+    device = bundle.device
+    cond_l, train_l, val_l = split_tta_latents(window_lat, n_ctx_lat,
+                                               escfg.holdout_fraction)
+    with torch.no_grad():
+        emb, mask = bundle.encode_prompt(caption)
+    tp = scheme.init(device)
+    opt_state = opt.init(tp)
+    es_active = stopper is not None and val_l is not None
+    es_time = 0.0
+    if es_active:
+        _sync(device)
+        mark("setup_anchor")
+        t0 = time.time()
+        stopper.setup(bundle.dit, cond_l, val_l, emb, mask, vid_id, tp)
+        es_time += time.time() - t0
+
+    gen = torch.Generator(device=device).manual_seed(video_seed(args.seed, idx))
+    k0 = escfg.check_every if es_active else (args.loss_fetch_every or 25)
+    marks = {}
+
+    def on_phase(name):
+        marks[name] = _clock(device)
+        mark(name)
+
+    losses: List[float] = []
+    es_loop_time = 0.0
+    t_train = time.time()
+    s = 0
+    while s < args.steps:
+        k = min(k0, args.steps - s)
+        do_anchor = es_active and (s + k) % escfg.check_every == 0
+        marks.clear()
+        tp, opt_state, loss_vec, anchor = train_chunk(
+            scheme, bundle.dit, opt, tp, opt_state, cond_l, train_l, emb, mask,
+            steps=k, generator=gen,
+            val_latents=val_l if do_anchor else None,
+            fixed_noises=stopper.fixed_noises if do_anchor else None,
+            anchor_sigmas=escfg.anchor_sigmas, on_phase=on_phase)
+        end = _clock(device)
+        s += k
+        losses.extend(float(x) for x in loss_vec.tolist())  # the chunk's host sync
+        if do_anchor:
+            es_loop_time += _seconds(marks["anchor_check"], end)
+            stop, _ = stopper.step_with_loss(s, tp, float(anchor))
+            if stop:
+                print(f"  early stop at step {s}")
+                break
+    es_time += es_loop_time
+    train_time = time.time() - t_train - es_loop_time
+    if es_active:
+        tp = stopper.restore()
+        res["early_stopping_info"] = stopper.state
+    res["losses"] = losses
+    return tp, train_time, es_time
 
 
 if __name__ == "__main__":

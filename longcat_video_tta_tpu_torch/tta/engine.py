@@ -1,0 +1,177 @@
+"""TTA optimization engine (counterpart of
+``longcat_video_tta_tpu/tta/engine.py``): the optimizer, one train step,
+and the k-step chunk with the folded anchor evaluation.
+
+The optimizer reproduces optax's arithmetic, not torch's helpers:
+``clip_by_global_norm`` scales by max_norm / norm only when norm >=
+max_norm (torch's ``clip_grad_norm_`` divides by norm + 1e-6); the
+warmup is ``optax.linear_schedule(0, lr, warmup)``, so the first step
+runs at lr 0; AdamW adds eps outside the square root (no eps_root) and
+decays weights after the Adam scaling, before the learning rate. With
+eps 1e-15 the first Adam step is lr * sign(g) in every coordinate.
+
+Updates are functional: a step returns new tensors and never writes into
+the old ones, so the early stopper keeps plain references as snapshots
+(the trainable state is one small tensor per method here).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..config import OptimConfig
+from ..models.dit import LongCatDiT
+from .adapters import AdapterScheme, TrainParams
+from .losses import (
+    draw_sigma_noise,
+    flow_matching_loss_conditioned,
+    flow_matching_loss_conditioned_fixed,
+)
+
+
+def global_norm(tree: TrainParams) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor (optax.global_norm)."""
+    return torch.sqrt(sum((x.float() ** 2).sum() for x in tree.values()))
+
+
+class Optimizer:
+    """``optax.chain(clip_by_global_norm(grad_clip_norm), adamw | sgd)``
+    as ``build_optimizer`` configures it. State is a dict of tensors plus
+    the step count; nothing here syncs with the host."""
+
+    def __init__(self, ocfg: OptimConfig):
+        if ocfg.optimizer not in ("adamw", "sgd"):
+            raise ValueError(f"unknown optimizer {ocfg.optimizer}")
+        self.cfg = ocfg
+
+    def init(self, params: TrainParams) -> Dict:
+        zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
+        if self.cfg.optimizer == "adamw":
+            return {"count": 0, "mu": zeros(), "nu": zeros()}
+        return {"count": 0, "trace": zeros() if self.cfg.momentum else None}
+
+    def learning_rate(self, count: int) -> float:
+        """optax.linear_schedule(0, lr, warmup_steps) at ``count`` (the
+        count before this step), or the constant lr."""
+        c = self.cfg
+        if c.warmup_steps <= 0:
+            return c.lr
+        frac = 1.0 - min(max(count, 0), c.warmup_steps) / c.warmup_steps
+        return (0.0 - c.lr) * frac + c.lr
+
+    def clip(self, grads: TrainParams) -> TrainParams:
+        """optax.clip_by_global_norm: t / norm * max_norm when norm >=
+        max_norm, t otherwise."""
+        max_norm = self.cfg.grad_clip_norm
+        norm = global_norm(grads)
+        keep = norm < max_norm
+        return {k: torch.where(keep, g, g / norm.to(g.dtype) * max_norm)
+                for k, g in grads.items()}
+
+    def update(self, grads: TrainParams, state: Dict,
+               params: TrainParams) -> Tuple[TrainParams, Dict]:
+        c = self.cfg
+        grads = self.clip(grads)
+        lr = self.learning_rate(state["count"])
+        count = state["count"] + 1
+        if c.optimizer == "adamw":
+            b1, b2 = c.betas
+            mu = {k: (1 - b1) * g + b1 * state["mu"][k] for k, g in grads.items()}
+            nu = {k: (1 - b2) * g * g + b2 * state["nu"][k] for k, g in grads.items()}
+            new = {}
+            for k, p in params.items():
+                u = (mu[k] / (1 - b1 ** count)) / (
+                    torch.sqrt(nu[k] / (1 - b2 ** count)) + c.eps)
+                u = u + c.weight_decay * p
+                new[k] = p + (-lr) * u
+            return new, {"count": count, "mu": mu, "nu": nu}
+        trace = state["trace"]
+        if c.momentum:
+            trace = {k: g + c.momentum * trace[k] for k, g in grads.items()}
+            grads = trace
+        new = {k: p + (-lr) * grads[k] for k, p in params.items()}
+        return new, {"count": count, "trace": trace}
+
+
+def build_optimizer(ocfg: OptimConfig) -> Optimizer:
+    """AdamW (betas, eps 1e-15, decoupled weight decay) or SGD (momentum
+    optional), after a global-norm clip, with optional linear warmup."""
+    return Optimizer(ocfg)
+
+
+def train_step(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
+               train_params: TrainParams, opt_state: Dict, cond_latents,
+               target_latents, text_emb, text_mask, *,
+               sigma: Optional[torch.Tensor] = None,
+               noise: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None):
+    """One conditioned-loss step -> (train_params, opt_state, loss as a
+    0-d tensor on the device)."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in train_params.items()}
+    with torch.enable_grad():
+        fwd_dit, adapters = scheme.to_forward(leaves, dit)
+        loss = flow_matching_loss_conditioned(
+            fwd_dit, cond_latents, target_latents, text_emb, text_mask,
+            adapters=adapters, sigma=sigma, noise=noise, generator=generator)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    train_params, opt_state = opt.update(dict(zip(leaves, grads)), opt_state,
+                                         train_params)
+    return train_params, opt_state, loss.detach()
+
+
+def anchor_loss(scheme: AdapterScheme, dit: LongCatDiT, train_params: TrainParams,
+                cond_latents, val_latents, text_emb, text_mask, fixed_noises,
+                anchor_sigmas: Sequence[float]) -> torch.Tensor:
+    """The early stopper's fixed-sigma anchor loss on the adapted model
+    (a 0-d tensor on the device; no gradient is recorded)."""
+    with torch.no_grad():
+        fwd_dit, adapters = scheme.to_forward(train_params, dit)
+        return flow_matching_loss_conditioned_fixed(
+            fwd_dit, cond_latents, val_latents, text_emb, text_mask, fixed_noises,
+            fixed_sigmas=tuple(anchor_sigmas), adapters=adapters)
+
+
+def train_chunk(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
+                train_params: TrainParams, opt_state: Dict, cond_latents,
+                target_latents, text_emb, text_mask, *, steps: int,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+                val_latents=None, fixed_noises=None,
+                anchor_sigmas: Sequence[float] = (),
+                on_phase: Optional[Callable[[str], None]] = None):
+    """``steps`` optimizer steps, then (when ``val_latents`` is given) the
+    anchor eval on the final params: the reference's ``make_train_chunk``
+    as a plain loop. Nothing syncs with the host; the caller fetches
+    (losses, anchor) once per chunk.
+
+    Per step, (sigma, noise) come from ``draws`` when given (tests inject
+    the reference's draws) and from ``generator`` otherwise.
+    ``on_phase(name)`` is called as "train_chunk" and "anchor_check"
+    begin. Returns (train_params, opt_state, losses [steps] on the
+    device, anchor 0-d tensor or None)."""
+    mark = on_phase or (lambda name: None)
+    mark("train_chunk")
+    losses: List[torch.Tensor] = []
+    for i in range(steps):
+        if draws is not None:
+            sigma, noise = draws[i]
+        else:
+            sigma, noise = draw_sigma_noise(target_latents, generator)
+        train_params, opt_state, loss = train_step(
+            scheme, dit, opt, train_params, opt_state, cond_latents,
+            target_latents, text_emb, text_mask, sigma=sigma, noise=noise)
+        losses.append(loss)
+    anchor = None
+    if val_latents is not None:
+        mark("anchor_check")
+        anchor = anchor_loss(scheme, dit, train_params, cond_latents, val_latents,
+                             text_emb, text_mask, fixed_noises, anchor_sigmas)
+    return train_params, opt_state, torch.stack(losses), anchor
+
+
+def adapter_norm(train_params: TrainParams) -> float:
+    """delta_norm-style diagnostic: the global norm of the trainable
+    tensors."""
+    return float(global_norm(train_params))

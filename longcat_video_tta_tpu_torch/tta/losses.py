@@ -1,0 +1,121 @@
+"""Conditioned flow-matching TTA losses (counterpart of
+``longcat_video_tta_tpu/tta/losses.py``, LongCat branch).
+
+Conventions (identical to the reference): x_t = (1-σ)x₀ + σε, target
+v = ε - x₀, σ ~ U[sigma_min, sigma_max], per-latent-frame timesteps
+[0 for the clean conditioning frames, σ·1000 for the target frames],
+MSE in fp32 on the target slice only.
+
+Random draws: σ and ε are arguments; when they are not given they are
+drawn from ``generator`` (an explicit ``torch.Generator``). Tests pass the
+reference's own draws so both packages see the same numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from ..models.dit import LongCatDiT
+
+NUM_TRAIN_TIMESTEPS = 1000.0
+
+
+def draw_sigma_noise(target_latents: torch.Tensor,
+                     generator: Optional[torch.Generator], *,
+                     sigma_min: float = 0.001, sigma_max: float = 1.0):
+    """(sigma [B], noise like target_latents) in fp32 from ``generator``."""
+    B = target_latents.shape[0]
+    device = target_latents.device
+    sigma = torch.rand((B,), generator=generator, device=device)
+    sigma = sigma * (sigma_max - sigma_min) + sigma_min
+    noise = torch.randn(target_latents.shape, generator=generator,
+                        dtype=torch.float32, device=device)
+    return sigma, noise
+
+
+def _cond_timesteps(sigma: torch.Tensor, n_cond: int, n_tgt: int) -> torch.Tensor:
+    """[B, n_cond + n_tgt]: 0 on the conditioning frames, sigma * 1000 on
+    the target frames."""
+    B = sigma.shape[0]
+    return torch.cat([
+        torch.zeros((B, n_cond), dtype=torch.float32, device=sigma.device),
+        (sigma.float() * NUM_TRAIN_TIMESTEPS)[:, None].expand(B, n_tgt),
+    ], dim=1)
+
+
+def flow_matching_loss_conditioned(
+    dit: LongCatDiT,
+    cond_latents: torch.Tensor,     # [B, C, T_cond, H, W] clean context
+    target_latents: torch.Tensor,   # [B, C, T_target, H, W]
+    text_emb: torch.Tensor,
+    text_mask: Optional[torch.Tensor],
+    *,
+    adapters: Optional[Dict[str, torch.Tensor]] = None,
+    sigma: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    sigma_min: float = 0.001,
+    sigma_max: float = 1.0,
+) -> torch.Tensor:
+    """Conditioning-aware loss replicating LongCat inference: the clean
+    conditioning latents and the noised target latents go through one
+    forward with the prefix attention rule; fp32 MSE on the target
+    slice. ``sigma`` [B] and ``noise`` (like ``target_latents``) are
+    drawn from ``generator`` when not given."""
+    if sigma is None or noise is None:
+        s, n = draw_sigma_noise(target_latents, generator, sigma_min=sigma_min,
+                                sigma_max=sigma_max)
+        sigma = s if sigma is None else sigma
+        noise = n if noise is None else noise
+    B = cond_latents.shape[0]
+    pt = dit.cfg.patch_size[0]
+    t_cond, t_tgt = cond_latents.shape[2], target_latents.shape[2]
+    sig = sigma.float().reshape(B, 1, 1, 1, 1)
+    tgt32 = target_latents.float()
+    noise = noise.float()
+    noisy_tgt = (1.0 - sig) * tgt32 + sig * noise
+    hidden = torch.cat([cond_latents.float(), noisy_tgt], dim=2)
+    timestep = _cond_timesteps(sigma, t_cond // pt, t_tgt // pt)
+    pred = dit(hidden, timestep, text_emb, text_mask, num_cond_latents=t_cond,
+               adapters=adapters)
+    return ((pred[:, :, t_cond:] - (noise - tgt32)) ** 2).mean()
+
+
+def flow_matching_loss_conditioned_fixed(
+    dit: LongCatDiT,
+    cond_latents: torch.Tensor,
+    target_latents: torch.Tensor,
+    text_emb: torch.Tensor,
+    text_mask: Optional[torch.Tensor],
+    fixed_noises: torch.Tensor,     # [n_draws, B, C, T_target, H, W]
+    *,
+    fixed_sigmas: Sequence[float],
+    adapters: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Deterministic conditioned anchor loss for the early stopper: the
+    |sigmas| x |draws| grid as ONE batched forward of G*B rows (G =
+    len(fixed_sigmas) * n_draws), in the reference's row order (sigma
+    major, draw minor)."""
+    B = cond_latents.shape[0]
+    pt = dit.cfg.patch_size[0]
+    t_cond, t_tgt = cond_latents.shape[2], target_latents.shape[2]
+    tgt32 = target_latents.float()
+    n_draws = fixed_noises.shape[0]
+    G = n_draws * len(fixed_sigmas)
+    sig = torch.tensor(list(fixed_sigmas), dtype=torch.float32,
+                       device=tgt32.device).repeat_interleave(n_draws)  # [G]
+    noi = torch.cat([fixed_noises.float()] * len(fixed_sigmas), dim=0)
+    noi = noi.reshape((G * B,) + tuple(noi.shape[2:]))
+    sig_b = sig.repeat_interleave(B)  # [G*B]
+    sig_rows = sig_b[:, None, None, None, None]
+    tgt_g = tgt32.repeat(G, 1, 1, 1, 1)
+    noisy = (1.0 - sig_rows) * tgt_g + sig_rows * noi
+    hidden = torch.cat([cond_latents.float().repeat(G, 1, 1, 1, 1), noisy], dim=2)
+    timestep = _cond_timesteps(sig_b, t_cond // pt, t_tgt // pt)
+    emb_g = torch.cat([text_emb] * G, dim=0)
+    mask_g = None if text_mask is None else torch.cat([text_mask] * G, dim=0)
+    pred = dit(hidden, timestep, emb_g, mask_g, num_cond_latents=t_cond,
+               adapters=adapters)
+    return ((pred[:, :, t_cond:] - (noi - tgt_g)) ** 2).mean()

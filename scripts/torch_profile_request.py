@@ -1,21 +1,30 @@
 #!/usr/bin/env python3
 """Where one request's time goes in the PyTorch port, on one NVIDIA GPU.
 
-    python3 scripts/torch_profile_request.py [--depth 48] [--steps 4]
+    python3 scripts/torch_profile_request.py [--method none|delta_a] [--depth 48]
 
-Builds the LongCat-13.6B-width bundle (random bf16 weights drawn on the
-card), makes one synthetic 480x832 clip, runs one warm-up request and
-then:
-  1. times each phase of one ``generate_vc`` call from the call itself:
-     its ``on_phase`` hook records a CUDA event on the stream as each
-     phase begins (VAE encode, prompt encodes, cond-cache precompute,
-     each denoising step, VAE decode with the copy to the host), and a
-     phase's time is the stream time between its event and the next;
-  2. profiles one more whole ``generate_vc`` call with torch.profiler and
-     prints the device's busy and idle share and the kernels by total
-     device time (the flash_fwd kernel among them).
+LongCat-13.6B width (random bf16 weights drawn on the card), 480x832
+synthetic clips. Phase times come from the serving code's own
+``on_phase`` hooks: each records a CUDA event on the stream as a phase
+begins, and a phase's time is the stream time between its event and the
+next.
+
+``--method none`` (default): one ``generate_vc`` call after a warm-up
+request: VAE encode, prompt encodes, cond-cache precompute, each
+denoising step, VAE decode with the copy to the host.
+
+``--method delta_a``: the runner (``run_tta.main``) on 3 videos with the
+chip_smoke TTA geometry (29-frame window, 6 AdamW steps, anchor check
+every 3, 4 denoising steps); video 0 warms up, video 1 gives the phase
+times (window encode, stopper setup anchor, each train chunk and anchor
+check, generation and its sub-phases), and video 2 is profiled.
+
+Then one more request (none) or video (delta_a) runs under
+torch.profiler, and the script prints the device's busy and idle share
+and the kernels by total device time (the flash kernels among them).
 Only the port is imported (no JAX). Prints the card's name and power
-limit first. Nothing is written to disk.
+limit first. Writes only the runner's own output directory under
+.chip_smoke/ (delta_a).
 """
 
 from __future__ import annotations
@@ -39,8 +48,125 @@ def _sync_time(fn):
     return out, time.perf_counter() - t0
 
 
+def device_breakdown(prof, wall_s: float) -> None:
+    """Busy and idle share of the card and the top kernels, from the
+    kernel events of a torch.profiler run (CPU ops and runtime markers
+    such as "Command Buffer Full" also carry device-side totals in
+    key_averages, so only kernel events are counted)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events()
+               if e.device_type == cuda and "Command Buffer" not in e.name]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:  # union of kernel intervals
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy_us += cur_e - cur_s
+    print(f"[device] busy {busy_us / 1e3:.1f} ms of {wall_s * 1e3:.1f} ms wall "
+          f"(idle share {1 - busy_us / 1e6 / wall_s:.3f}); {len(kernels)} kernels")
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    total = sum(t for t, _ in by_name.values())
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"[kernel] {t / 1e3:10.1f} ms {100 * t / max(total, 1):5.1f}% "
+              f"x{n:<6d} {name[:110]}")
+
+
+def print_phases(marks):
+    """Print and return the stream time of each phase (ms per occurrence),
+    from (name, event) marks in order."""
+    phases = {}
+    for (name, ev), (_, nxt) in zip(marks, marks[1:]):
+        phases.setdefault(name, []).append(ev.elapsed_time(nxt))
+    print(f"[phases] stream time {marks[0][1].elapsed_time(marks[-1][1]):.1f} ms")
+    for name, ts in phases.items():
+        print(f"[phase] {name:14s} {sum(ts):10.1f} ms"
+              + (f" ({len(ts)} x, each {', '.join(f'{t:.1f}' for t in ts)})"
+                 if len(ts) > 1 else ""))
+    return phases
+
+
+def profile_delta_a(args) -> int:
+    """Phase times of one delta_a video and a profile of the next, both
+    from the runner's own on_phase hook."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from longcat_video_tta_tpu_torch.ops import flash_attention as fa
+    from longcat_video_tta_tpu_torch.runners import run_tta
+
+    T = cs.TTA
+    out_dir = os.path.join(ROOT, ".chip_smoke", "profile_tta")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    fa.build_libraries()
+    marks = {0: [], 1: [], 2: []}
+    state = {"video": -1, "prof": None, "t0": 0.0, "wall": 0.0}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_phase(name):
+        if name == "video":
+            state["video"] += 1
+            if state["video"] == 2:
+                torch.cuda.synchronize()
+                fa.reset_launches()
+                prof.start()
+                state["t0"] = time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[state["video"]].append((name, ev))
+        if name == "video_end" and state["video"] == 2:
+            torch.cuda.synchronize()
+            state["wall"] = time.perf_counter() - state["t0"]
+            prof.stop()
+
+    argv = ["--method", "delta_a", "--preset", "longcat_13b", "--synthetic", "3",
+            "--output-dir", out_dir, "--device", "cuda",
+            "--height", str(T["height"]), "--width", str(T["width"]),
+            "--num-cond-frames", str(T["cond_frames"]),
+            "--tta-total-frames", str(T["tta_total_frames"]),
+            "--num-frames", str(T["gen_frames"]), "--steps", str(T["tta_steps"]),
+            "--es-check-every", str(T["check_every"]),
+            "--es-patience", str(T["patience"]),
+            "--num-inference-steps", str(T["inference_steps"]),
+            "--guidance-scale", str(T["guidance"]), "--no-save-videos"]
+    if args.depth != 48:
+        raise SystemExit("--method delta_a profiles the full 48-block preset")
+    summary = run_tta.main(argv, on_phase=on_phase)
+    if summary["num_success"] != 3:
+        raise SystemExit(f"{summary['num_success']}/3 videos succeeded")
+    for i, r in enumerate(summary["results"]):
+        print(f"[video {i}] train_time {r['train_time']:.3f} s, es_check_time "
+              f"{r['es_check_time']:.3f} s, gen_time {r['gen_time']:.3f} s, "
+              f"encode_time {r['encode_time']:.3f} s, total {r['total_time']:.3f} s")
+    print("[video 1] phases:")
+    phases = print_phases(marks[1])
+    chunk_ms = sum(phases["train_chunk"])
+    anchor_ms = phases["setup_anchor"] + phases["anchor_check"]
+    print(f"[tta] train step {chunk_ms / T['tta_steps']:.1f} ms (mean of {T['tta_steps']}); "
+          f"anchor eval {sum(anchor_ms) / len(anchor_ms):.1f} ms (mean of "
+          f"{len(anchor_ms)}); per-video TTA {chunk_ms + sum(anchor_ms):.1f} ms")
+    print(f"[profiled video] {state['wall']:.3f} s wall; launches fwd {fa.launches} "
+          f"dq {fa.bwd_dq_launches} dkv {fa.bwd_dkv_launches}")
+    device_breakdown(prof, state["wall"])
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--method", default="none", choices=["none", "delta_a"])
     ap.add_argument("--depth", type=int, default=48)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--cond-frames", type=int, default=5)
@@ -56,16 +182,18 @@ def main() -> int:
         print("needs a CUDA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    if args.method == "delta_a":
+        return profile_delta_a(args)
     from longcat_video_tta_tpu_torch.config import longcat_13b
     from longcat_video_tta_tpu_torch.ops import flash_attention as fa
     from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle, generate_vc
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
     cfg = longcat_13b()
     cfg = dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, depth=args.depth))
-    fa.build_library()
+    fa.build_libraries()
     bundle, t_init = _sync_time(lambda: ModelBundle.init_random(cfg, seed=0))
     print(f"[init] {t_init:.2f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
 
@@ -87,15 +215,8 @@ def main() -> int:
 
     _, t_req = _sync_time(lambda: generate_vc(bundle, cond, prompt,
                                               on_phase=on_phase, **kw))
-    phases = {}
-    for (name, ev), (_, nxt) in zip(marks, marks[1:]):
-        phases.setdefault(name, []).append(ev.elapsed_time(nxt))
-    print(f"[request] {t_req * 1e3:.1f} ms wall; stream time "
-          f"{marks[0][1].elapsed_time(marks[-1][1]):.1f} ms")
-    for name, ts in phases.items():
-        print(f"[phase] {name:14s} {sum(ts):10.1f} ms"
-              + (f" ({len(ts)} x, each {', '.join(f'{t:.1f}' for t in ts)})"
-                 if len(ts) > 1 else ""))
+    print(f"[request] {t_req * 1e3:.1f} ms wall")
+    print_phases(marks)
 
     # ---- profiled request -----------------------------------------------
     from torch.profiler import ProfilerActivity, profile
@@ -104,32 +225,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, t_req = _sync_time(lambda: generate_vc(bundle, cond, prompt, **kw))
     print(f"[profiled request] {t_req:.3f} s wall, flash_fwd launches {fa.launches}")
-    # device kernels only (CPU ops and runtime markers such as "Command
-    # Buffer Full" also carry device-side totals in key_averages)
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.events()
-               if e.device_type == cuda and "Command Buffer" not in e.name]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:  # union of kernel intervals
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy_us += cur_e - cur_s
-    print(f"[device] busy {busy_us / 1e3:.1f} ms of {t_req * 1e3:.1f} ms wall "
-          f"(idle share {1 - busy_us / 1e6 / t_req:.3f}); {len(kernels)} kernels")
-    by_name = {}
-    for e in kernels:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    total = sum(t for t, _ in by_name.values())
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"[kernel] {t / 1e3:10.1f} ms {100 * t / max(total, 1):5.1f}% "
-              f"x{n:<6d} {name[:110]}")
+    device_breakdown(prof, t_req)
     return 0
 
 

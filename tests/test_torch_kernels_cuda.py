@@ -1,5 +1,5 @@
-"""The port's CUDA flash-attention kernel against its plain PyTorch
-version, on the card. Every test here is marked ``cuda`` and skips
+"""The port's CUDA flash-attention kernels (forward, dQ and dK/dV
+backward) against their plain PyTorch versions, on the card. Every test here is marked ``cuda`` and skips
 without a GPU. The file imports no JAX, so it runs on the card machine,
 which has none:
 
@@ -10,7 +10,12 @@ tests.) Tolerance, set by the reference's own scale as in chip_smoke.py,
 with eps the dtype's machine epsilon (bf16 2^-7, fp16 2^-10):
 max|o - o_ref| <= 2 eps max|o_ref| (the two roundings of the 16-bit
 output, plus P rounded at another running max), ||o - o_ref||_2 <=
-eps ||o_ref||_2, and 1e-3 abs on the fp32 lse.
+eps ||o_ref||_2, and 1e-3 abs on the fp32 lse. Backward, per output d
+of (dq, dk, dv) against ``attention_backward_reference`` on the same
+o, lse and do: max|d - d_ref| <= 4 eps max|d_ref| and ||d - d_ref||_2 <=
+2 eps ||d_ref||_2 (the output roundings, plus P and dS rounded to 16 bits
+at fp32 values that differ in the last bits, in the kernels and in the
+plain version alike).
 """
 
 import numpy as np
@@ -101,3 +106,82 @@ def test_kernel_raises_on_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
     assert np.isfinite(float(fa.flash_attention(q, q, q)[1].sum()))
+
+
+def _assert_grad_close(name, d, d_r):
+    eps = torch.finfo(d.dtype).eps
+    diff, ref = d.float() - d_r.float(), d_r.float()
+    assert torch.isfinite(d).all(), name
+    assert float(diff.abs().max()) <= 4 * eps * float(ref.abs().max()), name
+    assert float(diff.norm()) <= 2 * eps * float(ref.norm()), name
+
+
+def _backward_both(q, k, v, do, kw):
+    """The kernels' (dq, dk, dv) and the plain version's, from one
+    forward."""
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    fa.reset_launches()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == (1, 1)
+    ref = fa.attention_backward_reference(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    return (dq, dk, dv), ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", list(CASES))
+def test_backward_kernels_match_plain_version(card, case, dtype):
+    B, H, Sq, Sk, D, ncond, kv_valid, q_off, k_off = CASES[case]
+    q, k, v = _inputs(B, H, Sq, Sk, D, dtype, card, seed=11)
+    do = _inputs(B, H, Sq, Sq, D, dtype, card, seed=12)[0]
+    kw = dict(num_cond_tokens=ncond, kv_valid_len=kv_valid, q_offset=q_off,
+              k_offset=k_off)
+    got, ref = _backward_both(q, k, v, do, kw)
+    for name, d, d_r in zip(("dq", "dk", "dv"), got, ref):
+        assert d.dtype == dtype and d.shape == d_r.shape
+        _assert_grad_close(name, d, d_r)
+
+
+@pytest.mark.cuda
+def test_backward_row_with_no_visible_key_is_zero(card):
+    """kv_valid 0: lse = -1e30 for every row; every gradient is exactly
+    0 (the mask selects P = 0, never exp(inf) * 0)."""
+    q, k, v = _inputs(1, 2, 64, 64, 64, torch.bfloat16, card, seed=13)
+    do = _inputs(1, 2, 64, 64, 64, torch.bfloat16, card, seed=14)[0]
+    got, _ = _backward_both(q, k, v, do, dict(kv_valid_len=0))
+    for d in got:
+        assert torch.isfinite(d).all() and float(d.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_backward_kernels_take_strided_views(card):
+    """q, k, v sliced out of a fused [B, S, 3, H, D] projection (the
+    self-attention layout) need no copy in the backward either."""
+    g = torch.Generator(device=card).manual_seed(3)
+    qkv = torch.randn((1, 150, 3, 4, 128), generator=g, device=card).bfloat16()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((1, 150, 4, 128), generator=g, device=card).bfloat16()
+    got, ref = _backward_both(q, k, v, do, dict(num_cond_tokens=70))
+    for name, d, d_r in zip(("dq", "dk", "dv"), got, ref):
+        _assert_grad_close(name, d, d_r)
+
+
+@pytest.mark.cuda
+def test_function_backward_uses_the_kernels(card):
+    """FlashAttentionFunction on CUDA tensors: dQ always, dK/dV only when
+    k or v needs a gradient (cross-attention's frozen text path)."""
+    q, k, v = _inputs(1, 2, 96, 40, 64, torch.bfloat16, card, seed=15)
+    q.requires_grad_(True)
+    fa.reset_launches()
+    o = fa.FlashAttentionFunction.apply(q, k, v, 0, None, None, 0, 0)
+    o.float().square().sum().backward()
+    assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == (1, 1, 0)
+    k.requires_grad_(True)
+    fa.reset_launches()
+    o = fa.FlashAttentionFunction.apply(q, k, v, 0, None, None, 0, 0)
+    o.float().square().sum().backward()
+    assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == (1, 1, 1)
+    assert v.grad is None and torch.isfinite(k.grad).all()

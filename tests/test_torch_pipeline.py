@@ -163,5 +163,5 @@ def test_runner_summary_keys_match_jax_runner(tmp_path):
 
 def test_runner_rejects_unported_method(tmp_path):
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_tta.main(["--method", "delta_a", "--output-dir", str(tmp_path),
+        run_tta.main(["--method", "lora", "--output-dir", str(tmp_path),
                       "--device", "cpu", "--synthetic", "1"])
