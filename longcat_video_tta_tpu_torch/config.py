@@ -329,6 +329,45 @@ class GenerationConfig:
 
 
 @dataclass(frozen=True)
+class BSAConfig:
+    """Block-sparse decode attention (``ops/bsa.py``): keep ``keep_ratio``
+    of the key blocks per query block (at least ``min_blocks``); the
+    conditioning-prefix blocks and each query block's own block are always
+    kept. ``qk_int8`` runs QK^T in int8 with per-token scales
+    (``--quantize-decode int8qk``)."""
+
+    keep_ratio: float = 0.35
+    block_q: int = 1024
+    block_k: int = 1024
+    min_blocks: int = 4
+    qk_int8: bool = False
+
+
+@dataclass(frozen=True)
+class PABConfig:
+    """Pyramid Attention Broadcast (arXiv:2408.12588): inside
+    [start_frac, end_frac) of the denoising steps, self-attention is
+    computed every ``every``-th step and the other steps reuse each
+    block's last computed output."""
+
+    every: int = 2
+    start_frac: float = 0.1
+    end_frac: float = 0.9
+
+
+@dataclass(frozen=True)
+class CFGReuseConfig:
+    """CFG guidance-delta reuse (FasterCache, arXiv:2410.19355): inside
+    [start_frac, end_frac) only every ``every``-th step runs both CFG
+    branches; the others run the conditional branch alone and take
+    ``v_uncond = v_cond - delta`` with the delta of the last full step."""
+
+    every: int = 2
+    start_frac: float = 0.1
+    end_frac: float = 0.9
+
+
+@dataclass(frozen=True)
 class CaptionGuardConfig:
     mode: str = "fail"  # "fail" | "warn" | "off"
     min_nonempty_ratio: float = 0.95

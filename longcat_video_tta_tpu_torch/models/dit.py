@@ -8,7 +8,8 @@ the text tokens; SwiGLU ffn w1/w2/w3}, per-latent-frame timesteps,
 unpatchify. Where the reference stacks blocks on a depth axis and scans,
 the port holds an ``nn.ModuleList``.
 
-Three entry points (PAB arguments are not ported yet):
+Three entry points, with the reference's decode levers (block-sparse
+attention, PAB, the CFG-reuse conditional half, bucketed valid counts):
   - ``forward``                (reference ``dit_forward``)
   - ``precompute_cond_cache``  (``dit_precompute_cond_cache``)
   - ``forward_with_cache``     (``dit_forward_with_cache``)
@@ -29,8 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..config import DiTConfig, resolve_dtype
+from ..config import BSAConfig, DiTConfig, resolve_dtype
 from ..ops.attention import attention
+from ..ops.bsa import bsa_attention, decode_top_k
 from ..ops.layers import (
     apply_rope,
     layer_norm,
@@ -89,10 +91,14 @@ class SelfAttention(nn.Module):
         self.k_norm = nn.Parameter(torch.empty(dh, dtype=dtype))
 
     def forward(self, x, rope_cos, rope_sin, num_cond_tokens: int,
-                kv_cache: Optional[KVCache] = None):
+                kv_cache: Optional[KVCache] = None, kv_valid: Optional[int] = None,
+                bsa_cfg: Optional[BSAConfig] = None):
         """x: [B, nt, nhw, D]. ``kv_cache``: optional (k, v)
-        [B, S_c, nH, dh] prepended to the keys (decode path). Returns
-        (out, (k, v) of this call's tokens)."""
+        [B, S_c, nH, dh] prepended to the keys (decode path). Keys at
+        index >= ``kv_valid`` are masked. With ``bsa_cfg`` the decode path
+        runs block-sparse attention (``ops/bsa.py``): the cached
+        conditioning blocks stay exact. Returns (out, (k, v) of this
+        call's tokens)."""
         cfg = self.cfg
         B, nt, nhw, D = x.shape
         nH, dh = cfg.num_heads, cfg.head_dim
@@ -111,7 +117,16 @@ class SelfAttention(nn.Module):
         if kv_cache is not None:
             k = torch.cat([kv_cache[0].to(k.dtype), k], dim=1)
             v = torch.cat([kv_cache[1].to(v.dtype), v], dim=1)
-        o = attention(q, k, v, num_cond_tokens=num_cond_tokens)
+        if bsa_cfg is not None and kv_cache is not None:
+            top_k = decode_top_k(-(-k.shape[1] // bsa_cfg.block_k),
+                                 bsa_cfg.keep_ratio, bsa_cfg.min_blocks)
+            o = bsa_attention(q, k, v, top_k=top_k, block_q=bsa_cfg.block_q,
+                              block_k=bsa_cfg.block_k,
+                              num_cond_tokens=kv_cache[0].shape[1],
+                              kv_valid=kv_valid, qk_int8=bsa_cfg.qk_int8)
+        else:
+            o = attention(q, k, v, num_cond_tokens=num_cond_tokens,
+                          kv_valid_len=kv_valid)
         return linear(self.proj, o.reshape(B, nt, nhw, D)), kv_out
 
 
@@ -167,16 +182,28 @@ class DiTBlock(nn.Module):
         self.ffn = FFN(cfg, dtype)
 
     def forward(self, x, t_emb, y, rope_cos, rope_sin, num_cond_tokens: int,
-                kv_cache: Optional[KVCache] = None):
-        """One block. Returns (x_out, (k, v) of this call's tokens)."""
+                kv_cache: Optional[KVCache] = None, kv_valid: Optional[int] = None,
+                bsa_cfg: Optional[BSAConfig] = None,
+                pab_cached: Optional[torch.Tensor] = None):
+        """One block. Returns (x_out, (k, v) of this call's tokens or None,
+        the self-attention output).
+
+        ``pab_cached`` (Pyramid Attention Broadcast, arXiv:2408.12588):
+        when given, it is taken as the self-attention output and the
+        attention is skipped; the caller's cache holds the output of the
+        block's last computed step. Cross-attention is never broadcast."""
         mod = linear(self.adaln, F.silu(t_emb).to(x.dtype))  # [B, nt, 6D]
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
             mod.chunk(6, dim=-1)
         e = lambda m: m[:, :, None, :]  # per-latent-frame, broadcast over hw
 
         h = modulate(layer_norm(x), e(shift_msa), e(scale_msa))
-        attn_out, kv = self.attn(h, rope_cos, rope_sin, num_cond_tokens,
-                                 kv_cache=kv_cache)
+        if pab_cached is not None:
+            attn_out, kv = pab_cached.to(x.dtype), None
+        else:
+            attn_out, kv = self.attn(h, rope_cos, rope_sin, num_cond_tokens,
+                                     kv_cache=kv_cache, kv_valid=kv_valid,
+                                     bsa_cfg=bsa_cfg)
         x = x + e(gate_msa) * attn_out
 
         h = layer_norm(x, self.pre_crs_norm.weight, self.pre_crs_norm.bias)
@@ -184,7 +211,7 @@ class DiTBlock(nn.Module):
 
         h = modulate(layer_norm(x), e(shift_mlp), e(scale_mlp))
         x = x + e(gate_mlp) * self.ffn(h)
-        return x, kv
+        return x, kv, attn_out
 
 
 class LongCatDiT(nn.Module):
@@ -264,21 +291,59 @@ class LongCatDiT(nn.Module):
                               t_offset=t_offset, device=device)
 
     # ------------------------------------------------------------------
+    def _decode_blocks(self, x, t_emb, y, cos, sin, num_cond_tokens, *,
+                       kv_cache, kv_valid, bsa_cfg, pab_reuse, pab_cache,
+                       cache_cond_half):
+        """The block loop of the sampling forwards (no autograd).
+
+        ``pab_cache`` ([depth, B_cache, nt, nhw, D]) is read when
+        ``pab_reuse`` and updated in place otherwise. With
+        ``cache_cond_half`` the inputs carry the conditional half of the
+        CFG batch only, and each block reads the last ``B`` rows of its
+        KV-cache and PAB-cache entries: ``a[-B:]`` is a view, so no
+        half-batch copy of either cache is made."""
+        nb = x.shape[0]
+        half = (lambda a: a[a.shape[0] - nb:]) if cache_cond_half else (lambda a: a)
+        for i, blk in enumerate(self.blocks):
+            kv = None if kv_cache is None else (half(kv_cache[0][i]),
+                                                half(kv_cache[1][i]))
+            slot = None if pab_cache is None else half(pab_cache[i])
+            x, _, attn_out = blk(x, t_emb, y, cos, sin, num_cond_tokens,
+                                 kv_cache=kv, kv_valid=kv_valid, bsa_cfg=bsa_cfg,
+                                 pab_cached=slot if pab_reuse else None)
+            if slot is not None and not pab_reuse:
+                slot.copy_(attn_out)
+        return x
+
     def forward(self, latents, timesteps, text_emb, text_mask=None, *,
-                num_cond_latents: int = 0,
-                adapters: AdapterDict = None) -> torch.Tensor:
+                num_cond_latents: int = 0, adapters: AdapterDict = None,
+                num_valid_latents: Optional[int] = None, pab_reuse: bool = False,
+                pab_cache: Optional[torch.Tensor] = None,
+                cache_cond_half: bool = False) -> torch.Tensor:
         """Full forward (training / no-cache sampling): latents
         [B, C, T, H, W], timesteps [B] or [B, N_t] (sigma * 1000).
         The first ``num_cond_latents`` latent frames get the prefix
-        attention treatment."""
+        attention treatment. Latent frames at index >= ``num_valid_latents``
+        are padding, masked out of every key set. ``pab_reuse`` /
+        ``pab_cache`` / ``cache_cond_half``: PAB on this path (t2v
+        sampling), as in ``forward_with_cache``."""
         cfg = self.cfg
         x, t_emb, y, (nt, nh, nw) = self._embed_inputs(
             latents, timesteps, text_emb, text_mask, adapters)
         cos, sin = self._rope(nt, nh, nw, latents.device)
         num_cond_tokens = (num_cond_latents // cfg.patch_size[0]) * nh * nw
+        kv_valid = None
+        if num_valid_latents is not None:
+            kv_valid = (int(num_valid_latents) // cfg.patch_size[0]) * nh * nw
+        if pab_cache is not None:
+            x = self._decode_blocks(x, t_emb, y, cos, sin, num_cond_tokens,
+                                    kv_cache=None, kv_valid=kv_valid, bsa_cfg=None,
+                                    pab_reuse=pab_reuse, pab_cache=pab_cache,
+                                    cache_cond_half=cache_cond_half)
+            return self._final_layer(x, t_emb, nt, nh, nw)
 
         def block(blk, x, t_emb):
-            return blk(x, t_emb, y, cos, sin, num_cond_tokens)[0]
+            return blk(x, t_emb, y, cos, sin, num_cond_tokens, kv_valid=kv_valid)[0]
 
         body = remat_wrap(block, cfg.remat and torch.is_grad_enabled(),
                           cfg.remat_policy)
@@ -299,7 +364,7 @@ class LongCatDiT(nn.Module):
         num_cond_tokens = nt * nh * nw  # every token is conditioning here
         k_all = v_all = None
         for i, blk in enumerate(self.blocks):
-            x, (k, v) = blk(x, t_emb, y, cos, sin, num_cond_tokens)
+            x, (k, v), _ = blk(x, t_emb, y, cos, sin, num_cond_tokens)
             if k_all is None:
                 k_all = k.new_empty((len(self.blocks),) + tuple(k.shape))
                 v_all = v.new_empty((len(self.blocks),) + tuple(v.shape))
@@ -309,16 +374,49 @@ class LongCatDiT(nn.Module):
 
     def forward_with_cache(self, noise_latents, timesteps, text_emb, text_mask,
                            kv_cache: KVCache, *, num_cond_latents: int,
-                           adapters: AdapterDict = None):
+                           adapters: AdapterDict = None,
+                           bsa_cfg: Optional[BSAConfig] = None,
+                           num_valid_latents: Optional[int] = None,
+                           pab_reuse: bool = False,
+                           pab_cache: Optional[torch.Tensor] = None,
+                           cache_cond_half: bool = False):
         """Decode-phase forward: noise tokens only, self-attention against
         [cached cond K/V ++ fresh noise K/V]. Returns the velocity of the
-        noise region, fp32 [B, C_out, T_noise, H, W]."""
+        noise region, fp32 [B, C_out, T_noise, H, W].
+
+        ``bsa_cfg``: block-sparse self-attention over the cached + fresh
+        key blocks. ``num_valid_latents``: noise latent frames at index >=
+        it are padding (gen-horizon bucketing), masked out of every key
+        set; their outputs are discarded by the caller.
+        ``pab_cache`` ([depth, B_cache, nt, nhw, D], from
+        ``pab_init_cache``): with ``pab_reuse`` every block takes its
+        self-attention output from the cache and skips the attention;
+        otherwise the blocks compute it and write it into the cache in
+        place. ``cache_cond_half``: the CFG-reuse conditional-only forward;
+        ``kv_cache`` and ``pab_cache`` carry the full CFG batch and each
+        block uses their second (conditional) half."""
         x, t_emb, y, (nt, nh, nw) = self._embed_inputs(
             noise_latents, timesteps, text_emb, text_mask, adapters)
         nt_cond = num_cond_latents // self.cfg.patch_size[0]
         # noise-frame tokens sit after the conditioning frames in RoPE space
         cos, sin = self._rope(nt, nh, nw, noise_latents.device, t_offset=nt_cond)
-        k_all, v_all = kv_cache
-        for i, blk in enumerate(self.blocks):
-            x, _ = blk(x, t_emb, y, cos, sin, 0, kv_cache=(k_all[i], v_all[i]))
+        kv_valid = None
+        if num_valid_latents is not None:
+            kv_valid = kv_cache[0].shape[2] + \
+                (int(num_valid_latents) // self.cfg.patch_size[0]) * nh * nw
+        x = self._decode_blocks(x, t_emb, y, cos, sin, 0, kv_cache=kv_cache,
+                                kv_valid=kv_valid, bsa_cfg=bsa_cfg,
+                                pab_reuse=pab_reuse, pab_cache=pab_cache,
+                                cache_cond_half=cache_cond_half)
         return self._final_layer(x, t_emb, nt, nh, nw)
+
+
+def pab_init_cache(cfg: DiTConfig, batch: int, t_noise: int, lat_h: int, lat_w: int,
+                   device=None) -> torch.Tensor:
+    """Zero PAB self-attention cache [depth, B, nt, nh*nw, D] in the
+    compute dtype (the sampler computes step 0, so the zeros are never
+    read)."""
+    pt, ph, pw = cfg.patch_size
+    nt, nh, nw = t_noise // pt, lat_h // ph, lat_w // pw
+    return torch.zeros((cfg.depth, batch, nt, nh * nw, cfg.hidden_size),
+                       dtype=resolve_dtype(cfg.compute_dtype), device=device)

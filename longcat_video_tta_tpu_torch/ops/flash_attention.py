@@ -43,7 +43,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
                      "csrc")
 _SOURCE = os.path.join(_CSRC, "flash_fwd.cu")
 _BWD_SOURCE = os.path.join(_CSRC, "flash_bwd.cu")
-SOURCES = (_SOURCE, _BWD_SOURCE)
+BSA_SOURCE = os.path.join(_CSRC, "bsa.cu")  # bound in ops/bsa.py
+SOURCES = (_SOURCE, _BWD_SOURCE, BSA_SOURCE)
 _HEADERS = (os.path.join(_CSRC, "flash_common.cuh"),)
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -208,12 +209,13 @@ def _lib_path(source: str) -> str:
 def build_libraries(sources: Sequence[str] = SOURCES) -> List[Tuple[str, str, float]]:
     """Compile each source into its own shared library, one ``nvcc`` per
     source, all started together. Returns (path, nvcc log, seconds spent
-    building; 0 when the library already existed) per source."""
+    building; 0 when the library already existed or is built for an
+    earlier entry of ``sources``) per source."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = []
     for source in sources:
         lib_path = _lib_path(source)
-        if os.path.exists(lib_path):
+        if os.path.exists(lib_path) or any(job[0] == lib_path for job in jobs):
             jobs.append((lib_path, None, None, 0.0))
             continue
         tmp = f"{lib_path}.{os.getpid()}.tmp"

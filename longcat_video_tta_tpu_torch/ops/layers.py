@@ -13,6 +13,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from .quant import Int8Linear, int8_linear
+
 
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor], eps: float = 1e-6):
     """RMSNorm over the last axis in fp32, optional learned scale."""
@@ -38,9 +40,12 @@ def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor):
     return x * (1.0 + scale) + shift
 
 
-def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Dense layer computed in x's dtype (weights cast as in the
-    reference's ``linear``)."""
+    reference's ``linear``); an ``Int8Linear`` runs W8A8 (the reference
+    dispatches on its 'kernel_i8' key)."""
+    if isinstance(layer, Int8Linear):
+        return int8_linear(layer, x)
     w = layer.weight.to(x.dtype)
     b = None if layer.bias is None else layer.bias.to(x.dtype)
     return F.linear(x, w, b)

@@ -8,13 +8,14 @@ latents with CFG, decode [cond | gen] and slice the generated frames.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import ModelConfig
+from ..config import BSAConfig, CFGReuseConfig, ModelConfig, PABConfig
 from ..models import vae as vae_mod
 from ..models.dit import LongCatDiT
 from ..models.umt5 import UMT5Encoder, umt5_encode
@@ -25,8 +26,10 @@ from ..models.weights import (
     load_umt5_from_numpy,
     load_vae_from_numpy,
 )
+from ..ops.quant import quantize_dit_blocks_int8
+from ..tta.bucket import bucket_len
 from ..utils.device import resolve_device
-from .sampler import sample_latents
+from .sampler import sample_latents, sample_latents_segmented
 
 
 class HashTokenizer:
@@ -62,6 +65,8 @@ class ModelBundle:
     text: UMT5Encoder
     tokenize: Callable[[str], Tuple[np.ndarray, np.ndarray]]
     device: torch.device
+    # the int8 decode DiT of ``quantized_dit``: {id(dit): (dit, int8 dit)}
+    int8_cache: Dict = field(default_factory=dict, repr=False)
 
     @classmethod
     def init_random(cls, cfg: ModelConfig, seed: int = 0,
@@ -107,6 +112,21 @@ class ModelBundle:
         return vae_mod.vae_decode(self.vae, latents)
 
 
+def _quantized_cached(bundle: ModelBundle, dit: LongCatDiT) -> LongCatDiT:
+    """The W8A8 decode DiT of ``dit``, quantized once and kept on the
+    bundle for later requests (keyed by the 16-bit DiT's identity, the
+    entry holding a reference to it so the key stays valid). A stale entry
+    is dropped before quantizing, so two int8 copies never coexist; the
+    int8 DiT shares every non-block parameter with ``dit``."""
+    hit = bundle.int8_cache.get(id(dit))
+    if hit is not None and hit[0] is dit:
+        return hit[1]
+    bundle.int8_cache.clear()
+    q = quantize_dit_blocks_int8(dit)
+    bundle.int8_cache[id(dit)] = (dit, q)
+    return q
+
+
 def round_frames_4k1(num_frames: int) -> int:
     """Round the generated-frame count up to 4k+1."""
     f = 4
@@ -127,6 +147,12 @@ def generate_vc(
     use_kv_cache: bool = True,
     init_noise: Optional[torch.Tensor] = None,
     adapters: Optional[Dict[str, torch.Tensor]] = None,
+    bsa_cfg: Optional[BSAConfig] = None,
+    quantize_decode: str = "none",
+    bucket_gen: bool = False,
+    gen_segment_steps: int = 0,
+    pab_cfg: Optional[PABConfig] = None,
+    cfgr_cfg: Optional[CFGReuseConfig] = None,
     on_phase: Optional[Callable[[str], None]] = None,
 ) -> np.ndarray:
     """Video continuation. Returns the generated frames [N, H, W, 3] in
@@ -138,6 +164,17 @@ def generate_vc(
     tests pass a full-size draw so both packages start from the same
     noise). ``adapters`` (a TTA scheme's ``to_forward`` output) reach
     every DiT call of the sampler.
+
+    Decode levers (the reference's, with its meaning): ``bsa_cfg``
+    block-sparse decode attention; ``quantize_decode="int8"`` W8A8 block
+    linears (``_quantized_cached``), ``"int8qk"`` also int8 QK^T in the
+    BSA kernel (``BSAConfig(keep_ratio=1.0)`` when no BSA was asked for:
+    every block kept, dense up to the 8-bit rounding of q and k);
+    ``bucket_gen`` pads the generated horizon to its ``tta.bucket`` size
+    and masks the padding (the noise is drawn at the bucket's shape, so
+    the sample differs from the unbucketed one for the same seed);
+    ``gen_segment_steps`` synchronizes the device every that many steps;
+    ``pab_cfg`` / ``cfgr_cfg`` PAB and CFG-delta reuse (sampler.py).
 
     ``on_phase(name)``, if given, is called as each phase begins:
     "vae_encode", "prompt_encode", "cond_cache" (KV-cache path only), one
@@ -157,19 +194,43 @@ def generate_vc(
     nemb, nmask = bundle.encode_prompt(negative_prompt)
     lat_h, lat_w = cond_latents.shape[3], cond_latents.shape[4]
 
+    decode_dit = bundle.dit
+    if quantize_decode == "int8qk":
+        bsa_cfg = dataclasses.replace(
+            bsa_cfg if bsa_cfg is not None else BSAConfig(keep_ratio=1.0),
+            qk_int8=True)
+    if quantize_decode in ("int8", "int8qk"):
+        decode_dit = _quantized_cached(bundle, bundle.dit)
+    elif quantize_decode != "none":
+        raise ValueError(f"quantize_decode {quantize_decode!r} is not one of "
+                         "none, int8, int8qk")
+    if pab_cfg is not None and not use_kv_cache:
+        raise NotImplementedError(
+            "pab_cfg requires the KV-cache decode path (use_kv_cache)")
+    gen_bucket, num_valid = n_gen_latents, None
+    if bucket_gen:
+        gen_bucket, num_valid = bucket_len(n_gen_latents), n_gen_latents
+
     gen = torch.Generator(device=device).manual_seed(seed)
-    noise = torch.randn((1, cfg.dit.in_channels, n_gen_latents, lat_h, lat_w),
+    noise = torch.randn((1, cfg.dit.in_channels, gen_bucket, lat_h, lat_w),
                         generator=gen, dtype=torch.float32, device=device)
     if init_noise is not None:
-        L = min(init_noise.shape[2], n_gen_latents)
+        L = min(init_noise.shape[2], gen_bucket)
         noise[:, :, :L] = torch.as_tensor(init_noise)[:, :, :L].to(noise)
 
-    gen_latents = sample_latents(
-        bundle.dit, cfg.scheduler, emb, mask, nemb, nmask, guidance_scale,
-        num_gen_latents=n_gen_latents, num_steps=num_inference_steps,
-        lat_h=lat_h, lat_w=lat_w, cond_latents=cond_latents,
-        use_kv_cache=use_kv_cache, init_noise=noise, adapters=adapters,
-        on_phase=on_phase)
+    kw = dict(num_gen_latents=gen_bucket, num_steps=num_inference_steps,
+              lat_h=lat_h, lat_w=lat_w, cond_latents=cond_latents,
+              use_kv_cache=use_kv_cache, init_noise=noise, adapters=adapters,
+              bsa_cfg=bsa_cfg, pab_cfg=pab_cfg, cfgr_cfg=cfgr_cfg,
+              num_valid_gen_latents=num_valid, on_phase=on_phase)
+    if gen_segment_steps > 0:
+        gen_latents = sample_latents_segmented(
+            decode_dit, cfg.scheduler, emb, mask, nemb, nmask, guidance_scale,
+            segment_steps=gen_segment_steps, **kw)
+    else:
+        gen_latents = sample_latents(decode_dit, cfg.scheduler, emb, mask, nemb,
+                                     nmask, guidance_scale, **kw)
+    gen_latents = gen_latents[:, :, :n_gen_latents]
 
     # Decode [cond | gen] together so the causal decoder sees the real
     # temporal context; n_cond latents decode to 1 + (n_cond-1)*tf

@@ -9,7 +9,10 @@ host sync per chunk), restore the best state; then ``generate_vc`` with
 the trained adapter (VAE encode, prompt encode, cond-cache precompute,
 CFG Euler loop, VAE decode), PSNR/SSIM against the ground truth,
 ``checkpoint.json``; at the end ``summary.json`` with the reference
-runner's keys.
+runner's keys. Generation takes the reference runner's decode levers
+(``--bsa-keep-ratio``, ``--quantize-decode``, ``--fast-decode``,
+``--pab-*``, ``--cfg-reuse-*``, ``--gen-segment-steps``, ``--bucket-gen``)
+and its ``--fast-decode-verify`` fidelity record.
 
 CLI:
   python -m longcat_video_tta_tpu_torch.runners.run_tta \\
@@ -82,6 +85,49 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-inference-steps", type=int, default=50)
     p.add_argument("--guidance-scale", type=float, default=4.0)
     p.add_argument("--no-kv-cache", action="store_true")
+    # decode levers (the reference runner's flags and defaults)
+    p.add_argument("--bsa-keep-ratio", type=float, default=0.0,
+                   help="block-sparse decode attention: keep this fraction of "
+                        "k-blocks per q-block (0 = dense; the cond cache stays "
+                        "exact; ops/bsa.py)")
+    p.add_argument("--bucket-gen", action="store_true",
+                   help="pad the gen-latent horizon to the bucket ladder and "
+                        "mask the padding")
+    p.add_argument("--quantize-decode", choices=["none", "int8", "int8qk"],
+                   default="none",
+                   help="W8A8 per-block linears in the denoise loop "
+                        "(ops/quant.py); 'int8qk' also runs attention QK^T in "
+                        "int8 with per-token scales (rides the BSA kernel). "
+                        "Training stays 16-bit")
+    p.add_argument("--fast-decode", action="store_true",
+                   help="fill the unset decode-lever flags with the recommended "
+                        "stack: int8 W8A8 + BSA (keep 0.35, or 0.15 at >= 16 gen "
+                        "latents) + PAB every 4 over [0.06, 0.96) + CFG reuse "
+                        "every 2 over the same range + 5-step segments on long "
+                        "horizons (apply_fast_decode_defaults)")
+    p.add_argument("--pab-every", type=int, default=0,
+                   help="Pyramid Attention Broadcast: compute decode "
+                        "self-attention every Nth step inside the range, "
+                        "reusing each block's last output (0 = off)")
+    p.add_argument("--pab-start-frac", type=float, default=0.1,
+                   help="broadcast range start as a fraction of steps")
+    p.add_argument("--pab-end-frac", type=float, default=0.9,
+                   help="broadcast range end as a fraction of steps")
+    p.add_argument("--cfg-reuse-every", type=int, default=0,
+                   help="CFG guidance-delta reuse: run the unconditional branch "
+                        "only every Nth step inside the range, with v_uncond = "
+                        "v_cond - cached delta on the others (0 = off)")
+    p.add_argument("--cfg-reuse-start-frac", type=float, default=0.1,
+                   help="reuse range start as a fraction of steps")
+    p.add_argument("--cfg-reuse-end-frac", type=float, default=0.9,
+                   help="reuse range end as a fraction of steps")
+    p.add_argument("--gen-segment-steps", type=int, default=0,
+                   help="synchronize the device every N denoising steps "
+                        "(0 = never)")
+    p.add_argument("--fast-decode-verify", type=int, default=0,
+                   help="for the first K videos also generate with every "
+                        "decode lever off (same seed and adapters) and record "
+                        "fast-vs-dense PSNR and the metric deltas (0 = off)")
     p.add_argument("--skip-generation", action="store_true")
     p.add_argument("--no-save-videos", action="store_true")
     # early stopping
@@ -131,6 +177,100 @@ def _check_ported(args) -> None:
     if unported:
         raise NotImplementedError(
             f"{', '.join(unported)}: not yet ported to the PyTorch runner")
+
+
+def apply_fast_decode_defaults(args) -> None:
+    """--fast-decode: fill the UNSET decode-lever flags with the
+    reference's recommended stack (flags set by hand win). BSA keep ratio
+    0.15 at >= 16 gen latents, else 0.35. The port has no mesh flags, so
+    BSA is on for every LongCat preset on the KV-cache path."""
+    if not args.fast_decode:
+        return
+    from ..pipeline.pipeline import round_frames_4k1
+
+    n_gen_latents = (round_frames_4k1(args.num_frames) - 1) // 4 + 1
+    long_horizon = n_gen_latents >= 16 and args.num_inference_steps >= 20
+    if args.quantize_decode == "none":
+        args.quantize_decode = "int8"
+    if args.no_kv_cache:
+        # BSA, PAB and int8qk ride the KV-cache decode path
+        if args.cfg_reuse_every <= 0:
+            args.cfg_reuse_every = 2
+        if args.gen_segment_steps <= 0 and long_horizon:
+            args.gen_segment_steps = 5
+        return
+    if args.bsa_keep_ratio <= 0 and args.preset.startswith("longcat"):
+        args.bsa_keep_ratio = 0.15 if n_gen_latents >= 16 else 0.35
+    if args.pab_every <= 0:
+        args.pab_every = 4
+        # parser defaults only: a broadcast range set by hand wins
+        if args.pab_start_frac == 0.1:
+            args.pab_start_frac = 0.06
+        if args.pab_end_frac == 0.9:
+            args.pab_end_frac = 0.96
+    if args.cfg_reuse_every <= 0:
+        # range aligned with PAB's, so the full steps refresh both caches
+        args.cfg_reuse_every = 2
+        if args.cfg_reuse_start_frac == 0.1:
+            args.cfg_reuse_start_frac = args.pab_start_frac
+        if args.cfg_reuse_end_frac == 0.9:
+            args.cfg_reuse_end_frac = args.pab_end_frac
+    if args.gen_segment_steps <= 0 and long_horizon:
+        args.gen_segment_steps = 5
+
+
+def check_decode_levers(args) -> None:
+    """Refuse at start-up the lever combinations that generation would
+    reject, before any training budget is spent."""
+    if args.fast_decode_verify > 0:
+        if args.skip_generation:
+            raise SystemExit("--fast-decode-verify needs generation "
+                             "(drop --skip-generation)")
+        if not (args.quantize_decode != "none" or args.bsa_keep_ratio > 0
+                or args.pab_every > 0 or args.cfg_reuse_every > 0 or args.bucket_gen):
+            raise SystemExit("--fast-decode-verify: no decode lever is active, "
+                             "nothing to verify (enable --fast-decode or "
+                             "individual levers)")
+    if not args.skip_generation and args.no_kv_cache:
+        bad = [name for on, name in (
+            (args.pab_every > 0, "--pab-every"),
+            (args.bsa_keep_ratio > 0, "--bsa-keep-ratio"),
+            (args.quantize_decode == "int8qk", "--quantize-decode int8qk")) if on]
+        if bad:
+            raise SystemExit(f"{', '.join(bad)}: requires the KV-cache decode "
+                             "path (drop --no-kv-cache)")
+
+
+def decode_levers(args) -> Dict[str, Any]:
+    """``generate_vc``'s lever arguments from the flags."""
+    from ..config import BSAConfig, CFGReuseConfig, PABConfig
+
+    return dict(
+        bsa_cfg=(None if args.bsa_keep_ratio <= 0
+                 else BSAConfig(keep_ratio=args.bsa_keep_ratio)),
+        quantize_decode=args.quantize_decode,
+        bucket_gen=args.bucket_gen,
+        pab_cfg=(None if args.pab_every <= 0 else PABConfig(
+            every=args.pab_every, start_frac=args.pab_start_frac,
+            end_frac=args.pab_end_frac)),
+        cfgr_cfg=(None if args.cfg_reuse_every <= 0 else CFGReuseConfig(
+            every=args.cfg_reuse_every, start_frac=args.cfg_reuse_start_frac,
+            end_frac=args.cfg_reuse_end_frac)))
+
+
+def _summarize_fast_decode_verify(ok_results):
+    """Mean fast-vs-dense PSNR and mean metric-vs-GT deltas over the
+    videos with a --fast-decode-verify record; None when there are none."""
+    recs = [r["fast_decode_verify"] for r in ok_results if "fast_decode_verify" in r]
+    if not recs:
+        return None
+    out = {"num_verified": len(recs),
+           "same_noise": all(r.get("same_noise") for r in recs)}
+    for key in ("psnr_fast_vs_dense", "psnr_delta", "ssim_delta", "dense_gen_time"):
+        vals = [r[key] for r in recs if key in r and np.isfinite(r[key])]
+        if vals:
+            out[f"{key}_mean"] = float(np.mean(vals))
+    return out
 
 
 def video_seed(seed: int, vid_idx: int) -> int:
@@ -210,9 +350,9 @@ def load_bundle(args):
 
 
 def _summary(args, results: List[Dict], caption_stats, t_start) -> Dict[str, Any]:
-    """summary.json with the reference runner's keys (the clip gate,
-    fast-decode check and online FVD/FID are not ported; their entries
-    say so the way the reference does when they are off)."""
+    """summary.json with the reference runner's keys (the clip gate and
+    online FVD/FID are not ported; their entries say so the way the
+    reference does when they are off)."""
     ok = [r for r in results if r.get("success") and "psnr" in r]
 
     def stats(key):
@@ -237,7 +377,7 @@ def _summary(args, results: List[Dict], caption_stats, t_start) -> Dict[str, Any
         "avg_encode_time": avg("encode_time"),
         "avg_clip_gate_eval_time": avg("clip_gate_eval_time"),
         "clip_gate_stats": {"clip_gate_enabled": False},
-        "fast_decode_verify": None,
+        "fast_decode_verify": _summarize_fast_decode_verify(ok),
         "caption_stats": caption_stats,
         "online_eval": {"fvd": None, "fid": None, "num_videos": 0},
         "wall_time": time.time() - t_start,
@@ -248,7 +388,9 @@ def _summary(args, results: List[Dict], caption_stats, t_start) -> Dict[str, Any
 def main(argv: Optional[List[str]] = None,
          on_phase: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
     args = build_arg_parser().parse_args(argv)
+    apply_fast_decode_defaults(args)
     _check_ported(args)
+    check_decode_levers(args)
     mark = on_phase or (lambda name: None)
 
     from ..config import (
@@ -340,6 +482,9 @@ def main(argv: Optional[List[str]] = None,
     results: List[Dict] = ckpt["results"] if ckpt else []
     save_config(os.path.join(args.output_dir, "config.json"), vars(args))
     videos_dir = os.path.join(args.output_dir, "videos")
+    levers = decode_levers(args)
+    # resume-safe: the verified count carries over from the checkpoint
+    fd_verified = sum(1 for r in results if "fast_decode_verify" in r)
     n_ctx_lat = estimate_latent_len(frames.tta_context_frames)
     tta_start = frames.gen_start_frame - frames.tta_total_frames
 
@@ -390,20 +535,25 @@ def main(argv: Optional[List[str]] = None,
                     frames.width,
                     start_frame=frames.gen_start_frame - frames.num_cond_frames,
                     target_fps=args.load_fps)
+                gen_kw = dict(num_frames=frames.num_frames,
+                              num_inference_steps=args.num_inference_steps,
+                              guidance_scale=args.guidance_scale,
+                              seed=args.seed + idx,
+                              use_kv_cache=not args.no_kv_cache, adapters=adapters,
+                              gen_segment_steps=args.gen_segment_steps)
                 t0 = time.time()
-                gen = generate_vc(
-                    gen_bundle, cond_px, entry["caption"],
-                    num_frames=frames.num_frames,
-                    num_inference_steps=args.num_inference_steps,
-                    guidance_scale=args.guidance_scale,
-                    seed=args.seed + idx,
-                    use_kv_cache=not args.no_kv_cache,
-                    adapters=adapters, on_phase=on_phase)
+                gen = generate_vc(gen_bundle, cond_px, entry["caption"],
+                                  on_phase=on_phase, **gen_kw, **levers)
                 gen_time = time.time() - t0
                 gt = load_gt_frames(entry["path"], len(gen), frames.height,
                                     frames.width, frames.gen_start_frame,
                                     target_fps=args.load_fps)
                 res.update(evaluate_generation_metrics(gen, gt, device=device))
+                if fd_verified < args.fast_decode_verify:
+                    res["fast_decode_verify"] = _verify_fast_decode(
+                        gen_bundle, cond_px, entry["caption"], gen, gt, res,
+                        gen_kw, args.bucket_gen, device)
+                    fd_verified += 1
                 if not args.no_save_videos:
                     # the baseline artifact has a green GENERATED border
                     res["video_path"] = save_video(
@@ -430,6 +580,33 @@ def main(argv: Optional[List[str]] = None,
     print(f"\nDone: {summary['num_success']}/{len(results)} videos, "
           f"summary at {args.output_dir}/summary.json")
     return summary
+
+
+def _verify_fast_decode(bundle, cond_px, caption, gen, gt, res, gen_kw,
+                        bucket_gen: bool, device) -> Dict[str, Any]:
+    """The --fast-decode-verify record: generate again with every decode
+    lever off (same seed, adapters and segmenting) and compare. The
+    per-pixel PSNR is a same-sample comparison only when the fast path
+    kept the plain noise draw (``bucket_gen`` draws at the bucket's
+    shape); the deltas against the ground truth hold either way. LPIPS is
+    not ported, so there are no lpips keys."""
+    from ..eval.metrics import evaluate_generation_metrics
+    from ..pipeline.pipeline import generate_vc
+
+    t0 = time.time()
+    dense = generate_vc(bundle, cond_px, caption, **gen_kw)
+    dense_time = time.time() - t0
+    dm = evaluate_generation_metrics(dense, gt, device=device)
+    mse = float(np.mean((np.asarray(gen, np.float64) - np.asarray(dense)) ** 2))
+    return {
+        "psnr_fast_vs_dense": float("inf") if mse == 0 else -10.0 * np.log10(mse),
+        "same_noise": not bucket_gen,
+        "dense_gen_time": dense_time,
+        **{f"{k}_dense": v for k, v in dm.items()
+           if k not in ("num_frames_scored", "lpips")},
+        **{f"{k}_delta": res[k] - v for k, v in dm.items()
+           if k in ("psnr", "ssim") and np.isfinite(v)},
+    }
 
 
 def _adapt(args, res, bundle, scheme, opt, stopper, escfg, window_lat, n_ctx_lat,

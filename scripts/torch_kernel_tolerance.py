@@ -3,6 +3,7 @@
 of its source, against the plain version at the main path's shapes.
 
     python3 scripts/torch_kernel_tolerance.py [--source FILE ...] [--bwd-source FILE ...]
+        [--bsa-source FILE ...]
 
 Forward (``--source``, default the package's csrc/flash_fwd.cu): each
 source runs on the attention shapes of chip_smoke.py's serving path
@@ -20,10 +21,18 @@ the cross-attention against 512 text tokens), from the sound forward
 kernel's o and lse; one JSON line per (source, case, output) gives the
 error against ``attention_backward_reference`` and chip_smoke's gates.
 
+BSA (``--bsa-source``, default the package's csrc/bsa.cu): each source's
+gathered-attention kernel, 16-bit and int8-QK, runs on the decode shapes
+of chip_smoke.py's lever runs (the runner's default geometry with top_k
+8 and 10, and the --fast-decode geometry with top_k 6) over one selection
+made by the package's own kernels; one JSON line per (source, case,
+variant) gives the error against ``bsa_reference`` and chip_smoke's BSA
+gates.
+
 A variant with a planted fault (made by sed on a copy of a source) shows
 which faults each gate catches. The plain versions run once per case and
-every source is held to them. With only one of the two options, only
-that half runs; with neither, both run on the package's sources. Needs a
+every source is held to them. With some of the three options, only those
+parts run; with none, all three run on the package's sources. Needs a
 CUDA GPU; imports only the port. Prints the card's name and power limit
 first.
 """
@@ -40,6 +49,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "longcat_video_tta_tpu_torch", "csrc")
 DEFAULT_SOURCE = os.path.join(CSRC, "flash_fwd.cu")
 DEFAULT_BWD_SOURCE = os.path.join(CSRC, "flash_bwd.cu")
+DEFAULT_BSA_SOURCE = os.path.join(CSRC, "bsa.cu")
 FIXED_TOL = 1e-2
 
 
@@ -51,11 +61,16 @@ def main() -> int:
     ap.add_argument("--bwd-source", action="append", default=[],
                     help="backward kernel source to hold to the plain version "
                          "(repeatable)")
+    ap.add_argument("--bsa-source", action="append", default=[],
+                    help="block-sparse kernel source to hold to the plain versions "
+                         "(repeatable)")
     args = ap.parse_args()
-    if not (args.source or args.bwd_source):
+    if not (args.source or args.bwd_source or args.bsa_source):
         args.source, args.bwd_source = [DEFAULT_SOURCE], [DEFAULT_BWD_SOURCE]
+        args.bsa_source = [DEFAULT_BSA_SOURCE]
     sources = [os.path.abspath(s) for s in args.source]
     bwd_sources = [os.path.abspath(s) for s in args.bwd_source]
+    bsa_sources = [os.path.abspath(s) for s in args.bsa_source]
 
     import torch
 
@@ -70,14 +85,15 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    for src, (_, _, seconds) in zip(sources + bwd_sources,
-                                    fa.build_libraries(sources + bwd_sources)):
+    everything = sources + bwd_sources + bsa_sources + [DEFAULT_SOURCE, DEFAULT_BSA_SOURCE]
+    for src, (_, _, seconds) in zip(everything, fa.build_libraries(everything)):
         print(f"[build] {src} in {seconds:.1f} s")
 
     cfg = longcat_13b()
     sf = cfg.vae.spatial_factor * cfg.dit.patch_size[1]
     tokens_per_frame = (cs.MAIN["height"] // sf) * (cs.MAIN["width"] // sf)
-    for name, shape, opts in cs.main_path_cases(cfg.dit, tokens_per_frame):
+    for name, shape, opts in (cs.main_path_cases(cfg.dit, tokens_per_frame)
+                              if sources else []):
         opts = dict(opts)
         ncond = opts.pop("ncond", 0)
         q, k, v = cs.case_inputs(*shape, **opts)
@@ -96,7 +112,51 @@ def main() -> int:
         torch.cuda.empty_cache()
     if bwd_sources:
         check_backward(cs, fa, cfg.dit, tokens_per_frame, bwd_sources)
+    if bsa_sources:
+        check_bsa(cs, fa, cfg.dit, tokens_per_frame, bsa_sources)
     return 0
+
+
+def check_bsa(cs, fa, dit_cfg, tokens_per_frame, bsa_sources):
+    import torch
+
+    from longcat_video_tta_tpu_torch.ops import bsa
+
+    H, D = dit_cfg.num_heads, dit_cfg.head_dim
+    geo = cs.bsa_geometries(tokens_per_frame)
+    # (name, (B, H, Sq, Sk, D), top_k, block, cond tokens, kv_valid, seed):
+    # the lever runs' shapes, then the small ragged and kv_valid cases of
+    # chip_smoke, where a block's invalid tail is a large share of its keys
+    cases = [("default_top8", (2, H, *geo["default"][:2], D), 8, 1024,
+              geo["default"][2], None, 31),
+             ("default_top10", (2, H, *geo["default"][:2], D), 10, 1024,
+              geo["default"][2], None, 32),
+             ("fast_decode_top6", (2, H, *geo["fast_decode"][:2], D), 6, 1024,
+              geo["fast_decode"][2], None, 33),
+             ("ragged_sq_sk", (1, 3, 200, 333, 64), 3, 64, 64, None, 34),
+             ("kv_valid", (2, 2, 256, 640, 128), 4, 128, 128, 400, 35)]
+    for name, shape, top_k, blk, ncond, kvv, seed in cases:
+        B, Hc, Sq, Sk, Dc = shape
+        q, k, v = cs.case_inputs(B, Hc, Sq, Sk, Dc, seed=seed)
+        bsa.load_library(DEFAULT_BSA_SOURCE)  # the selection by the sound kernels
+        idx = bsa.select_blocks(q, k, block_q=max(blk, 128), block_k=blk, top_k=top_k,
+                                num_cond_tokens=ncond, q_token_offset=Sk - Sq,
+                                kv_valid=kvv)
+        for int8 in (False, True):
+            kw = dict(block_q=max(blk, 128), block_k=blk, qk_int8=int8, kv_valid=kvv)
+            o_ref = bsa.bsa_reference(q, k, v, idx, **kw)
+            for src in bsa_sources:
+                bsa.load_library(src)
+                o = bsa.bsa_forward(q, k, v, idx, **kw)
+                e = cs.bsa_errors(o, o_ref, "bfloat16", int8)
+                e["rel_l2"] = e["l2_err"] / float(o_ref.float().norm())
+                print(json.dumps({"source": os.path.relpath(src, ROOT), "case": name,
+                                  "variant": "int8" if int8 else "16-bit",
+                                  "shape": shape, "top_k": top_k, **e}))
+                del o
+            del o_ref
+        del q, k, v, idx
+        torch.cuda.empty_cache()
 
 
 def check_backward(cs, fa, dit_cfg, tokens_per_frame, bwd_sources):

@@ -2,6 +2,7 @@
 """Where one request's time goes in the PyTorch port, on one NVIDIA GPU.
 
     python3 scripts/torch_profile_request.py [--method none|delta_a] [--depth 48]
+        [--steps N --cond-frames N --gen-frames N] [run_tta decode-lever flags]
 
 LongCat-13.6B width (random bf16 weights drawn on the card), 480x832
 synthetic clips. Phase times come from the serving code's own
@@ -11,7 +12,10 @@ next.
 
 ``--method none`` (default): one ``generate_vc`` call after a warm-up
 request: VAE encode, prompt encodes, cond-cache precompute, each
-denoising step, VAE decode with the copy to the host.
+denoising step, VAE decode with the copy to the host. Any other flag is
+one of run_tta's decode levers (for example ``--bsa-keep-ratio 0.5`` or
+``--fast-decode --quantize-decode int8qk``): the runner's own parser and
+``apply_fast_decode_defaults`` turn them into generate_vc's arguments.
 
 ``--method delta_a``: the runner (``run_tta.main``) on 3 videos with the
 chip_smoke TTA geometry (29-frame window, 6 AdamW steps, anchor check
@@ -21,7 +25,8 @@ check, generation and its sub-phases), and video 2 is profiled.
 
 Then one more request (none) or video (delta_a) runs under
 torch.profiler, and the script prints the device's busy and idle share
-and the kernels by total device time (the flash kernels among them).
+and the kernels by total device time, then by kind (the port's flash and
+BSA kernels, library GEMMs, convolutions, everything else).
 Only the port is imported (no JAX). Prints the card's name and power
 limit first. Writes only the runner's own output directory under
 .chip_smoke/ (delta_a).
@@ -79,6 +84,29 @@ def device_breakdown(prof, wall_s: float) -> None:
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"[kernel] {t / 1e3:10.1f} ms {100 * t / max(total, 1):5.1f}% "
               f"x{n:<6d} {name[:110]}")
+    kinds = {}
+    for name, (t, n) in by_name.items():
+        k = kernel_kind(name)
+        kt, kn = kinds.get(k, (0.0, 0))
+        kinds[k] = (kt + t, kn + n)
+    for k, (t, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        print(f"[kind] {k:12s} {t / 1e3:10.1f} ms {100 * t / max(total, 1):5.1f}% x{n}")
+
+
+def kernel_kind(name: str) -> str:
+    """Coarse class of a device kernel by its name: the port's own
+    attention kernels, library GEMMs (cuBLAS/cuBLASLt, 16-bit and int8),
+    convolutions, and everything else (elementwise, reductions, copies)."""
+    if "bsa_fwd" in name or "block_sum" in name:
+        return "bsa"
+    if "flash_" in name:
+        return "flash"
+    low = name.lower()
+    if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "imma", "_mma_")):
+        return "gemm"
+    if "conv" in low or "implicit" in low:
+        return "conv"
+    return "elementwise"
 
 
 def print_phases(marks):
@@ -164,6 +192,21 @@ def profile_delta_a(args) -> int:
     return 0
 
 
+def lever_kwargs(args, runner_flags):
+    """generate_vc's decode-lever arguments from run_tta's own flags
+    (``--bsa-keep-ratio``, ``--quantize-decode``, ``--fast-decode``,
+    ``--pab-*``, ``--cfg-reuse-*``, ``--gen-segment-steps``,
+    ``--bucket-gen``), parsed and defaulted by the runner's code."""
+    from longcat_video_tta_tpu_torch.runners import run_tta
+
+    ra = run_tta.build_arg_parser().parse_args(
+        ["--output-dir", "-", "--num-frames", str(args.gen_frames),
+         "--num-inference-steps", str(args.steps), *runner_flags])
+    run_tta.apply_fast_decode_defaults(ra)
+    run_tta.check_decode_levers(ra)
+    return dict(run_tta.decode_levers(ra), gen_segment_steps=ra.gen_segment_steps)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--method", default="none", choices=["none", "delta_a"])
@@ -171,7 +214,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--cond-frames", type=int, default=5)
     ap.add_argument("--gen-frames", type=int, default=8)
-    args = ap.parse_args()
+    args, runner_flags = ap.parse_known_args()
 
     import dataclasses
 
@@ -186,6 +229,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     if args.method == "delta_a":
+        if runner_flags:
+            raise SystemExit(f"--method delta_a takes no decode-lever flags: {runner_flags}")
         return profile_delta_a(args)
     from longcat_video_tta_tpu_torch.config import longcat_13b
     from longcat_video_tta_tpu_torch.ops import flash_attention as fa
@@ -201,7 +246,9 @@ def main() -> int:
     rng = np.random.default_rng(0)
     cond = rng.uniform(-1, 1, (1, 3, args.cond_frames, H, W)).astype(np.float32)
     prompt = "a ball moving across the scene"
-    kw = dict(num_frames=args.gen_frames, num_inference_steps=args.steps)
+    kw = dict(num_frames=args.gen_frames, num_inference_steps=args.steps,
+              **lever_kwargs(args, runner_flags))
+    print(f"[levers] {runner_flags} -> {kw}")
     _, t_warm = _sync_time(lambda: generate_vc(bundle, cond, prompt, **kw))
     print(f"[warm-up request] {t_warm:.3f} s")
 
@@ -221,10 +268,16 @@ def main() -> int:
     # ---- profiled request -----------------------------------------------
     from torch.profiler import ProfilerActivity, profile
 
+    from longcat_video_tta_tpu_torch.ops import bsa
+
     fa.reset_launches()
+    bsa.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, t_req = _sync_time(lambda: generate_vc(bundle, cond, prompt, **kw))
-    print(f"[profiled request] {t_req:.3f} s wall, flash_fwd launches {fa.launches}")
+    print(f"[profiled request] {t_req:.3f} s wall, launches flash_fwd {fa.launches} "
+          f"bsa_fwd {bsa.bsa_launches} bsa_fwd_qk_int8 {bsa.bsa_int8_launches} "
+          f"bsa_block_sum {bsa.bsa_block_sum_launches}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     device_breakdown(prof, t_req)
     return 0
 

@@ -185,3 +185,105 @@ def test_function_backward_uses_the_kernels(card):
     o.float().square().sum().backward()
     assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == (1, 1, 1)
     assert v.grad is None and torch.isfinite(k.grad).all()
+
+
+# ---------------------------------------------------------------------------
+# Block-sparse attention (csrc/bsa.cu): kernel 4 (block sums) and kernel 5
+# (gathered attention, 16-bit and int8 QK^T) against their plain versions
+# on the same selection. 16-bit gates as the forward kernel's; int8-QK
+# gates 4 eps max and 2 eps L2 with eps = 2^-7 whatever the output dtype
+# (p is rounded to bf16 at the kernel's running maximum and at the plain
+# version's row maximum: up to |s - m| * 2^-9 relative per p). Block sums:
+# 1e-5 of the block's sum of |x| (fp32, another summation order).
+# ---------------------------------------------------------------------------
+
+from longcat_video_tta_tpu_torch.ops import bsa  # noqa: E402
+from longcat_video_tta_tpu_torch.ops import quant  # noqa: E402
+
+# (B, H, Sq, Sk, D, top_k, block_q, block_k, num_cond_tokens, kv_valid)
+BSA_CASES = {
+    "d128_blocks128": (1, 2, 256, 640, 128, 3, 128, 128, 128, None),
+    "ragged_sq_sk": (1, 3, 200, 333, 64, 3, 128, 64, 64, None),
+    "kv_valid": (2, 2, 256, 640, 128, 4, 128, 128, 128, 400),
+    "d32_blocks32": (2, 2, 96, 160, 32, 3, 32, 32, 32, None),
+    "d64_blocks512": (1, 2, 1000, 2600, 64, 4, 512, 512, 1024, None),
+    "no_valid_key": (1, 2, 64, 128, 64, 2, 32, 64, 0, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qk_int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", list(BSA_CASES))
+def test_bsa_kernel_matches_plain_version(card, case, dtype, qk_int8):
+    B, H, Sq, Sk, D, top_k, bq, bk, ncond, kvv = BSA_CASES[case]
+    q, k, v = _inputs(B, H, Sq, Sk, D, dtype, card, seed=21)
+    idx = bsa.select_blocks(q, k, block_q=bq, block_k=bk, top_k=top_k,
+                            num_cond_tokens=ncond, q_token_offset=Sk - Sq, kv_valid=kvv)
+    kw = dict(block_q=bq, block_k=bk, kv_valid=kvv, qk_int8=qk_int8)
+    bsa.reset_launches()
+    o = bsa.bsa_forward(q, k, v, idx, **kw)
+    assert (bsa.bsa_int8_launches, bsa.bsa_launches) == ((1, 0) if qk_int8 else (0, 1))
+    o_r = bsa.bsa_reference(q, k, v, idx, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    eps = 2.0 ** -7 if qk_int8 else torch.finfo(dtype).eps
+    mx, l2 = (4, 2) if qk_int8 else (2, 1)
+    d, ref = o.float() - o_r.float(), o_r.float()
+    assert torch.isfinite(o).all()
+    assert float(d.abs().max()) <= mx * eps * float(ref.abs().max())
+    assert float(d.norm()) <= l2 * eps * float(ref.norm())
+
+
+@pytest.mark.cuda
+def test_bsa_all_blocks_equals_the_forward_kernel(card):
+    q, k, v = _inputs(1, 2, 300, 500, 128, torch.bfloat16, card, seed=22)
+    o = bsa.bsa_attention(q, k, v, top_k=4, block_q=128, block_k=128)
+    o_fa, _ = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert float((o.float() - o_fa.float()).abs().max()) <= \
+        2 * 2.0 ** -7 * float(o_fa.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,bs,dtype", [(12480, 1024, torch.bfloat16),
+                                        (1000, 384, torch.float16),
+                                        (150, 32, torch.bfloat16)])
+def test_block_sum_kernel_matches_plain_version(card, S, bs, dtype):
+    g = torch.Generator(device=card).manual_seed(23)
+    x = torch.randn((2, S, 4, 64), generator=g, device=card).to(dtype)
+    bsa.reset_launches()
+    s = bsa._block_sum(x, bs)
+    assert bsa.bsa_block_sum_launches == 1
+    ref = bsa.block_sum_reference(x, bs)
+    scale = bsa.block_sum_reference(x.abs(), bs)
+    assert bool(((s - ref).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_bsa_kernel_raises_on_what_it_does_not_take(card):
+    q, k, v = _inputs(1, 2, 64, 128, 64, torch.bfloat16, card, seed=24)
+    idx = bsa.select_blocks(q, k, block_q=32, block_k=64, top_k=2)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        bsa.bsa_forward(q, k, v, idx, block_q=48, block_k=64)
+    with pytest.raises(ValueError, match="idx"):
+        bsa.bsa_forward(q, k, v, idx.long(), block_q=32, block_k=64)
+    with pytest.raises(TypeError, match="bf16 or fp16"):
+        bsa.bsa_forward(q.float(), k.float(), v.float(), idx, block_q=32, block_k=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [5, 17, 300])
+def test_int8_linear_on_the_card(card, M):
+    """cuBLASLt's int8 GEMM (torch._int_mm) takes the [N, K] weight
+    transposed (column-major) and M > 16; int8_linear pads a small M. Its
+    int32 product is exact, so the card matches the CPU up to the fp32
+    rescale."""
+    lin = torch.nn.Linear(64, 192)
+    layer = quant.Int8Linear.from_linear(lin)
+    x = torch.randn(1, M, 64)
+    ref = quant.int8_linear(layer, x)
+    out = quant.int8_linear(layer.to(card), x.to(card))
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    assert float((out.cpu() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
