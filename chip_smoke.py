@@ -7,17 +7,20 @@ Phases (each one fails the run when it fails):
   1. build: compile csrc/flash_fwd.cu, csrc/flash_bwd.cu and csrc/bsa.cu with nvcc
      (sm_90a, one nvcc per source, started together) into
      longcat_video_tta_tpu_torch/csrc/build/ and print the build times and
-     ptxas resource lines;
+     ptxas resource lines (registers, spills, and any wgmma or
+     setmaxnreg notes);
   2. kernel check: the flash-attention kernel against its plain PyTorch
      version (``attention_reference``) in bf16 at the main path's shapes
      (decode self-attention, cross-attention, the no-cache prefix-masked
      self-attention), the decode self-attention of the runner's default
      geometry, the delta_a train step's and anchor eval's self-attention,
-     plus small ragged / fp16 / head_dim 32 and 64 cases,
-     with the error against a stated tolerance; times of the kernel, the
-     plain version and torch's scaled_dot_product_attention (yardstick
-     only; the port never calls it) beside the least time the card could
-     take (the bound);
+     plus small ragged / fp16 / head_dim 32 and 64 cases and the edges of
+     the 128-key tiles (a prefix or kv_valid inside a tile, Sk not a
+     multiple of 128, no visible key), with the error against a stated
+     tolerance; times of the kernel, the plain version and torch's
+     scaled_dot_product_attention (yardstick only; the port never calls
+     it) beside the least time the card could take (the bound) and the
+     share of it the kernel reaches;
   3. backward kernel check: the dQ and dK/dV kernels against
      ``attention_backward_reference`` on the card at the training shapes
      (the delta_a train step's self-attention, 10 920 tokens with a
@@ -31,10 +34,12 @@ Phases (each one fails the run when it fails):
      runs' decode shapes (top_k 8 and 10 at the default geometry, 6 at the
      --fast-decode one), every block selected against the forward kernel,
      small ragged / kv_valid / fp16 / head_dim 32 and 64 / 32- and
-     512-token-block cases; the block-sum kernel against
-     ``block_sum_reference``; times beside the plain version, dense SDPA,
-     compiled flex_attention with a BlockMask (yardsticks only) and the
-     bound over the pairs the selection lets through;
+     512-token-block / 32- and 64-row q-block / -1 idx entry cases; the
+     block-sum kernel against ``block_sum_reference``; times beside the
+     plain version, dense SDPA, compiled flex_attention with a BlockMask
+     (yardsticks only) and the bound over the pairs the selection lets
+     through (int8-QK: also the kernel alone, without the quantize
+     passes its wrapper runs);
   4. small-input agreement: ``generate_vc`` on the card against the same
      weights and noise on the CPU (plain path), dense and with every
      decode lever (BSA with 32-token blocks, int8qk, PAB, CFG reuse), and one delta_a train
@@ -254,6 +259,7 @@ def check_kernel_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
             qt, kt, vt, attn_mask=mask), iters=10)
         res["bound_ms"], res["bound_by"] = _bound_ms(
             B, H, Sq, Sk, D, ncond, kv_valid, q.element_size())
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
     return res
 
 
@@ -304,6 +310,13 @@ def phase_kernel_checks(fa, dit_cfg, tokens_per_frame):
         check_kernel_case(fa, "fp16_d128", 1, 2, 96, 130, 128,
                           dtype_name="float16", seed=5),
         check_kernel_case(fa, "no_visible_key", 1, 2, 64, 64, 64, kv_valid=0, seed=6),
+        # the 128-key tiles: a prefix ending inside a key tile with
+        # all-conditioning, mixed and noise query tiles; fused k/v views
+        # with Sk not a multiple of 128
+        check_kernel_case(fa, "prefix_in_key_tile_fp16_d64", 1, 2, 400, 400, 64,
+                          ncond=200, dtype_name="float16", seed=10),
+        check_kernel_case(fa, "fused_kv_sk300_d128", 2, 2, 130, 300, 128, fused_kv=True,
+                          seed=11),
     ]
     for c in cases:
         print("[kernel] " + json.dumps(c))
@@ -535,8 +548,10 @@ def flex_library_ms(q, k, v, idx, block_q, block_k, o_ref):
 
 def check_bsa_case(fa, bsa, name, B, H, Sq, Sk, D, *, top_k, block_q=1024,
                    block_k=1024, ncond=0, kv_valid=None, dtype_name="bfloat16",
-                   qk_int8=False, timed=False, seed=0, dense_check=False):
-    """BSA kernel vs its plain version on one shape and selection."""
+                   qk_int8=False, timed=False, seed=0, dense_check=False, hole=False):
+    """BSA kernel vs its plain version on one shape and selection. With
+    ``hole`` the kernel gets idx with entry 1 set to -1 (no block), the
+    plain version idx without that entry."""
     import torch
     import torch.nn.functional as F
 
@@ -544,10 +559,15 @@ def check_bsa_case(fa, bsa, name, B, H, Sq, Sk, D, *, top_k, block_q=1024,
     idx = bsa.select_blocks(q, k, block_q=block_q, block_k=block_k, top_k=top_k,
                             num_cond_tokens=ncond, q_token_offset=Sk - Sq,
                             kv_valid=kv_valid)
+    idx_ref = idx
+    if hole:
+        idx_ref = idx[:, :, [j for j in range(top_k) if j != 1]].contiguous()
+        idx = idx.clone()
+        idx[:, :, 1] = -1
     kw = dict(block_q=block_q, block_k=block_k, kv_valid=kv_valid, qk_int8=qk_int8)
     o = bsa.bsa_forward(q, k, v, idx, **kw)
     torch.cuda.synchronize()
-    o_ref = bsa.bsa_reference(q, k, v, idx, **kw)
+    o_ref = bsa.bsa_reference(q, k, v, idx_ref, **kw)
     torch.cuda.synchronize()
     e = bsa_errors(o, o_ref, dtype_name, qk_int8)
     ok = e.pop("ok")
@@ -557,7 +577,7 @@ def check_bsa_case(fa, bsa, name, B, H, Sq, Sk, D, *, top_k, block_q=1024,
            "block_q": block_q, "block_k": block_k, "ncond": ncond, "kv_valid": kv_valid,
            "dtype": dtype_name, **e}
     if qk_int8:  # fidelity of int8qk: against the 16-bit plain version
-        o16 = bsa.bsa_reference(q, k, v, idx, block_q=block_q, block_k=block_k,
+        o16 = bsa.bsa_reference(q, k, v, idx_ref, block_q=block_q, block_k=block_k,
                                 kv_valid=kv_valid)
         d = (o.float() - o16.float())
         res["vs_16bit_rel_l2"] = float(d.norm() / o16.float().norm())
@@ -577,6 +597,13 @@ def check_bsa_case(fa, bsa, name, B, H, Sq, Sk, D, *, top_k, block_q=1024,
         res["pairs"] = bsa_pairs(idx, block_q, block_k, Sq, bound)
         res["bound_ms"], res["bound_by"] = bsa_bound_ms(
             B, H, Sq, Sk, D, res["pairs"], q.element_size(), qk_int8)
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        if qk_int8:  # "ms" includes the quantize passes outside the kernel
+            res["quantize_ms"] = _events_ms(lambda: bsa.quantize_qk(q, k), iters=5)
+            args = bsa.quantize_qk(q, k)
+            res["kernel_ms"] = _events_ms(lambda: bsa._launch_bsa(
+                *args, v, idx, block_q, block_k, kv_valid, q.shape[-1] ** -0.5), iters=10)
+            del args
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         res["sdpa_dense_ms"] = _events_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=5)
@@ -663,6 +690,10 @@ def phase_bsa_kernel_checks(fa, bsa, dit_cfg, tokens_per_frame):
                                block_k=512, ncond=1024)),
         ("no_valid_key", dict(B=1, H=2, Sq=64, Sk=128, D=64, top_k=2, block_q=32,
                               block_k=64, kv_valid=0)),
+        ("blocks_q64_ragged", dict(B=1, H=2, Sq=200, Sk=640, D=64, top_k=3, block_q=64,
+                                   block_k=128, ncond=128)),
+        ("negative_idx_entry", dict(B=1, H=2, Sq=256, Sk=1024, D=128, top_k=4,
+                                    block_q=128, block_k=128, hole=True)),
     ]
     for i, (name, kw) in enumerate(small):
         kw = dict(kw)
@@ -1028,7 +1059,8 @@ def print_build(fa):
         for line in log.splitlines():
             if "Compiling entry" in line:
                 print(f"[build] {line.split(chr(39))[1]}")
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("registers", "spill", "smem", "wgmma", "warpgroup",
+                                       "setmaxnreg", "arning")):
                 print(f"[build] {line.strip()}")
 
 

@@ -1,8 +1,9 @@
 """Block-sparse attention (BSA) for the decode loop: block selection, the
 hand-written CUDA kernels of ``csrc/bsa.cu`` (the token-block sum that
 feeds the selection, and the gathered flash-attention forward over the
-selected key blocks, in 16-bit and with int8 QK^T), their ctypes
-bindings and their plain PyTorch versions.
+selected key blocks on the forward kernel's wgmma/TMA mainloop, in
+16-bit and with int8 QK^T), their ctypes bindings and their plain
+PyTorch versions.
 
 Counterpart of ``longcat_video_tta_tpu/ops/bsa.py``; the kernels replace
 its Pallas TPU kernels ``_block_sum_kernel`` and ``_bsa_kernel``.
@@ -150,9 +151,9 @@ def bsa_reference(q, k, v, idx, *, block_q: int, block_k: int,
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # x, out, B, S, HD, bs, nb, dtype, x_bs, x_ts, stream
 _SUM_ARGTYPES = [_PTR, _PTR] + [_INT] * 6 + [_I64] * 2 + [_PTR]
-# q, k, v, qs, ks, idx, o, B, H, Sq, Sk, D, dtype, qk_int8, 6 strides,
-# nQb, top_k, block_q, block_k, bound, scale, stream
-_FWD_ARGTYPES = ([_PTR] * 7 + [_INT] * 7 + [_I64] * 6 + [_INT] * 5
+# q, k, v, qs, ks, idx, o, B, H, Sq, Sk, D, dtype, qk_int8, 6 byte
+# strides, nQb, top_k, block_q, block_k, bound, ks_ld, scale, stream
+_FWD_ARGTYPES = ([_PTR] * 7 + [_INT] * 7 + [_I64] * 6 + [_INT] * 6
                  + [ctypes.c_float, _PTR])
 
 
@@ -175,6 +176,16 @@ def _library():
     if _lib is None:
         load_library(SOURCE)
     return _lib
+
+
+def _key_scales(ks: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """[B, Sk, H, 1] fp32 key scales -> ([B*H, ld] rows, one per (b, h),
+    key j at column j, ld = Sk rounded up to 4 so a row is a multiple of
+    16 bytes: the layout a TMA box can take), ld."""
+    B, Sk, H = ks.shape[:3]
+    ld = _cdiv(Sk, 4) * 4
+    rows = ks[..., 0].permute(0, 2, 1).reshape(B * H, Sk)
+    return torch.nn.functional.pad(rows, (0, ld - Sk)).contiguous(), ld
 
 
 def _check_rows(name: str, x: torch.Tensor) -> None:
@@ -220,10 +231,8 @@ def _kernel_block_sum(x: torch.Tensor, bs: int) -> torch.Tensor:
 def _kernel_bsa(q, k, v, idx, block_q: int, block_k: int, kv_valid: Optional[int],
                 scale: float, qk_int8: bool) -> torch.Tensor:
     """Launch csrc/bsa.cu's gathered attention (16-bit, or with int8
-    QK^T after quantizing q and k here with plain tensor ops, as the
-    reference does outside its kernel). Raises on any input the kernel
-    does not take."""
-    global bsa_launches, bsa_int8_launches
+    QK^T after ``quantize_qk``). Raises on any input the kernel does not
+    take."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     if q.dtype not in fa._KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -246,17 +255,36 @@ def _kernel_bsa(q, k, v, idx, block_q: int, block_k: int, kv_valid: Optional[int
         raise ValueError("bsa_fwd: q, k, v, idx must be on one device")
     if B * H > 65535:
         raise ValueError(f"bsa_fwd: B*H = {B * H} exceeds the grid limit")
-    top_k = idx.shape[2]
-    _check_rows("v", v)
-    qs = ks = None
     if qk_int8:
-        (q, qs), (k, ks) = _quantize_tokens(q), _quantize_tokens(k)
-        qs, ks = qs[..., 0].contiguous(), ks[..., 0].contiguous()
-    _check_rows("q", q)
-    _check_rows("k", k)
+        return _launch_bsa(*quantize_qk(q, k), v, idx, block_q, block_k, kv_valid, scale)
+    return _launch_bsa(q, None, k, None, 0, v, idx, block_q, block_k, kv_valid, scale)
+
+
+def quantize_qk(q: torch.Tensor, k: torch.Tensor):
+    """q, k [B, S, H, D] -> (int8 q, fp32 query scales [B, Sq, H], int8
+    k, key scales as ``_key_scales`` rows, their row length): what the
+    int8-QK kernel reads, made with plain tensor ops outside it, as the
+    reference does."""
+    (q8, qs), (k8, ks) = _quantize_tokens(q), _quantize_tokens(k)
+    return (q8, qs[..., 0].contiguous(), k8, *_key_scales(ks))
+
+
+def _launch_bsa(q, qs, k, ks, ks_ld: int, v, idx, block_q: int, block_k: int,
+                kv_valid: Optional[int], scale: float) -> torch.Tensor:
+    """One launch of csrc/bsa.cu's gathered attention on checked inputs:
+    16-bit q, k (qs, ks None), or int8 q, k with their scales."""
+    global bsa_launches, bsa_int8_launches
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    qk_int8 = qs is not None
+    nQb, top_k = idx.shape[1], idx.shape[2]
     o = torch.empty((B, Sq, H, D), dtype=v.dtype, device=v.device)
     if B * H * Sq == 0:
         return o
+    if Sk == 0:  # no key: o = 0, and no tensor map of 0 rows
+        return o.zero_()
+    maps = [fa.tma_map_args(x, name=n) for n, x in (("q", q), ("k", k), ("v", v))]
+    strides = [m["strides"][i] for m in maps for i in (2, 1)]  # bs, ts of q, k, v
     bound = Sk if kv_valid is None else max(0, min(Sk, int(kv_valid)))
     lib = _library()
     with torch.cuda.device(q.device):
@@ -264,9 +292,8 @@ def _kernel_bsa(q, k, v, idx, block_q: int, block_k: int, kv_valid: Optional[int
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             0 if qs is None else qs.data_ptr(), 0 if ks is None else ks.data_ptr(),
             idx.data_ptr(), o.data_ptr(), B, H, Sq, Sk, D,
-            fa._KERNEL_DTYPES[v.dtype], int(qk_int8),
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            nQb, top_k, block_q, block_k, bound, float(scale),
+            fa._KERNEL_DTYPES[v.dtype], int(qk_int8), *strides,
+            nQb, top_k, block_q, block_k, bound, ks_ld, float(scale),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bsa_fwd{'_qk_int8' if qk_int8 else ''} launch failed: "

@@ -1,8 +1,8 @@
 """Flash attention with LongCat conditioning-prefix semantics: the
-hand-written CUDA kernels (``csrc/flash_fwd.cu`` forward,
-``csrc/flash_bwd.cu`` dQ and dK/dV backward), their ctypes bindings, their
-plain PyTorch versions, and the ``torch.autograd.Function`` that joins
-them.
+hand-written CUDA kernels (``csrc/flash_fwd.cu`` forward, on wgmma with
+TMA loads; ``csrc/flash_bwd.cu`` dQ and dK/dV backward), their ctypes
+bindings, their plain PyTorch versions, and the
+``torch.autograd.Function`` that joins them.
 
 The kernels replace the reference's Pallas TPU kernels
 ``longcat_video_tta_tpu/ops/flash_attention.py::_fwd_kernel``,
@@ -45,7 +45,8 @@ _SOURCE = os.path.join(_CSRC, "flash_fwd.cu")
 _BWD_SOURCE = os.path.join(_CSRC, "flash_bwd.cu")
 BSA_SOURCE = os.path.join(_CSRC, "bsa.cu")  # bound in ops/bsa.py
 SOURCES = (_SOURCE, _BWD_SOURCE, BSA_SOURCE)
-_HEADERS = (os.path.join(_CSRC, "flash_common.cuh"),)
+_HEADERS = (os.path.join(_CSRC, "flash_common.cuh"),
+            os.path.join(_CSRC, "hopper_common.cuh"))
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -281,13 +282,47 @@ def _bwd_library():
     return _bwd_lib
 
 
+TMA_ROWS = 128  # tokens per TMA box: the forward kernels' query and key tiles
+
+
+def tma_map_args(x: torch.Tensor, name: str = "x") -> dict:
+    """The tensor map that csrc/hopper_common.cuh's ``encode_rows`` makes
+    of a [B, S, H, D] operand with contiguous [H, D] rows: ``dims`` (D,
+    H, S, B), byte ``strides`` of H, S and B (the batch stride of a
+    single batch is S token strides, since it is never stepped), a
+    ``box`` of one swizzle span of a row (at most 128 bytes) by
+    ``TMA_ROWS`` tokens, and that ``swizzle`` in bytes. Raises ValueError
+    on what TMA cannot take: rows that are not contiguous, or a base
+    address or a stride that is not a multiple of 16 bytes or not below
+    2^40."""
+    B, S, H, D = x.shape
+    esz = x.element_size()
+    if x.stride(-1) != 1 or x.stride(-2) != D:
+        raise ValueError(f"attention kernels: {name} must have contiguous [H, D] rows, "
+                         f"got strides {tuple(x.stride())}")
+    row = D * esz
+    ts = x.stride(1) * esz
+    bs = x.stride(0) * esz if B > 1 else S * ts
+    if x.data_ptr() % 16 or row % 16 or ts % 16 or bs % 16 or min(ts, bs) <= 0:
+        raise ValueError(f"attention kernels: TMA needs {name}'s base address and byte "
+                         f"strides to be positive multiples of 16 (strides "
+                         f"{tuple(x.stride())} x {esz} bytes, ptr {x.data_ptr()})")
+    if max(ts, bs) >= 2 ** 40:
+        raise ValueError(f"attention kernels: {name}'s strides exceed TMA's 2^40 bytes")
+    sw = min(row, 128)
+    return {"dims": (D, H, S, B), "strides": (row, ts, bs),
+            "box": (sw // esz, 1, TMA_ROWS, 1), "swizzle": sw}
+
+
 def _check_operand(name: str, x: torch.Tensor, D: int) -> None:
     if x.stride(-1) != 1 or x.stride(-2) != D:
         raise ValueError(f"flash kernels: {name} must have contiguous [H, D] rows, "
                          f"got strides {tuple(x.stride())}")
     if x.stride(1) % 8 or x.stride(0) % 8 or x.data_ptr() % 16:
-        raise ValueError(f"flash kernels: {name} needs 16-byte aligned rows "
-                         f"(strides {tuple(x.stride())}, ptr {x.data_ptr()})")
+        raise ValueError(f"flash kernels: {name} needs 16-byte aligned rows: a base "
+                         f"address and batch and token strides that are multiples of "
+                         f"16 bytes, as TMA and 16-byte loads require (strides "
+                         f"{tuple(x.stride())}, ptr {x.data_ptr()})")
 
 
 def _check_inputs(q, k, v) -> None:
@@ -327,6 +362,10 @@ def _kernel_forward(q, k, v, ncond: int, kv_valid: Optional[int],
     lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
     if B * H * Sq == 0:
         return o, lse
+    if Sk == 0:  # no key: the l_safe rule, and no tensor map of 0 rows
+        return o.zero_(), lse.fill_(NEG_INF)
+    maps = [tma_map_args(x, name=n) for n, x in (("q", q), ("k", k), ("v", v))]
+    strides = [m["strides"][i] for m in maps for i in (2, 1)]  # bs, ts of q, k, v
     lib = _library()
     kv_bound = _kv_bound(kv_valid)
     # the launch goes to the current device's context and stream: make
@@ -334,9 +373,7 @@ def _kernel_forward(q, k, v, ncond: int, kv_valid: Optional[int],
     with torch.cuda.device(q.device):
         rc = lib.lc_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            B, H, Sq, Sk, D, _KERNEL_DTYPES[q.dtype],
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1),
+            B, H, Sq, Sk, D, _KERNEL_DTYPES[q.dtype], *strides,
             int(ncond), kv_bound, int(q_offset), int(k_offset), float(scale),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -3,7 +3,7 @@
 of its source, against the plain version at the main path's shapes.
 
     python3 scripts/torch_kernel_tolerance.py [--source FILE ...] [--bwd-source FILE ...]
-        [--bsa-source FILE ...]
+        [--bsa-source FILE ...] [--fault NAME ...]
 
 Forward (``--source``, default the package's csrc/flash_fwd.cu): each
 source runs on the attention shapes of chip_smoke.py's serving path
@@ -29,12 +29,22 @@ made by the package's own kernels; one JSON line per (source, case,
 variant) gives the error against ``bsa_reference`` and chip_smoke's BSA
 gates.
 
-A variant with a planted fault (made by sed on a copy of a source) shows
-which faults each gate catches. The plain versions run once per case and
-every source is held to them. With some of the three options, only those
-parts run; with none, all three run on the package's sources. Needs a
-CUDA GPU; imports only the port. Prints the card's name and power limit
-first.
+A variant with a planted fault shows which faults each gate catches.
+``--fault NAME`` makes one from a copy of the package's sources (in the
+temporary directory) and holds it to the plain version beside the
+package's own kernel; the faults (FAULTS below) are deterministic edits:
+  drop_last_kv_tile   (flash_fwd.cu) the key loop ends one tile early;
+  skip_straddle_mask  (flash_fwd.cu) the tile that straddles the
+                      conditioning prefix gets no element mask, so
+                      conditioning queries see its noise keys;
+  drop_one_block      (bsa.cu) the last selected block is skipped;
+  key_scale_per_tile  (hopper_common.cuh, int8) every key of a 128-key
+                      tile takes the tile's first key scale.
+A source variant made by hand (sed on a copy) works the same way through
+the source options. The plain versions run once per case and every
+source is held to them. With some of the options, only those parts run;
+with none, all three run on the package's sources. Needs a CUDA GPU;
+imports only the port. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -42,8 +52,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "longcat_video_tta_tpu_torch", "csrc")
@@ -51,6 +63,49 @@ DEFAULT_SOURCE = os.path.join(CSRC, "flash_fwd.cu")
 DEFAULT_BWD_SOURCE = os.path.join(CSRC, "flash_bwd.cu")
 DEFAULT_BSA_SOURCE = os.path.join(CSRC, "bsa.cu")
 FIXED_TOL = 1e-2
+# name -> (part it plants into, file, text, faulty text)
+FAULTS = {
+    "drop_last_kv_tile": ("fwd", "flash_fwd.cu", "sc.n_tiles = (k_stop + BK - 1) / BK;",
+                          "sc.n_tiles = max(1, (k_stop + BK - 1) / BK - 1);"),
+    "skip_straddle_mask": ("fwd", "flash_fwd.cu",
+                           "return (rows_any_cond && k_off + k0 + BK > ncond) || k0 + BK > kend;",
+                           "return k0 + BK > kend;"),
+    "drop_one_block": ("bsa", "bsa.cu", "for (int j = 0; j < top_k; ++j) {",
+                       "for (int j = 0; j < top_k - 1; ++j) {"),
+    "key_scale_per_tile": ("bsa", "hopper_common.cuh", "sks[8 * j + 2 * tig + (e & 1)]",
+                           "sks[0]"),
+}
+
+
+def planted(name: str) -> str:
+    """Copy the package's kernel sources into a directory of their own,
+    plant fault ``name`` and return the source to build (its own copy of
+    the headers comes in first, by the quoted include)."""
+    part, fname, text, faulty = FAULTS[name]
+    out = os.path.join(tempfile.gettempdir(), f"lc_fault_{name}")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    for f in os.listdir(CSRC):
+        if f.endswith((".cu", ".cuh")):
+            with open(os.path.join(CSRC, f)) as fh:
+                src = fh.read()
+            if f == fname:
+                if text not in src:
+                    raise ValueError(f"fault {name}: {fname} no longer holds {text!r}")
+                src = src.replace(text, faulty)
+            if f.endswith(".cu"):  # a library of its own, whatever file changed
+                src += f"\n// planted fault: {name}\n"
+            with open(os.path.join(out, f), "w") as fh:
+                fh.write(src)
+    return os.path.join(out, "flash_fwd.cu" if part == "fwd" else "bsa.cu")
+
+
+def label(src: str) -> str:
+    """A source's name in the output: its fault, or its path in the repo."""
+    for name in FAULTS:
+        if os.path.dirname(src) == os.path.join(tempfile.gettempdir(), f"lc_fault_{name}"):
+            return f"fault:{name}"
+    return os.path.relpath(src, ROOT)
 
 
 def main() -> int:
@@ -64,10 +119,18 @@ def main() -> int:
     ap.add_argument("--bsa-source", action="append", default=[],
                     help="block-sparse kernel source to hold to the plain versions "
                          "(repeatable)")
+    ap.add_argument("--fault", action="append", default=[], choices=sorted(FAULTS),
+                    help="plant this fault in a copy of the package's sources and hold "
+                         "it to the plain version beside the sound kernel (repeatable)")
     args = ap.parse_args()
-    if not (args.source or args.bwd_source or args.bsa_source):
+    if not (args.source or args.bwd_source or args.bsa_source or args.fault):
         args.source, args.bwd_source = [DEFAULT_SOURCE], [DEFAULT_BWD_SOURCE]
         args.bsa_source = [DEFAULT_BSA_SOURCE]
+    for name in args.fault:
+        own = args.source if FAULTS[name][0] == "fwd" else args.bsa_source
+        if not own:
+            own.append(DEFAULT_SOURCE if FAULTS[name][0] == "fwd" else DEFAULT_BSA_SOURCE)
+        own.append(planted(name))
     sources = [os.path.abspath(s) for s in args.source]
     bwd_sources = [os.path.abspath(s) for s in args.bwd_source]
     bsa_sources = [os.path.abspath(s) for s in args.bsa_source]
@@ -105,8 +168,7 @@ def main() -> int:
             e["fixed_tol"] = FIXED_TOL
             e["fixed_gate_ok"] = (e["max_abs_err"] <= FIXED_TOL
                                   and e["max_abs_err_lse"] <= cs.LSE_TOL)
-            print(json.dumps({"source": os.path.relpath(src, ROOT), "case": name,
-                              "shape": shape, **e}))
+            print(json.dumps({"source": label(src), "case": name, "shape": shape, **e}))
             del o, lse
         del q, k, v, o_ref, lse_ref
         torch.cuda.empty_cache()
@@ -150,7 +212,7 @@ def check_bsa(cs, fa, dit_cfg, tokens_per_frame, bsa_sources):
                 o = bsa.bsa_forward(q, k, v, idx, **kw)
                 e = cs.bsa_errors(o, o_ref, "bfloat16", int8)
                 e["rel_l2"] = e["l2_err"] / float(o_ref.float().norm())
-                print(json.dumps({"source": os.path.relpath(src, ROOT), "case": name,
+                print(json.dumps({"source": label(src), "case": name,
                                   "variant": "int8" if int8 else "16-bit",
                                   "shape": shape, "top_k": top_k, **e}))
                 del o
@@ -189,8 +251,8 @@ def check_backward(cs, fa, dit_cfg, tokens_per_frame, bwd_sources):
                 e = cs.grad_errors(d, d_ref, "bfloat16")
                 e["rel_l2"] = e["l2_err"] / (e["l2_tol"] / (cs.GRAD_L2_EPS
                                                             * cs.O_EPS["bfloat16"]))
-                print(json.dumps({"source": os.path.relpath(src, ROOT), "case": name,
-                                  "shape": shape, "output": oname, **e}))
+                print(json.dumps({"source": label(src), "case": name, "shape": shape,
+                                  "output": oname, **e}))
             del got
         del q, k, v, do, o, lse, delta, refs
         torch.cuda.empty_cache()

@@ -1,5 +1,6 @@
-"""The port's CUDA flash-attention kernels (forward, dQ and dK/dV
-backward) against their plain PyTorch versions, on the card. Every test here is marked ``cuda`` and skips
+"""The port's CUDA attention kernels (the wgmma forward, dQ and dK/dV
+backward, the block-sparse kernels) against their plain PyTorch
+versions, on the card. Every test here is marked ``cuda`` and skips
 without a GPU. The file imports no JAX, so it runs on the card machine,
 which has none:
 
@@ -39,6 +40,13 @@ CASES = {
     "kv_valid_cond": (1, 2, 144, 144, 32, 40, 100, 0, 0),
     "q_offset": (1, 2, 96, 96, 128, 100, None, 64, 0),
     "k_offset_kv_valid": (1, 2, 96, 96, 64, 100, 150, 32, 96),
+    # the 128-key tiles of the wgmma kernel: Sk not a multiple of 128, a
+    # prefix that ends inside a key tile (all-conditioning, mixed and
+    # noise query tiles), kv_valid inside a tile, and no visible key
+    "sk_not_tile_multiple_d128": (2, 2, 130, 300, 128, 0, None, 0, 0),
+    "ncond_inside_key_tile": (1, 2, 400, 400, 64, 200, None, 0, 0),
+    "kv_valid_inside_tile_d128": (2, 2, 150, 400, 128, 0, 333, 0, 0),
+    "no_visible_key": (1, 2, 64, 64, 64, 0, 0, 0, 0),
 }
 
 
@@ -208,6 +216,8 @@ BSA_CASES = {
     "d32_blocks32": (2, 2, 96, 160, 32, 3, 32, 32, 32, None),
     "d64_blocks512": (1, 2, 1000, 2600, 64, 4, 512, 512, 1024, None),
     "no_valid_key": (1, 2, 64, 128, 64, 2, 32, 64, 0, 0),
+    # 64-row q-blocks: each 128-row query tile stores its first 64 rows
+    "blocks_q64_ragged": (1, 2, 200, 640, 64, 3, 64, 128, 128, None),
 }
 
 
@@ -231,6 +241,27 @@ def test_bsa_kernel_matches_plain_version(card, case, dtype, qk_int8):
     mx, l2 = (4, 2) if qk_int8 else (2, 1)
     d, ref = o.float() - o_r.float(), o_r.float()
     assert torch.isfinite(o).all()
+    assert float(d.abs().max()) <= mx * eps * float(ref.abs().max())
+    assert float(d.norm()) <= l2 * eps * float(ref.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qk_int8", [False, True])
+def test_bsa_kernel_skips_negative_idx_entries(card, qk_int8):
+    """A -1 entry of idx selects no block: the kernel's output equals
+    the plain version over the other entries."""
+    B, H, Sq, Sk, D = 1, 2, 256, 1024, 128
+    q, k, v = _inputs(B, H, Sq, Sk, D, torch.bfloat16, card, seed=25)
+    idx = bsa.select_blocks(q, k, block_q=128, block_k=128, top_k=4, q_token_offset=0)
+    holed = idx.clone()
+    holed[:, :, 1] = -1
+    kw = dict(block_q=128, block_k=128, qk_int8=qk_int8)
+    o = bsa.bsa_forward(q, k, v, holed, **kw)
+    o_r = bsa.bsa_reference(q, k, v, idx[:, :, [0, 2, 3]].contiguous(), **kw)
+    torch.cuda.synchronize()
+    eps = 2.0 ** -7
+    mx, l2 = (4, 2) if qk_int8 else (2, 1)
+    d, ref = o.float() - o_r.float(), o_r.float()
     assert float(d.abs().max()) <= mx * eps * float(ref.abs().max())
     assert float(d.norm()) <= l2 * eps * float(ref.norm())
 
