@@ -8,7 +8,7 @@ Phases (each one fails the run when it fails):
      (sm_90a, one nvcc per source, started together) into
      longcat_video_tta_tpu_torch/csrc/build/ and print the build times and
      ptxas resource lines (registers, spills, and any wgmma or
-     setmaxnreg notes);
+     setmaxnreg notes); a kernel that spills fails the run;
   2. kernel check: the flash-attention kernel against its plain PyTorch
      version (``attention_reference``) in bf16 at the main path's shapes
      (decode self-attention, cross-attention, the no-cache prefix-masked
@@ -25,10 +25,12 @@ Phases (each one fails the run when it fails):
      ``attention_backward_reference`` on the card at the training shapes
      (the delta_a train step's self-attention, 10 920 tokens with a
      6240-token prefix, and its cross-attention dQ against 512 text
-     tokens) plus small ragged / fp16 / no-visible-key cases, with the
-     per-output gates below; times of each kernel, the plain version and
-     torch's scaled_dot_product_attention backward (yardstick only)
-     beside each kernel's bound;
+     tokens) plus small ragged / fp16 / no-visible-key cases and the
+     edges of the kernels' tiles (a prefix inside a query and a key tile,
+     all-conditioning and all-noise CTAs, kv_valid inside a tile, fused
+     k/v views), with the per-output gates below; times of each kernel,
+     the plain version and torch's scaled_dot_product_attention backward
+     (yardstick only) beside each kernel's bound;
   3b. BSA kernel check: the gathered-attention kernel (16-bit and
      int8-QK) against ``bsa_reference`` on the same selection at the lever
      runs' decode shapes (top_k 8 and 10 at the default geometry, 6 at the
@@ -79,6 +81,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -435,6 +438,20 @@ def phase_bwd_kernel_checks(fa, dit_cfg, tokens_per_frame):
                             dtype_name="float16", seed=25)
     cases += check_bwd_case(fa, "no_visible_key", 1, 2, 64, 64, 64, kv_valid=0,
                             seed=26, all_zero=True)
+    # the tiles of the wgmma kernels (dK/dV: 128 keys x 64-query tiles; dQ:
+    # 128 rows x 128-key tiles): a prefix inside a query and a key tile,
+    # all-conditioning and all-noise CTAs, kv_valid inside a tile, fused
+    # k/v views with Sk not a multiple of 128, ragged D 32 in fp16
+    cases += check_bwd_case(fa, "ncond_straddles_tiles_d128", 2, 2, 300, 300, 128,
+                            ncond=100, seed=27)
+    cases += check_bwd_case(fa, "cond_and_noise_ctas_fp16_d64", 1, 2, 520, 520, 64,
+                            ncond=260, dtype_name="float16", seed=28)
+    cases += check_bwd_case(fa, "kv_valid_inside_tile_d128", 2, 2, 150, 400, 128,
+                            kv_valid=333, seed=29)
+    cases += check_bwd_case(fa, "fused_kv_sk300_d128", 2, 2, 130, 300, 128,
+                            fused_kv=True, seed=30)
+    cases += check_bwd_case(fa, "ragged_fp16_d32", 2, 2, 70, 190, 32,
+                            dtype_name="float16", seed=31)
     for c in cases:
         print("[bwd-kernel] " + json.dumps(c))
     return cases
@@ -1054,6 +1071,7 @@ def phase_tta_path(fa, depth):
 
 
 def print_build(fa):
+    spills = []
     for path, log, seconds in fa.build_libraries():
         print(f"[build] {os.path.relpath(path, ROOT)} in {seconds:.1f} s")
         for line in log.splitlines():
@@ -1062,6 +1080,11 @@ def print_build(fa):
             if any(w in line for w in ("registers", "spill", "smem", "wgmma", "warpgroup",
                                        "setmaxnreg", "arning")):
                 print(f"[build] {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                spills.append(line.strip())
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
 
 
 def main() -> int:

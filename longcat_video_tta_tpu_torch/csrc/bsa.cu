@@ -231,7 +231,7 @@ int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   if (rc == 0) rc = encode_rows(&tv, a.v, dt, 2, a.B, a.Sk, a.H, D, a.v_ts, a.v_bs, BK);
   if (rc == 0) {
     if (INT8) {
-      rc = encode_scales(&tks, a.ks, a.B * a.H, a.ks_ld);
+      rc = encode_f32_rows(&tks, a.ks, a.B * a.H, a.ks_ld, a.ks_ld, BK);
     } else {
       tks = tv;  // not read
     }

@@ -1,7 +1,13 @@
-// Hopper (sm_90a) building blocks of the attention forward kernels
-// (flash_fwd.cu, bsa.cu): TMA tensor maps and loads, mbarriers, wgmma
-// descriptors and products, register rebalancing, and the one attention
-// mainloop both kernels run (attn_cta below).
+// Hopper (sm_90a) building blocks of the attention kernels: TMA tensor
+// maps and loads, mbarriers, wgmma descriptors and products, register
+// rebalancing, and the one attention mainloop both forward kernels
+// (flash_fwd.cu, bsa.cu) run (attn_cta below). The backward kernels
+// (flash_bwd.cu) have mainloops of their own on the same pieces: their
+// 64-row ss products (issue_ss with N = 64: S^T and dP^T of 64 keys by a
+// 64-query tile) and register-A products over tiles of 64 or 128 rows
+// read MN-major (issue_rs: dV, dK and dQ), fp32 row maps of lse and
+// delta (encode_f32_rows), and the producer/consumer split of attn_cta
+// with a 24/240 register split (flash_bwd.cu describes them).
 //
 // Design of attn_cta, per CTA of 384 threads (3 warpgroups) and one
 // 128-row query tile of one (batch, head):
@@ -43,19 +49,17 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-#include "flash_common.cuh"
-
 namespace hopper {
 
-using flash::LOG2E;
-using flash::Mma;
-
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BQ = 128;  // query rows per CTA
 constexpr int BK = 128;  // keys per tile
 constexpr int STAGES = 2;
@@ -63,6 +67,19 @@ constexpr int NTHREADS = 384;
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;  // (40 + 2 * 232) * 128 <= 65536
 constexpr float LSE_EMPTY = -1e30f;  // lse of a row that sees no key
+
+// Two fp32 values rounded to T (to nearest even) and packed into one
+// 32-bit register, lo in the low half: an element pair of a 16-bit
+// wgmma A fragment, or of an output row.
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // ---------------------------------------------------------------------------
 // Shared memory, barriers, TMA
@@ -185,6 +202,24 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 template <typename T> struct Wgmma;
 
 template <> struct Wgmma<__nv_bfloat16> {
+  // d[32] (+)= A[64 x 16] . B[64 x 16]^T; A, B K-major in shared memory
+  static __device__ __forceinline__ void ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        " %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   // d[64] (+)= A[64 x 16] . B[128 x 16]^T; A, B K-major in shared memory
   static __device__ __forceinline__ void ss_n128(float (&d)[64], uint64_t da, uint64_t db,
                                                  int scale_d) {
@@ -270,6 +305,24 @@ template <> struct Wgmma<__nv_bfloat16> {
 };
 
 template <> struct Wgmma<__half> {
+  // d[32] (+)= A[64 x 16] . B[64 x 16]^T; A, B K-major in shared memory
+  static __device__ __forceinline__ void ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        " %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   // d[64] (+)= A[64 x 16] . B[128 x 16]^T; A, B K-major in shared memory
   static __device__ __forceinline__ void ss_n128(float (&d)[64], uint64_t da, uint64_t db,
                                                  int scale_d) {
@@ -434,40 +487,72 @@ struct Cursor {
   int a = 0, b = 0;
 };
 
+// The swizzle span of a 16-bit row of D values: the whole row up to 128
+// bytes, and a row of D = 128 (256 bytes) is cut into two boxes.
+template <int D>
+__host__ __device__ constexpr int sw16() {
+  return 2 * D < 128 ? 2 * D : 128;
+}
+
+// acc (+)= A B^T over D, 16-bit, both operands K-major in shared memory
+// (rows of D values cut into boxes of the swizzle span, box after box):
+// A is the 64 rows at sa inside a tile of RA rows per box (a consumer's
+// rows), B the N rows (64 or 128) of a tile at sb; K steps of 32 bytes.
+template <typename T, int D, int RA, int N>
+__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t sa, uint32_t sb) {
+  constexpr int SW = sw16<D>();
+#pragma unroll
+  for (int kk = 0; kk < 2 * D / 32; ++kk) {
+    const uint32_t box = kk * 32 / SW, within = kk * 32 % SW;
+    const uint64_t da = make_desc(sa + box * RA * SW + within, 16, 8 * SW, SW);
+    const uint64_t db = make_desc(sb + box * N * SW + within, 16, 8 * SW, SW);
+    if constexpr (N == 128) {
+      Wgmma<T>::ss_n128(acc, da, db, kk > 0);
+    } else {
+      static_assert(N == 64, "wgmma ss products of 64 or 128 columns");
+      Wgmma<T>::ss_n64(acc, da, db, kk > 0);
+    }
+  }
+}
+
+// acc[64 x D] += A[64 x R] B[R x D], A in registers (R / 4 packed pairs,
+// the accumulator layout of a 64 x R product after pack2), B a tile of R
+// rows read MN-major: 8-row groups SBO = 8 rows apart, boxes of 64
+// columns LBO = one box (R rows) apart.
+template <typename T, int D, int R>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2], const uint32_t (&a)[R / 4],
+                                         uint32_t sb) {
+  constexpr int SW = sw16<D>();
+#pragma unroll
+  for (int kk = 0; kk < R / 16; ++kk) {
+    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3]};
+    const uint64_t db = make_desc(sb + kk * 16 * SW, R * SW, 8 * SW, SW);
+    if constexpr (D == 128) {
+      Wgmma<T>::rs_n128(acc, ak, db, 1);
+    } else if constexpr (D == 64) {
+      Wgmma<T>::rs_n64(acc, ak, db, 1);
+    } else {
+      Wgmma<T>::rs_n32(acc, ak, db, 1);
+    }
+  }
+}
+
 // S (+)= Q K^T for one consumer's 64 rows: sq points at its rows of box 0
 // of Q, sk at box 0 of a K slot; K steps of 32 bytes.
 template <typename T, int D, bool INT8, typename Acc>
 __device__ __forceinline__ void issue_qk(Acc (&acc)[64], uint32_t sq, uint32_t sk) {
   using L = AttnSmem<D, INT8>;
+  if constexpr (!INT8) {
+    issue_ss<T, D, BQ, BK>(acc, sq, sk);
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < L::QK_ROW / 32; ++kk) {
-    const uint32_t box = kk * 32 / L::QK_SW, within = kk * 32 % L::QK_SW;
-    const uint64_t da = make_desc(sq + box * BQ * L::QK_SW + within, 16, 8 * L::QK_SW, L::QK_SW);
-    const uint64_t db = make_desc(sk + box * BK * L::QK_SW + within, 16, 8 * L::QK_SW, L::QK_SW);
-    if constexpr (INT8) {
+    for (int kk = 0; kk < L::QK_ROW / 32; ++kk) {
+      const uint32_t box = kk * 32 / L::QK_SW, within = kk * 32 % L::QK_SW;
+      const uint64_t da =
+          make_desc(sq + box * BQ * L::QK_SW + within, 16, 8 * L::QK_SW, L::QK_SW);
+      const uint64_t db =
+          make_desc(sk + box * BK * L::QK_SW + within, 16, 8 * L::QK_SW, L::QK_SW);
       wgmma_s8_ss_n128(acc, da, db, kk > 0);
-    } else {
-      Wgmma<T>::ss_n128(acc, da, db, kk > 0);
-    }
-  }
-}
-
-// O += P V over one 128-key tile; V MN-major: 8-key groups SBO = 8 rows
-// apart, boxes of 64 columns LBO = one box apart.
-template <typename T, int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[32],
-                                         uint32_t sv) {
-  constexpr int SW = AttnSmem<D, false>::V_SW;
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-    const uint64_t db = make_desc(sv + kk * 16 * SW, BK * SW, 8 * SW, SW);
-    if constexpr (D == 128) {
-      Wgmma<T>::rs_n128(o, a, db, 1);
-    } else if constexpr (D == 64) {
-      Wgmma<T>::rs_n64(o, a, db, 1);
-    } else {
-      Wgmma<T>::rs_n32(o, a, db, 1);
     }
   }
 }
@@ -547,10 +632,12 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m_r)[2], 
   l_r[1] = l_r[1] * alpha[1] + rs[1];
 }
 
-template <typename T>
-__device__ __forceinline__ void pack_p(uint32_t (&p)[32], const float (&s)[64]) {
+// An accumulator's N fp32 values rounded to T in pairs: the A operand of
+// a register-A product (issue_rs).
+template <typename T, int N>
+__device__ __forceinline__ void pack_acc(uint32_t (&p)[N / 2], const float (&s)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) p[i] = Mma<T>::pack(s[2 * i], s[2 * i + 1]);
+  for (int i = 0; i < N / 2; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
 }
 
 // One CTA of the attention forward: the producer warpgroup and the two
@@ -664,7 +751,7 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap& tq, const CUtensorMa
         __syncwarp();
         if (lane == 0) mbar_arrive(k_empty);
         online_softmax<INT8>(s, m_r, l_r, alpha, unit);
-        pack_p<T>(p, s);
+        pack_acc<T, 64>(p, s);
       }
       // tile t: S_t and PV_{t-1} in flight together, then softmax of t
       for (int t = 1; t < n_tiles; ++t) {
@@ -678,7 +765,7 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap& tq, const CUtensorMa
         issue_qk<T, D, INT8>(acc, sq, sk + st * L::K_BYTES);
         wgmma_commit();
         mbar_wait(v_full + pst, ((t - 1) / STAGES) & 1);
-        issue_pv<T, D>(o, p, sv + pst * L::V_BYTES);
+        issue_rs<T, D, BK>(o, p, sv + pst * L::V_BYTES);
         wgmma_commit();
         wgmma_wait<1>();  // S_t is done, PV_{t-1} may still run
         fence_regs(acc);
@@ -699,7 +786,7 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap& tq, const CUtensorMa
           o[4 * j + 2] *= alpha[1];
           o[4 * j + 3] *= alpha[1];
         }
-        pack_p<T>(p, s);
+        pack_acc<T, 64>(p, s);
       }
       // the last tile's PV
       const int lst = (n_tiles - 1) % STAGES;
@@ -707,7 +794,7 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap& tq, const CUtensorMa
       fence_regs(o);
       fence_regs(p);
       wgmma_fence();
-      issue_pv<T, D>(o, p, sv + lst * L::V_BYTES);
+      issue_rs<T, D, BK>(o, p, sv + lst * L::V_BYTES);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -726,7 +813,7 @@ __device__ __forceinline__ void attn_cta(const CUtensorMap& tq, const CUtensorMa
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
           *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tig) =
-              Mma<T>::pack(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+              pack2<T>(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
         }
       }
       float* lrow = sc.lse_row(r);
@@ -793,14 +880,16 @@ inline int encode_rows(CUtensorMap* map, const void* base, CUtensorMapDataType d
   return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)r;
 }
 
-// fp32 [rows, ld] (the int8 key scales, one row per (b, h)) as a 2-D map
-// with boxes of BK values of one row.
-inline int encode_scales(CUtensorMap* map, const void* base, int rows, int ld) {
+// fp32 rows of `cols` values, `ld` apart (a multiple of 4: 16-byte
+// rows), as a 2-D map with boxes of `box` values of one row; columns past
+// `cols` read as zeros.
+inline int encode_f32_rows(CUtensorMap* map, const void* base, int rows, int cols, int ld,
+                           int box_cols) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return ENCODE_ERROR;
-  const cuuint64_t dims[2] = {(cuuint64_t)ld, (cuuint64_t)rows};
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
-  const cuuint32_t box[2] = {BK, 1};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, 1};
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,

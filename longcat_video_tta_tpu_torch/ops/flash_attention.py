@@ -1,8 +1,11 @@
 """Flash attention with LongCat conditioning-prefix semantics: the
-hand-written CUDA kernels (``csrc/flash_fwd.cu`` forward, on wgmma with
-TMA loads; ``csrc/flash_bwd.cu`` dQ and dK/dV backward), their ctypes
+hand-written CUDA kernels (``csrc/flash_fwd.cu`` forward,
+``csrc/flash_bwd.cu`` dQ and dK/dV backward; all on wgmma with TMA loads
+and a producer warpgroup, from ``csrc/hopper_common.cuh``), their ctypes
 bindings, their plain PyTorch versions, and the
-``torch.autograd.Function`` that joins them.
+``torch.autograd.Function`` that joins them. The backward kernels read
+lse and delta as fp32 rows of one (batch, head) each
+(``backward_rows``), the layout a TMA box takes.
 
 The kernels replace the reference's Pallas TPU kernels
 ``longcat_video_tta_tpu/ops/flash_attention.py::_fwd_kernel``,
@@ -36,6 +39,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 HEAD_DIMS = (32, 64, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 
@@ -45,8 +49,7 @@ _SOURCE = os.path.join(_CSRC, "flash_fwd.cu")
 _BWD_SOURCE = os.path.join(_CSRC, "flash_bwd.cu")
 BSA_SOURCE = os.path.join(_CSRC, "bsa.cu")  # bound in ops/bsa.py
 SOURCES = (_SOURCE, _BWD_SOURCE, BSA_SOURCE)
-_HEADERS = (os.path.join(_CSRC, "flash_common.cuh"),
-            os.path.join(_CSRC, "hopper_common.cuh"))
+_HEADERS = (os.path.join(_CSRC, "hopper_common.cuh"),)
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -197,7 +200,7 @@ def _nvcc() -> str:
 
 def _lib_path(source: str) -> str:
     """The library of ``source``, named after the hash of the source, the
-    shared header and the flags (a changed source rebuilds)."""
+    shared header and the flags (a changed source or header rebuilds)."""
     h = hashlib.sha256()
     for path in (source, *_HEADERS):
         with open(path, "rb") as f:
@@ -243,9 +246,9 @@ def build_libraries(sources: Sequence[str] = SOURCES) -> List[Tuple[str, str, fl
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD_ARGTYPES = ([_PTR] * 5 + [_INT] * 6 + [_I64] * 6 + [_INT] * 4
                  + [ctypes.c_float, _PTR])
-# q, k, v, do, lse, delta, outputs (1 or 2), B, H, Sq, Sk, D, dtype,
-# 8 strides, ncond, kv_valid, q_off, k_off, scale, stream
-_BWD_TAIL = [_INT] * 6 + [_I64] * 8 + [_INT] * 4 + [ctypes.c_float, _PTR]
+# q, k, v, do, rows, outputs (1 or 2), B, H, Sq, Sk, D, dtype, ld,
+# 8 byte strides, ncond, kv_valid, q_off, k_off, scale, stream
+_BWD_TAIL = [_INT] * 7 + [_I64] * 8 + [_INT] * 4 + [ctypes.c_float, _PTR]
 
 
 def load_library(source: str = _SOURCE) -> str:
@@ -261,8 +264,8 @@ def load_library(source: str = _SOURCE) -> str:
         lib.lc_flash_fwd.restype = ctypes.c_int
         _lib, bound = lib, True
     if hasattr(lib, "lc_flash_bwd_dq"):
-        lib.lc_flash_bwd_dq.argtypes = [_PTR] * 7 + _BWD_TAIL
-        lib.lc_flash_bwd_dkv.argtypes = [_PTR] * 8 + _BWD_TAIL
+        lib.lc_flash_bwd_dq.argtypes = [_PTR] * 6 + _BWD_TAIL
+        lib.lc_flash_bwd_dkv.argtypes = [_PTR] * 7 + _BWD_TAIL
         lib.lc_flash_bwd_dq.restype = lib.lc_flash_bwd_dkv.restype = ctypes.c_int
         _bwd_lib, bound = lib, True
     if not bound:
@@ -382,24 +385,56 @@ def _kernel_forward(q, k, v, ncond: int, kv_valid: Optional[int],
     return o, lse
 
 
-def _kernel_backward(dkv: bool, q, k, v, do, lse, delta, ncond: int,
-                     kv_valid: Optional[int], q_offset: int, k_offset: int,
-                     scale: float):
+def backward_rows(lse: torch.Tensor, delta: Optional[torch.Tensor] = None, *,
+                  do: Optional[torch.Tensor] = None,
+                  o: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, int]:
+    """The lse and delta layout the backward kernels read: ``lse``
+    [B, Sq, H] and either ``delta`` [B, Sq, H] or the ``do`` and ``o``
+    [B, Sq, H, D] it comes from -> (``rows`` [2, B*H, ld] fp32, ``ld``).
+    Row b*H + h of ``rows[0]`` holds lse * log2(e) of (b, h) with query i
+    at column i, the same row of ``rows[1]`` its delta; ``ld`` is Sq
+    rounded up to 4 (16-byte rows, what a TMA box takes: the [B, Sq, H]
+    tensors are strided by H floats), the padding zero. From ``do`` and
+    ``o``, delta = rowsum(dO * O) in fp32 is summed straight into its
+    rows."""
+    B, Sq, H = lse.shape
+    ld = -(-Sq // 4) * 4
+    rows = torch.empty((2, B, H, ld), dtype=torch.float32, device=lse.device)
+    if ld > Sq:
+        rows[..., Sq:] = 0.0
+    torch.mul(lse.permute(0, 2, 1), LOG2E, out=rows[0, ..., :Sq])
+    if delta is None:
+        torch.sum(do.float().mul_(o), -1, out=rows[1, ..., :Sq].permute(0, 2, 1))
+    else:
+        rows[1, ..., :Sq] = delta.permute(0, 2, 1)
+    return rows.view(2, B * H, ld), ld
+
+
+def _kernel_backward(dkv: bool, q, k, v, do, rows: torch.Tensor, ld: int, *,
+                     num_cond_tokens: int = 0, kv_valid_len: Optional[int] = None,
+                     scale: Optional[float] = None, q_offset: int = 0,
+                     k_offset: int = 0):
     """Launch the dQ (``dkv`` False) or the dK/dV kernel of
-    csrc/flash_bwd.cu on the current stream. Raises on any input the
+    csrc/flash_bwd.cu on the current stream, with lse and delta as
+    ``backward_rows``: the one entry into each kernel, for the public
+    wrappers and the autograd backward alike. Raises on any input the
     kernels do not take."""
     global bwd_dq_launches, bwd_dkv_launches
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
+    ncond = int(num_cond_tokens) if Sq == Sk else 0
+    if scale is None:
+        scale = D ** -0.5
     _check_inputs(q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"flash_bwd: do {tuple(do.shape)} {do.dtype} must match q")
-    if lse.shape != (B, Sq, H) or delta.shape != (B, Sq, H):
-        raise ValueError("flash_bwd: lse and delta must be [B, Sq, H]")
+    if (rows.shape != (2, B * H, ld) or rows.dtype != torch.float32 or ld % 4
+            or ld < Sq or not rows.is_contiguous() or rows.device != q.device):
+        raise ValueError(f"flash_bwd: lse and delta rows must be a contiguous fp32 "
+                         f"[2, B*H, ld] tensor with ld >= Sq a multiple of 4 on q's "
+                         f"device, got {tuple(rows.shape)} {rows.dtype} ld {ld}")
     do = do.contiguous()
     _check_operand("do", do, D)
-    lse = lse.float().contiguous()
-    delta = delta.float().contiguous()
     if dkv:
         outs = (torch.empty((B, Sk, H, D), dtype=k.dtype, device=k.device),
                 torch.empty((B, Sk, H, D), dtype=v.dtype, device=v.device))
@@ -407,19 +442,18 @@ def _kernel_backward(dkv: bool, q, k, v, do, lse, delta, ncond: int,
         outs = (torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device),)
     if B * H * Sq * Sk == 0:
         return tuple(x.zero_() for x in outs)
+    maps = [tma_map_args(x, name=n) for n, x in (("q", q), ("k", k), ("v", v), ("do", do))]
+    strides = [m["strides"][i] for m in maps for i in (2, 1)]  # bs, ts of q, k, v, do
     lib = _bwd_library()
     fn = lib.lc_flash_bwd_dkv if dkv else lib.lc_flash_bwd_dq
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
-                B, H, Sq, Sk, D, _KERNEL_DTYPES[q.dtype],
-                q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                v.stride(0), v.stride(1), do.stride(0), do.stride(1),
-                int(ncond), _kv_bound(kv_valid), int(q_offset), int(k_offset),
-                float(scale), torch.cuda.current_stream().cuda_stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), rows.data_ptr(),
+                *(x.data_ptr() for x in outs), B, H, Sq, Sk, D, _KERNEL_DTYPES[q.dtype],
+                ld, *strides, ncond, _kv_bound(kv_valid_len), int(q_offset),
+                int(k_offset), float(scale), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd_{'dkv' if dkv else 'dq'} launch failed: "
-                           f"cudaError {rc}")
+                           f"error {rc}")
     if dkv:
         bwd_dkv_launches += 1
     else:
@@ -459,12 +493,6 @@ def flash_attention(
                            scale)
 
 
-def _bwd_args(q, k, num_cond_tokens, scale):
-    Sq, D = q.shape[1], q.shape[3]
-    ncond = int(num_cond_tokens) if Sq == k.shape[1] else 0
-    return ncond, (D ** -0.5 if scale is None else scale)
-
-
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, num_cond_tokens: int = 0,
                            kv_valid_len: Optional[int] = None,
                            scale: Optional[float] = None, q_offset: int = 0,
@@ -477,9 +505,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, num_cond_tokens: int = 0,
             q, k, v, do, lse, delta, num_cond_tokens=num_cond_tokens,
             kv_valid_len=kv_valid_len, scale=scale, q_offset=q_offset,
             k_offset=k_offset)[0]
-    ncond, scale = _bwd_args(q, k, num_cond_tokens, scale)
-    return _kernel_backward(False, q, k, v, do, lse, delta, ncond, kv_valid_len,
-                            q_offset, k_offset, scale)[0]
+    return _kernel_backward(False, q, k, v, do, *backward_rows(lse, delta),
+                            num_cond_tokens=num_cond_tokens, kv_valid_len=kv_valid_len,
+                            scale=scale, q_offset=q_offset, k_offset=k_offset)[0]
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, num_cond_tokens: int = 0,
@@ -494,19 +522,21 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, num_cond_tokens: int = 0
             q, k, v, do, lse, delta, num_cond_tokens=num_cond_tokens,
             kv_valid_len=kv_valid_len, scale=scale, q_offset=q_offset,
             k_offset=k_offset)[1:]
-    ncond, scale = _bwd_args(q, k, num_cond_tokens, scale)
-    return _kernel_backward(True, q, k, v, do, lse, delta, ncond, kv_valid_len,
-                            q_offset, k_offset, scale)
+    return _kernel_backward(True, q, k, v, do, *backward_rows(lse, delta),
+                            num_cond_tokens=num_cond_tokens, kv_valid_len=kv_valid_len,
+                            scale=scale, q_offset=q_offset, k_offset=k_offset)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable ``flash_attention`` (the reference's ``_flash_core``
     custom VJP, :490-526). The forward saves q, k, v, o and lse; the
-    backward computes delta = rowsum(dO * O) in fp32 with plain torch (the
+    backward lays lse out once as ``backward_rows`` and sums delta =
+    rowsum(dO * O) in fp32 straight into its rows with plain torch (the
     reference computes it outside its kernels too), then launches the dQ
     kernel, and the dK/dV kernel only when k or v needs a gradient
-    (cross-attention's k and v come from the frozen text path). CPU
-    tensors go through ``attention_backward_reference``."""
+    (cross-attention's k and v come from the frozen text path), through
+    the same entry as the public wrappers. CPU tensors go through
+    ``attention_backward_reference``."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_cond_tokens, kv_valid_len, scale, q_offset,
@@ -527,10 +557,10 @@ class FlashAttentionFunction(torch.autograd.Function):
         if not q.is_cuda:
             dq, dk, dv = attention_backward_reference(q, k, v, o, lse, do, **ctx.kw)
         else:
-            delta = (do.float() * o.float()).sum(-1)
+            rows = backward_rows(lse, do=do, o=o)
             if need_q:
-                dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **ctx.kw)
+                (dq,) = _kernel_backward(False, q, k, v, do, *rows, **ctx.kw)
             if need_k or need_v:
-                dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **ctx.kw)
+                dk, dv = _kernel_backward(True, q, k, v, do, *rows, **ctx.kw)
         return (dq if need_q else None, dk if need_k else None,
                 dv if need_v else None, None, None, None, None, None)

@@ -33,13 +33,19 @@ A variant with a planted fault shows which faults each gate catches.
 ``--fault NAME`` makes one from a copy of the package's sources (in the
 temporary directory) and holds it to the plain version beside the
 package's own kernel; the faults (FAULTS below) are deterministic edits:
-  drop_last_kv_tile   (flash_fwd.cu) the key loop ends one tile early;
-  skip_straddle_mask  (flash_fwd.cu) the tile that straddles the
-                      conditioning prefix gets no element mask, so
-                      conditioning queries see its noise keys;
-  drop_one_block      (bsa.cu) the last selected block is skipped;
-  key_scale_per_tile  (hopper_common.cuh, int8) every key of a 128-key
-                      tile takes the tile's first key scale.
+  drop_last_kv_tile       (flash_fwd.cu) the key loop ends one tile early;
+  skip_straddle_mask      (flash_fwd.cu) the tile that straddles the
+                          conditioning prefix gets no element mask, so
+                          conditioning queries see its noise keys;
+  drop_one_block          (bsa.cu) the last selected block is skipped;
+  key_scale_per_tile      (hopper_common.cuh, int8) every key of a 128-key
+                          tile takes the tile's first key scale;
+  bwd_drop_delta          (flash_bwd.cu, both kernels) dS = P dP, without
+                          the delta term;
+  bwd_skip_last_q_tile    (flash_bwd.cu, dK/dV) every CTA's walk ends one
+                          query tile early;
+  bwd_skip_straddle_mask  (flash_bwd.cu, both kernels) tiles that straddle
+                          the conditioning prefix get no element mask.
 A source variant made by hand (sed on a copy) works the same way through
 the source options. The plain versions run once per case and every
 source is held to them. With some of the options, only those parts run;
@@ -63,25 +69,39 @@ DEFAULT_SOURCE = os.path.join(CSRC, "flash_fwd.cu")
 DEFAULT_BWD_SOURCE = os.path.join(CSRC, "flash_bwd.cu")
 DEFAULT_BSA_SOURCE = os.path.join(CSRC, "bsa.cu")
 FIXED_TOL = 1e-2
-# name -> (part it plants into, file, text, faulty text)
+# name -> (part it plants into, [(file, text, faulty text), ...])
 FAULTS = {
-    "drop_last_kv_tile": ("fwd", "flash_fwd.cu", "sc.n_tiles = (k_stop + BK - 1) / BK;",
-                          "sc.n_tiles = max(1, (k_stop + BK - 1) / BK - 1);"),
-    "skip_straddle_mask": ("fwd", "flash_fwd.cu",
-                           "return (rows_any_cond && k_off + k0 + BK > ncond) || k0 + BK > kend;",
-                           "return k0 + BK > kend;"),
-    "drop_one_block": ("bsa", "bsa.cu", "for (int j = 0; j < top_k; ++j) {",
-                       "for (int j = 0; j < top_k - 1; ++j) {"),
-    "key_scale_per_tile": ("bsa", "hopper_common.cuh", "sks[8 * j + 2 * tig + (e & 1)]",
-                           "sks[0]"),
+    "drop_last_kv_tile": ("fwd", [("flash_fwd.cu", "sc.n_tiles = (k_stop + BK - 1) / BK;",
+                                   "sc.n_tiles = max(1, (k_stop + BK - 1) / BK - 1);")]),
+    "skip_straddle_mask": ("fwd", [(
+        "flash_fwd.cu",
+        "return (rows_any_cond && k_off + k0 + BK > ncond) || k0 + BK > kend;",
+        "return k0 + BK > kend;")]),
+    "drop_one_block": ("bsa", [("bsa.cu", "for (int j = 0; j < top_k; ++j) {",
+                                "for (int j = 0; j < top_k - 1; ++j) {")]),
+    "key_scale_per_tile": ("bsa", [("hopper_common.cuh", "sks[8 * j + 2 * tig + (e & 1)]",
+                                    "sks[0]")]),
+    "bwd_drop_delta": ("bwd", [("flash_bwd.cu", "return p * (dp - delta);",
+                                "return p * dp;")]),
+    "bwd_skip_last_q_tile": ("bwd", [(
+        "flash_bwd.cu", "sc.n_tiles = sc.k0 < sc.m.k_end ? n_qt - sc.t_begin : 0;",
+        "sc.n_tiles = sc.k0 < sc.m.k_end ? max(0, n_qt - sc.t_begin - 1) : 0;")]),
+    "bwd_skip_straddle_mask": ("bwd", [
+        ("flash_bwd.cu",
+         "return k0 + KV_BK > m.k_end || (keys_any_noise && m.q_off + q0 < m.ncond);",
+         "return k0 + KV_BK > m.k_end;"),
+        ("flash_bwd.cu",
+         "return (rows_any_cond && m.k_off + k0 + DQ_BK > m.ncond) || k0 + DQ_BK > m.k_end;",
+         "return k0 + DQ_BK > m.k_end;")]),
 }
+PART_SOURCE = {"fwd": "flash_fwd.cu", "bwd": "flash_bwd.cu", "bsa": "bsa.cu"}
 
 
 def planted(name: str) -> str:
     """Copy the package's kernel sources into a directory of their own,
     plant fault ``name`` and return the source to build (its own copy of
     the headers comes in first, by the quoted include)."""
-    part, fname, text, faulty = FAULTS[name]
+    part, edits = FAULTS[name]
     out = os.path.join(tempfile.gettempdir(), f"lc_fault_{name}")
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
@@ -89,15 +109,17 @@ def planted(name: str) -> str:
         if f.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC, f)) as fh:
                 src = fh.read()
-            if f == fname:
-                if text not in src:
-                    raise ValueError(f"fault {name}: {fname} no longer holds {text!r}")
-                src = src.replace(text, faulty)
+            for fname, text, faulty in edits:
+                if f == fname:
+                    if src.count(text) != 1:
+                        raise ValueError(f"fault {name}: {fname} holds {text!r} "
+                                         f"{src.count(text)} times, not once")
+                    src = src.replace(text, faulty)
             if f.endswith(".cu"):  # a library of its own, whatever file changed
                 src += f"\n// planted fault: {name}\n"
             with open(os.path.join(out, f), "w") as fh:
                 fh.write(src)
-    return os.path.join(out, "flash_fwd.cu" if part == "fwd" else "bsa.cu")
+    return os.path.join(out, PART_SOURCE[part])
 
 
 def label(src: str) -> str:
@@ -127,9 +149,10 @@ def main() -> int:
         args.source, args.bwd_source = [DEFAULT_SOURCE], [DEFAULT_BWD_SOURCE]
         args.bsa_source = [DEFAULT_BSA_SOURCE]
     for name in args.fault:
-        own = args.source if FAULTS[name][0] == "fwd" else args.bsa_source
+        part = FAULTS[name][0]
+        own = {"fwd": args.source, "bwd": args.bwd_source, "bsa": args.bsa_source}[part]
         if not own:
-            own.append(DEFAULT_SOURCE if FAULTS[name][0] == "fwd" else DEFAULT_BSA_SOURCE)
+            own.append(os.path.join(CSRC, PART_SOURCE[part]))
         own.append(planted(name))
     sources = [os.path.abspath(s) for s in args.source]
     bwd_sources = [os.path.abspath(s) for s in args.bwd_source]

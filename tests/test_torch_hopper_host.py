@@ -97,3 +97,56 @@ def test_key_scales_rows():
         for h in range(H):
             assert torch.equal(rows[b * H + h, :Sk], ks[b, :, h, 0])
     assert float(rows[:, Sk:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("B,Sq,H", [(1, 10, 3), (2, 12, 2), (3, 1, 1), (1, 77, 4)])
+def test_backward_rows_layout(B, Sq, H):
+    """[B, Sq, H] lse and delta -> [2, B*H, ld] fp32 rows: lse in log2
+    units and delta of (b, h) at row b*H + h, query i at column i, ld Sq
+    rounded up to 4 (16-byte rows), zero padding."""
+    g = torch.Generator().manual_seed(B * 100 + Sq)
+    lse = torch.randn((B, Sq, H), generator=g)
+    delta = torch.randn((B, Sq, H), generator=g)
+    rows, ld = fa.backward_rows(lse, delta)
+    assert ld % 4 == 0 and Sq <= ld < Sq + 4 and (ld * 4) % 16 == 0
+    assert rows.shape == (2, B * H, ld) and rows.dtype == torch.float32
+    assert rows.is_contiguous()
+    for b in range(B):
+        for h in range(H):
+            torch.testing.assert_close(rows[0, b * H + h, :Sq], lse[b, :, h] * fa.LOG2E,
+                                       rtol=0, atol=0)
+            assert torch.equal(rows[1, b * H + h, :Sq], delta[b, :, h])
+    assert float(rows[:, :, Sq:].abs().sum()) == 0.0
+
+
+def test_backward_rows_of_a_row_with_no_key():
+    """lse = -1e30 (a row that sees no key) stays finite in log2 units."""
+    lse = torch.full((1, 5, 2), fa.NEG_INF)
+    rows, _ = fa.backward_rows(lse, torch.zeros_like(lse))
+    assert torch.isfinite(rows).all() and float(rows[0, :, :5].max()) < -1e30
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(num_cond_tokens=9),
+                                dict(num_cond_tokens=9, kv_valid_len=20)])
+@pytest.mark.parametrize("Sq", [30, 32])
+def test_delta_in_the_row_layout_gives_the_reference_gradients(kw, Sq):
+    """delta = rowsum(dO * O) as FlashAttentionFunction.backward sums it
+    straight into the rows (from do and o, bf16 as on the card), read
+    back, is the delta attention_backward_reference computes: the same
+    rows as from that delta, and the same gradients to the last bit; the
+    lse row read back in natural units matches to fp32 rounding."""
+    g = torch.Generator().manual_seed(7)
+    q, k, v, do = (torch.randn((2, Sq, 3, 32), generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa.attention_reference(q, k, v, **kw)
+    rows, ld = fa.backward_rows(lse, do=do, o=o)
+    ref_delta = (do.float() * o.float()).sum(-1)
+    assert torch.equal(rows, fa.backward_rows(lse, ref_delta)[0])
+    B, _, H, _ = q.shape
+    back = rows.view(2, B, H, ld)[..., :Sq].permute(0, 1, 3, 2)
+    delta = back[1]
+    torch.testing.assert_close(back[0] / fa.LOG2E, lse, rtol=1e-6, atol=0)
+    ref = fa.attention_backward_reference(q, k, v, o, lse, do, **kw)
+    got = fa._backward_reference_from_delta(q, k, v, do, lse, delta, **kw)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)

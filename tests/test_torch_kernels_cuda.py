@@ -1,5 +1,5 @@
-"""The port's CUDA attention kernels (the wgmma forward, dQ and dK/dV
-backward, the block-sparse kernels) against their plain PyTorch
+"""The port's CUDA attention kernels (the wgmma forward, the wgmma dQ and
+dK/dV backward, the block-sparse kernels) against their plain PyTorch
 versions, on the card. Every test here is marked ``cuda`` and skips
 without a GPU. The file imports no JAX, so it runs on the card machine,
 which has none:
@@ -153,6 +153,55 @@ def test_backward_kernels_match_plain_version(card, case, dtype):
         _assert_grad_close(name, d, d_r)
 
 
+# The tiles of the wgmma backward kernels: dK/dV CTAs of 128 keys walk
+# 64-query tiles, dQ CTAs of 128 rows walk 128-key tiles.
+# (B, H, Sq, Sk, D, num_cond_tokens, kv_valid_len, q_offset, k_offset)
+BWD_CASES = {
+    # Sq and Sk not multiples of 64 or 128
+    "ragged_sq_sk_d64": (1, 3, 200, 333, 64, 0, None, 0, 0),
+    "ragged_sq_sk_d32_b2": (2, 2, 70, 190, 32, 0, None, 0, 0),
+    # ncond 100 inside query tile 1 (64-127) and key tile 0 (0-127)
+    "ncond_straddles_tiles_d128": (2, 2, 300, 300, 128, 100, None, 0, 0),
+    # dQ CTAs 0, 1 all conditioning (they stop at key tile 2), CTA 2
+    # mixed; dK/dV CTAs 3, 4 all noise (they start at query tile 4)
+    "cond_and_noise_ctas_d64": (1, 2, 520, 520, 64, 260, None, 0, 0),
+    "kv_valid_inside_tile_d128": (2, 2, 150, 400, 128, 0, 333, 0, 0),
+    "kv_valid_zero_ragged_d32": (1, 2, 90, 90, 32, 0, 0, 0, 0),
+    "prefix_kv_valid_offsets_d64": (1, 2, 200, 200, 64, 150, 170, 64, 32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_backward_kernels_at_the_tile_edges(card, case, dtype):
+    B, H, Sq, Sk, D, ncond, kv_valid, q_off, k_off = BWD_CASES[case]
+    q, k, v = _inputs(B, H, Sq, Sk, D, dtype, card, seed=16)
+    do = _inputs(B, H, Sq, Sq, D, dtype, card, seed=17)[0]
+    kw = dict(num_cond_tokens=ncond, kv_valid_len=kv_valid, q_offset=q_off,
+              k_offset=k_off)
+    got, ref = _backward_both(q, k, v, do, kw)
+    for name, d, d_r in zip(("dq", "dk", "dv"), got, ref):
+        assert d.dtype == dtype and d.shape == d_r.shape
+        _assert_grad_close(name, d, d_r)
+        if kv_valid == 0:
+            assert float(d.abs().max()) == 0.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_backward_kernels_take_fused_kv_views(card, D):
+    """k, v sliced out of a fused [B, Sk, 2, H, D] projection (the
+    cross-attention layout), Sk not a multiple of 128."""
+    g = torch.Generator(device=card).manual_seed(D)
+    q = torch.randn((2, 130, 2, D), generator=g, device=card).bfloat16()
+    kv = torch.randn((2, 300, 2, 2, D), generator=g, device=card).bfloat16()
+    do = torch.randn((2, 130, 2, D), generator=g, device=card).bfloat16()
+    got, ref = _backward_both(q, kv[:, :, 0], kv[:, :, 1], do, {})
+    for name, d, d_r in zip(("dq", "dk", "dv"), got, ref):
+        _assert_grad_close(name, d, d_r)
+
+
 @pytest.mark.cuda
 def test_backward_row_with_no_visible_key_is_zero(card):
     """kv_valid 0: lse = -1e30 for every row; every gradient is exactly
@@ -193,6 +242,29 @@ def test_function_backward_uses_the_kernels(card):
     o.float().square().sum().backward()
     assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == (1, 1, 1)
     assert v.grad is None and torch.isfinite(k.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_sq_sk_d32_b2", "ncond_straddles_tiles_d128",
+                                  "prefix_kv_valid_offsets_d64"])
+def test_function_backward_matches_plain_version(card, case):
+    """The autograd backward (delta summed straight into its rows, then the
+    wrappers' entry into each kernel) against the plain backward, at
+    tile-edge shapes; Sq 70 leaves padding in the rows."""
+    B, H, Sq, Sk, D, ncond, kv_valid, q_off, k_off = BWD_CASES[case]
+    q, k, v = _inputs(B, H, Sq, Sk, D, torch.bfloat16, card, seed=18)
+    do = _inputs(B, H, Sq, Sq, D, torch.bfloat16, card, seed=19)[0]
+    kw = dict(num_cond_tokens=ncond, kv_valid_len=kv_valid, q_offset=q_off,
+              k_offset=k_off)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    fa.reset_launches()
+    o = fa.FlashAttentionFunction.apply(*leaves, ncond, kv_valid, None, q_off, k_off)
+    o.backward(do)
+    assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == (1, 1, 1)
+    o_r, lse = fa.flash_attention(q, k, v, **kw)
+    ref = fa.attention_backward_reference(q, k, v, o_r, lse, do, **kw)
+    for name, x, d_r in zip(("dq", "dk", "dv"), leaves, ref):
+        _assert_grad_close(name, x.grad, d_r)
 
 
 # ---------------------------------------------------------------------------
