@@ -25,7 +25,9 @@ Phases (each one fails the run when it fails):
      ``attention_backward_reference`` on the card at the training shapes
      (the delta_a train step's self-attention, 10 920 tokens with a
      6240-token prefix, and its cross-attention dQ against 512 text
-     tokens) plus small ragged / fp16 / no-visible-key cases and the
+     tokens; the other methods' cross-attention dK/dV against those
+     tokens, the train step at longcat_bench_3b's 20 heads and DNO's
+     sampler step) plus small ragged / fp16 / no-visible-key cases and the
      edges of the kernels' tiles (a prefix inside a query and a key tile,
      all-conditioning and all-noise CTAs, kv_valid inside a tile, fused
      k/v views), with the per-output gates below; times of each kernel,
@@ -46,7 +48,9 @@ Phases (each one fails the run when it fails):
      weights and noise on the CPU (plain path), dense and with every
      decode lever (BSA with 32-token blocks, int8qk, PAB, CFG reuse), and one delta_a train
      step's loss and delta gradient on the card against the CPU, same
-     weights and injected sigma and noise, longcat_demo widths;
+     weights and injected sigma and noise, longcat_demo widths; the same
+     for one train step of each other method (and one DNO step), and LoRA
+     merged into the weights against its side branch on the card;
   5. main path, serving: the port's runner (``--method none``) answers 2
      requests at LongCat-13.6B width (DiT 4096 / 32x128 heads / ffn 11008
      / 48 blocks, UMT5-XXL, WAN VAE base 96; bf16, random weights drawn
@@ -67,7 +71,16 @@ Phases (each one fails the run when it fails):
      and run B (5 cond frames, ``--fast-decode --quantize-decode int8qk
      --gen-segment-steps 4``: W8A8, int8-QK BSA at keep 0.35, PAB, CFG
      reuse). Each kernel's launch count must equal ``lever_launches``;
-     PSNR/SSIM and run A's fast-vs-dense PSNR must be finite.
+     PSNR/SSIM and run A's fast-vs-dense PSNR must be finite;
+  8. main paths, the other methods: the runner on 1 video per method
+     (lora on all eight sites under W8A8 decode, delta_b hidden, delta_c,
+     film, norm_tune all_norm with a delta, full, dno) at the delta_a
+     path's widths, depth and window (full on longcat_bench_3b, whose
+     full-weight TTA state fits the card), 3 steps (dno: 2 through a
+     2-step sampler), 2 denoising steps. Each must succeed with finite
+     losses, anchors and PSNR/SSIM, train (its anchor or DNO loss moves),
+     report the trainable-parameter count of its configuration, and
+     launch each kernel as often as ``method_launches`` derives.
 
 The counts of every kernel are set to 0 just before each main path and
 read just after; a kernel's ``launches`` in the kernels line is its sum
@@ -290,15 +303,18 @@ def tta_kernel_cases(dit_cfg, tokens_per_frame):
     """The forward kernel at the delta_a shapes it runs most: the train
     step's self-attention (one 10 920-token sequence, 6240-token prefix;
     192 launches per step with the cross-attention and the remat
-    recompute) and the anchor eval's (6 rows of 4 cond + 1 val latents,
-    7800 tokens; 96 launches per eval)."""
+    recompute; DNO's sampler step has the same shape) and the anchor
+    eval's (6 rows of 4 cond + 1 val latents, 7800 tokens; 96 launches
+    per eval); and the train step at longcat_bench_3b's 20 heads."""
     H, D = dit_cfg.num_heads, dit_cfg.head_dim
     n_cond_lat, n_train_lat, n_val_lat = tta_split()
     ncond = n_cond_lat * tokens_per_frame
     s_train = (n_cond_lat + n_train_lat) * tokens_per_frame
     s_anchor = (n_cond_lat + n_val_lat) * tokens_per_frame
     return [("train_self", (1, H, s_train, s_train, D), dict(ncond=ncond, seed=8)),
-            ("anchor_self", (6, H, s_anchor, s_anchor, D), dict(ncond=ncond, seed=9))]
+            ("anchor_self", (6, H, s_anchor, s_anchor, D), dict(ncond=ncond, seed=9)),
+            # full's train step on longcat_bench_3b (20 heads of 128)
+            ("train_self_h20", (1, 20, s_train, s_train, D), dict(ncond=ncond, seed=12))]
 
 
 def phase_kernel_checks(fa, dit_cfg, tokens_per_frame):
@@ -430,6 +446,17 @@ def phase_bwd_kernel_checks(fa, dit_cfg, tokens_per_frame):
                            timed=True, seed=21)
     cases += check_bwd_case(fa, "train_cross_dq", 1, H, s_train, dit_cfg.text_len, D,
                             fused_kv=True, timed=True, seed=22, dkv=False)
+    # the other methods' shapes: cross-attention dK/dV (LoRA on xattn_kv,
+    # norm_tune's cross k_norm, full), the train step at longcat_bench_3b's
+    # 20 heads, and DNO's sampler step over its window (the split keeps
+    # one latent out at holdout 0 too, so it is the train step's shape)
+    cases += check_bwd_case(fa, "train_cross_dkv", 1, H, s_train, dit_cfg.text_len, D,
+                            fused_kv=True, timed=True, seed=32)
+    cases += check_bwd_case(fa, "train_self_h20", 1, 20, s_train, s_train, D, ncond=ncond,
+                            timed=True, seed=33)
+    s_dno = sum(tta_split(holdout=0.0)[:2]) * tokens_per_frame
+    cases += check_bwd_case(fa, "dno_self", 1, H, s_dno, s_dno, D, ncond=ncond,
+                            timed=True, seed=34)
     cases += check_bwd_case(fa, "ragged_prefix_d32", 2, 2, 150, 150, 32, ncond=37,
                             seed=23)
     cases += check_bwd_case(fa, "ragged_kv_valid_d64", 1, 3, 200, 333, 64,
@@ -840,6 +867,108 @@ def phase_step_agreement():
         raise AssertionError("card and CPU delta_a train steps disagree")
 
 
+# one train step of each other method at longcat_demo width (bf16), card
+# vs CPU, and builtin vs side-branch LoRA on the card; the step
+# agreement's gates (loss rel 1e-2, gradient cosine >= 0.99)
+SCHEME_STEPS = {
+    "delta_b_timestep": dict(method="delta_b"),
+    "delta_b_hidden": dict(method="delta_b", delta_target="hidden", delta_dim=384,
+                           target_blocks="last_4"),
+    "delta_c": dict(method="delta_c"),
+    "film": dict(method="film", film_mode="shift_scale"),
+    "lora": dict(method="lora", lora_target_ffn=True),
+    "norm_tune": dict(method="norm_tune", norm_target="all_norm", also_tune_delta=True),
+    "full": dict(method="full"),
+}
+
+
+def scheme_step(scheme, dit, tp, cond, target, emb, mask, sigma, noise):
+    """Loss and the flattened gradient over every trainable tensor of one
+    train step."""
+    import torch
+
+    from longcat_video_tta_tpu_torch.tta.losses import flow_matching_loss_conditioned
+
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in tp.items()}
+    fwd_dit, adapters = scheme.to_forward(leaves, dit)
+    loss = flow_matching_loss_conditioned(fwd_dit, cond, target, emb, mask,
+                                          adapters=adapters, sigma=sigma, noise=noise)
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    flat = torch.cat([(torch.zeros_like(v) if g is None else g).double().flatten().cpu()
+                      for v, g in zip(leaves.values(), grads)])
+    return float(loss.detach()), flat
+
+
+def _agree(name, loss_a, grad_a, loss_b, grad_b):
+    rel = abs(loss_a - loss_b) / abs(loss_b)
+    cos = float((grad_a @ grad_b) / (grad_a.norm() * grad_b.norm()))
+    rel_l2 = float((grad_a - grad_b).norm() / grad_b.norm())
+    print(f"[agree] {name}: loss {loss_a:.6g} vs {loss_b:.6g} (rel {rel:.3g}, max "
+          f"{STEP_LOSS_RTOL}); grad cosine {cos:.6f} (min {STEP_GRAD_COS_MIN}), rel L2 "
+          f"{rel_l2:.3g}, |grad| {float(grad_b.norm()):.4g}, {grad_b.numel()} elements")
+    if not (rel <= STEP_LOSS_RTOL and cos >= STEP_GRAD_COS_MIN):
+        raise AssertionError(f"{name} disagrees")
+
+
+def phase_scheme_step_agreement():
+    """Each other method's train step (and one DNO step) on the card vs the
+    CPU plain path, the delta_a step agreement's inputs and weights; LoRA
+    merged into the weights vs its side branch on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.comparisons import noise_opt
+    from longcat_video_tta_tpu_torch.config import AdapterConfig, longcat_demo
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle
+    from longcat_video_tta_tpu_torch.tta.adapters import build_scheme
+
+    cfg = longcat_demo()
+    cpu_dit = ModelBundle.init_random(cfg, seed=4, device="cpu").dit
+    gpu_dit = copy.deepcopy(cpu_dit).cuda()
+    rng = np.random.default_rng(2)
+    arrays = dict(cond=rng.standard_normal((1, 16, 2, 8, 16)),
+                  target=rng.standard_normal((1, 16, 1, 8, 16)),
+                  emb=rng.standard_normal((1, cfg.dit.text_len, cfg.dit.text_dim)),
+                  sigma=np.array([0.6]), noise=rng.standard_normal((1, 16, 1, 8, 16)))
+    mask = np.ones((1, cfg.dit.text_len), np.int64)
+    mask[:, 20:] = 0
+    on = lambda dev: dict(
+        {k: torch.from_numpy(a.astype(np.float32)).to(dev) for k, a in arrays.items()},
+        mask=torch.from_numpy(mask).to(dev))
+    a, b = on("cpu"), on("cuda")
+    args = ("cond", "target", "emb", "mask", "sigma", "noise")
+    for name, kw in SCHEME_STEPS.items():
+        scheme = build_scheme(cfg.dit, AdapterConfig(**kw))
+        tp_c = scheme.init("cpu", dit=cpu_dit, generator=torch.Generator().manual_seed(5))
+        if kw["method"] == "lora":  # b starts at zero: move it so a gets a gradient
+            tp_c = {k: v + 0.01 for k, v in tp_c.items()}
+        tp_g = (scheme.init("cuda", dit=gpu_dit) if kw["method"] in ("norm_tune", "full")
+                else {k: v.cuda() for k, v in tp_c.items()})
+        loss_c, grad_c = scheme_step(scheme, cpu_dit, tp_c, *(a[k] for k in args))
+        loss_g, grad_g = scheme_step(scheme, gpu_dit, tp_g, *(b[k] for k in args))
+        _agree(f"longcat_demo {name} step card vs cpu", loss_g, grad_g, loss_c, grad_c)
+        if kw["method"] == "lora":
+            merged = build_scheme(cfg.dit, AdapterConfig(**kw, lora_builtin=True))
+            loss_m, grad_m = scheme_step(merged, gpu_dit, tp_g, *(b[k] for k in args))
+            _agree("longcat_demo lora merged vs side branch on the card", loss_m, grad_m,
+                   loss_g, grad_g)
+        torch.cuda.empty_cache()
+
+    # DNO: one step's loss and noise gradient through a 2-step sampler
+    def dno_grad(dit, d):
+        z = d["noise"].clone().requires_grad_(True)
+        gen = noise_opt.sample_from_noise(dit, cfg.scheduler, z, d["cond"], d["emb"],
+                                          d["mask"], num_steps=2)
+        loss = ((gen - d["target"]) ** 2).mean()
+        (g,) = torch.autograd.grad(loss, [z])
+        return float(loss.detach()), g.double().flatten().cpu()
+
+    _agree("longcat_demo dno step (2 sampler steps) card vs cpu", *dno_grad(gpu_dit, b),
+           *dno_grad(cpu_dit, a))
+
+
 def phase_main_path(fa, depth):
     import numpy as np
 
@@ -985,38 +1114,73 @@ def phase_lever_path(fa, bsa, run: str, depth: int):
     return got, [r.get("gen_time") for r in summary["results"]]
 
 
-def tta_split():
+def tta_split(holdout: float = 0.25):
     """(cond, train, val) latents of the TTA window, as the runner splits
-    it (tta/split.py)."""
+    it (tta/split.py); DNO splits at holdout 0."""
     from longcat_video_tta_tpu_torch.tta.split import estimate_tta_split_budget
 
     s = estimate_tta_split_budget(TTA["tta_total_frames"],
-                                  min(TTA["cond_frames"], TTA["tta_total_frames"]))
+                                  min(TTA["cond_frames"], TTA["tta_total_frames"]),
+                                  holdout)
     return s["cond_latents"], s["train_latents"], s["val_latents"]
 
 
+def train_step_launches(graph: str, depth: int):
+    """Launches per kernel of one train step with full remat (2 attention
+    calls per block), by where the trainable tensors enter the graph. A
+    block whose inputs depend on no trainable tensor runs once and is not
+    recomputed; an attention runs the dQ kernel when its q needs a
+    gradient and the dK/dV kernel when its k or v does:
+      "t_embed"    (delta_a, delta_b timestep, film): every block, each
+                   recomputed (forward 4 x depth); dQ for self- and cross-
+                   attention; dK/dV for self-attention only (cross-
+                   attention's k, v come from the frozen text path);
+      "cross_kv"   (LoRA on xattn_kv, norm_tune qk_norm / all_norm, full):
+                   as t_embed, and cross-attention's k, v need a gradient
+                   too: dK/dV 2 x depth;
+      "cross_norm" (norm_tune cross_attn_norm): block 0's self-attention
+                   comes before the first trainable tensor (its
+                   pre_crs_norm): no backward for it;
+      "hidden"     (delta_b hidden): the first trainable tensor is added
+                   after block 0, which is neither recomputed nor
+                   backpropagated (a last_N mask multiplies by 0 but does
+                   not cut the graph);
+      "output"     (delta_c): the gradient stops at the output residual:
+                   the forward alone.
+    DNO's sampler step is a "t_embed" step: its noise reaches every
+    attention's q, and self-attention's k and v."""
+    d = depth
+    fwd, dq, dkv = {
+        "t_embed": (4 * d, 2 * d, d),
+        "cross_kv": (4 * d, 2 * d, 2 * d),
+        "cross_norm": (4 * d, 2 * d - 1, d - 1),
+        "hidden": (2 * d + 2 * (d - 1), 2 * (d - 1), d - 1),
+        "output": (2 * d, 0, 0),
+    }[graph]
+    return {"flash_fwd": fwd, "flash_bwd_dq": dq, "flash_bwd_dkv": dkv}
+
+
 def tta_launches(depth: int):
-    """Launches per kernel that the delta_a path implies for one video,
-    with 2 attention calls (self + cross) per block:
-      - a train step runs the forward once, then the full-remat backward
-        recomputes every block (forward kernel again) and runs dQ for
-        both attentions and dK/dV for self-attention only (cross-
-        attention's k, v come from the frozen text path): forward
-        2 x 2 x depth, dQ 2 x depth, dK/dV depth;
-      - an anchor eval is one batched forward: 2 x depth; there is one at
-        setup and one per check (steps // check_every, no early stop
-        since patience exceeds the number of checks);
-      - generation: the cond-cache precompute plus one decode per step,
-        each 2 x depth, as in the serving path."""
+    """Launches per kernel that the delta_a path implies for one video: a
+    "t_embed" train step per step, an anchor eval at setup and one per
+    check (steps // check_every, no early stop since patience exceeds the
+    number of checks), then generation."""
     steps, checks = TTA["tta_steps"], TTA["tta_steps"] // TTA["check_every"]
     assert checks < TTA["patience"]
-    per_attn = 2 * depth
-    return {
-        "flash_fwd": steps * 2 * per_attn + (1 + checks) * per_attn
-        + per_attn * (1 + TTA["inference_steps"]),
-        "flash_bwd_dq": steps * per_attn,
-        "flash_bwd_dkv": steps * depth,
-    }
+    return method_launches("t_embed", depth, steps=steps, anchors=1 + checks,
+                           inference_steps=TTA["inference_steps"])
+
+
+def method_launches(graph: str, depth: int, *, steps: int, anchors: int,
+                    inference_steps: int, sampler_steps: int = 1):
+    """Launches per kernel of one video of a method run: ``steps`` train
+    steps (a DNO step backpropagates through ``sampler_steps`` sampler
+    steps), ``anchors`` anchor evals (one batched forward each), then
+    generation (cond-cache precompute plus one decode per step)."""
+    per_step = train_step_launches(graph, depth)
+    out = {k: steps * sampler_steps * n for k, n in per_step.items()}
+    out["flash_fwd"] += 2 * depth * (anchors + 1 + inference_steps)
+    return out
 
 
 def phase_tta_path(fa, depth):
@@ -1067,6 +1231,136 @@ def phase_tta_path(fa, depth):
             raise AssertionError(f"delta_a video result out of bounds: {r}")
     if got != expected or min(got.values()) <= 0:
         raise AssertionError(f"kernel launches on the delta_a path {got}, expected {expected}")
+    return got
+
+
+# method runs: the runner on 1 video per method at LongCat-13.6B width and
+# depth (full: longcat_bench_3b, whose full-weight TTA state fits the
+# card), delta_a's 29-frame window, 3 TTA steps with the anchor check
+# every 3, 2 denoising steps, 8 generated frames, each at its learning rate
+# in the demo campaign (campaign/demo/_<method>.yaml; full and lora: their
+# longer variant's). "graph" names where the trainable tensors enter the
+# model (train_step_launches).
+METHOD = dict(height=480, width=832, cond_frames=13, tta_total_frames=29, gen_frames=8,
+              steps=3, check_every=3, inference_steps=2, guidance=4.0)
+METHOD_RUNS = {
+    "lora": dict(graph="cross_kv", lr=1e-3, flags=["--lora-target-ffn",
+                                                    "--quantize-decode", "int8"]),
+    "delta_b": dict(graph="hidden", lr=5e-3, flags=[
+        "--delta-target", "hidden", "--delta-dim", "2048", "--target-blocks", "last_24"]),
+    "delta_c": dict(graph="output", lr=1e-2, flags=[]),
+    "film": dict(graph="t_embed", lr=1e-3, flags=["--film-mode", "shift_scale"]),
+    "norm_tune": dict(graph="cross_kv", lr=1e-3, flags=["--norm-target", "all_norm",
+                                                        "--also-tune-delta"]),
+    "full": dict(graph="cross_kv", lr=1e-4, flags=[], preset="longcat_bench_3b"),
+    "dno": dict(graph="t_embed", lr=1e-2, flags=["--dno-sampler-steps", "2",
+                                                 "--dno-interp-every", "1"],
+                steps=2, sampler_steps=2),
+}
+
+
+def method_trainable(method: str, dit_cfg) -> int:
+    """The trainable-parameter count each method run must report, from the
+    model's widths (the reference's counting)."""
+    import torch
+
+    from longcat_video_tta_tpu_torch.models.dit import LongCatDiT
+
+    D, dh, F, L = dit_cfg.hidden_size, dit_cfg.head_dim, dit_cfg.ffn_dim, dit_cfg.depth
+    r = 8
+    if method == "lora":  # qkv, proj and the ffn, 8 sites, every block
+        sites = [(D, 3 * D), (D, D), (D, D), (D, 2 * D), (D, D), (D, F), (F, D), (D, F)]
+        return L * sum(i * r + r * o for i, o in sites)
+    if method == "delta_b":  # 4 groups + the final delta, 2048 dims each
+        return 5 * 2048
+    if method == "delta_c":
+        return dit_cfg.out_channels
+    if method == "film":  # 4 groups x shift and scale of both halves
+        return 4 * 4 * D
+    if method == "norm_tune":  # all_norm + the delta_a vector
+        return L * (2 * D + 4 * dh) + dit_cfg.adaln_tembed_dim
+    if method == "full":
+        with torch.device("meta"):
+            return sum(p.numel() for p in LongCatDiT(dit_cfg).parameters())
+    from longcat_video_tta_tpu_torch.tta.split import estimate_tta_split_budget
+
+    # dno: the initial noise of the window's train latents (split at holdout 0)
+    n_train = estimate_tta_split_budget(METHOD["tta_total_frames"], METHOD["cond_frames"],
+                                        0.0)["train_latents"]
+    return dit_cfg.in_channels * n_train * (METHOD["height"] // 8) * (METHOD["width"] // 8)
+
+
+def phase_method_path(fa, method: str):
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import get_model_config
+    from longcat_video_tta_tpu_torch.runners import run_tta
+
+    spec = METHOD_RUNS[method]
+    preset = spec.get("preset", "longcat_13b")
+    dit_cfg = get_model_config(preset).dit
+    steps = spec.get("steps", METHOD["steps"])
+    out_dir = os.path.join(RUN_DIR, f"method_{method}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--method", method, "--preset", preset, "--synthetic", "1",
+            "--output-dir", out_dir, "--device", "cuda",
+            "--height", str(METHOD["height"]), "--width", str(METHOD["width"]),
+            "--num-cond-frames", str(METHOD["cond_frames"]),
+            "--tta-total-frames", str(METHOD["tta_total_frames"]),
+            "--num-frames", str(METHOD["gen_frames"]), "--steps", str(steps),
+            "--lr", str(spec["lr"]),
+            "--es-check-every", str(METHOD["check_every"]),
+            "--num-inference-steps", str(METHOD["inference_steps"]),
+            "--guidance-scale", str(METHOD["guidance"]), "--no-save-videos",
+            # one video: its caption is the whole caption set
+            "--caption-guard-mode", "off", *spec["flags"]]
+    print(f"[method {method}] run_tta " + " ".join(argv))
+    is_dno = method == "dno"
+    expected = method_launches(
+        spec["graph"], dit_cfg.depth, steps=steps,
+        anchors=0 if is_dno else 1 + steps // METHOD["check_every"],
+        inference_steps=METHOD["inference_steps"],
+        sampler_steps=spec.get("sampler_steps", 1))
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.time()
+    summary = run_tta.main(argv)
+    wall = time.time() - t0
+    got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+           "flash_bwd_dkv": fa.bwd_dkv_launches}
+    shutil.rmtree(os.path.join(out_dir, "synthetic_data"), ignore_errors=True)
+    r = summary["results"][0]
+    es = r.get("early_stopping_info") or {}
+    anchors = [loss for _, loss in es.get("loss_history", [])]
+    n_train = method_trainable(method, dit_cfg)
+    print(f"[method {method}] success={r['success']} preset={preset} "
+          f"train_time={r.get('train_time')} s es_check_time={r.get('es_check_time')} s "
+          f"gen_time={r.get('gen_time')} s total_time={r.get('total_time')} s "
+          f"losses={r.get('losses')} anchors={anchors} best_step={es.get('best_step')} "
+          f"adapter_norm={r.get('adapter_norm')} noise_norm={r.get('noise_norm')} "
+          f"trainable_params={r.get('trainable_params')} (expected {n_train}) "
+          f"psnr={r.get('psnr')} ssim={r.get('ssim')}"
+          + (f" error={r['error']}" if "error" in r else ""))
+    print(f"[method {method}] wall {wall:.1f} s; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got} "
+          f"(expected {expected})")
+    if summary["num_success"] != 1:
+        raise AssertionError(f"method run {method} failed: {r.get('error')}")
+    losses = r["losses"]
+    if not (np.isfinite(losses + anchors + [r["psnr"], r["ssim"]]).all()
+            and len(losses) == steps):
+        raise AssertionError(f"method run {method}: non-finite or missing values: {r}")
+    # the trained state moved: DNO's loss is deterministic in the noise,
+    # and the anchor loss (fixed sigmas and noises) in the adapted model
+    moved = losses[-1] != losses[0] if is_dno else (len(anchors) == 2
+                                                    and anchors[1] != anchors[0])
+    if not moved or r["trainable_params"] != n_train:
+        raise AssertionError(f"method run {method}: did not train, or reports "
+                             f"{r['trainable_params']} trainable parameters ({n_train})")
+    if got != expected:
+        raise AssertionError(f"kernel launches on the {method} run {got}, "
+                             f"expected {expected}")
     return got
 
 
@@ -1131,6 +1425,7 @@ def main() -> int:
                                        bsa, cfg.dit, tokens_per_frame)
     timed_phase("small-input agreement", phase_small_agreement)
     timed_phase("step agreement", phase_step_agreement)
+    timed_phase("scheme step agreement", phase_scheme_step_agreement)
     serving_launches, serving_gen = timed_phase("main path", phase_main_path, fa,
                                                 cfg.dit.depth)
     tta = timed_phase("delta_a path", phase_tta_path, fa, cfg.dit.depth)
@@ -1140,6 +1435,8 @@ def main() -> int:
                                              run, cfg.dit.depth)
         print(f"[lever {run}] gen_time per request {gen_times} s; dense serving path "
               f"(5 cond, 8 generated frames, 4 steps) {[g for g, _ in serving_gen]} s")
+    methods = {m: timed_phase(f"method run {m}", phase_method_path, fa, m)
+               for m in METHOD_RUNS}
     print(f"[time] all phases {time.time() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, all_cases):
@@ -1155,13 +1452,14 @@ def main() -> int:
     by_kernel = lambda name: [c for c in bwd_cases if c["kernel"] == name]
     bsa_kernel = lambda name: [c for c in bsa_cases if c["kernel"] == name]
     lever_sum = lambda name: sum(levers[run][name] for run in levers)
+    train_sum = lambda name: tta[name] + sum(m[name] for m in methods.values())
     kernels = [
         entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:133",
-              serving_launches + tta["flash_fwd"] + lever_sum("flash_fwd"), cases),
+              serving_launches + train_sum("flash_fwd") + lever_sum("flash_fwd"), cases),
         entry("flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:327",
-              tta["flash_bwd_dq"], by_kernel("flash_bwd_dq")),
+              train_sum("flash_bwd_dq"), by_kernel("flash_bwd_dq")),
         entry("flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:261",
-              tta["flash_bwd_dkv"], by_kernel("flash_bwd_dkv")),
+              train_sum("flash_bwd_dkv"), by_kernel("flash_bwd_dkv")),
         entry("bsa_block_sum", "bsa.cu", "bsa.py:120", lever_sum("bsa_block_sum"),
               sum_cases),
         entry("bsa_fwd", "bsa.cu", "bsa.py:159", lever_sum("bsa_fwd"),

@@ -8,6 +8,7 @@ Dtypes are stored by name so the dataclasses stay JSON-serializable;
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -252,10 +253,22 @@ def longcat_demo() -> ModelConfig:
     )
 
 
+def longcat_bench_3b() -> ModelConfig:
+    """``longcat_bench`` at about 3.2B DiT parameters (hidden 2560, 24
+    blocks, 20 heads of 128, ffn 6912) with full remat: a model whose
+    full-weight TTA (weights, gradients, AdamW state and the best
+    snapshot) fits one card."""
+    base = longcat_bench()
+    return dataclasses.replace(base, dit=dataclasses.replace(
+        base.dit, hidden_size=2560, depth=24, num_heads=20, ffn_dim=6912,
+        remat_policy="full"))
+
+
 MODEL_PRESETS = {
     "longcat_13b": longcat_13b,
     "longcat_tiny": longcat_tiny,
     "longcat_bench": longcat_bench,
+    "longcat_bench_3b": longcat_bench_3b,
     "longcat_demo": longcat_demo,
 }
 
@@ -286,10 +299,32 @@ class EarlyStoppingConfig:
 
 @dataclass(frozen=True)
 class AdapterConfig:
-    """The TTA method; only ``delta_a`` (one delta on the t-embedding) is
-    ported, so the method's own knobs are not here yet."""
+    """One config covering the seven TTA methods (the reference's
+    ``AdapterConfig``): full | lora | delta_a | delta_b | delta_c |
+    norm_tune | film."""
 
     method: str = "delta_a"
+    # lora: rank-r side branch on the targeted block linears, scale
+    # alpha / rank; ``lora_builtin`` merges scale * a @ b into the weights
+    # instead (same function, a merged weight copy per step)
+    lora_rank: int = 8
+    lora_alpha: float = 16.0
+    lora_target_modules: Tuple[str, ...] = ("qkv", "proj")
+    lora_target_ffn: bool = False
+    lora_builtin: bool = False
+    # delta_b: G group deltas on the t-embedding or the block outputs,
+    # optionally on the first ``delta_dim`` channels only
+    num_groups: int = 4
+    delta_target: str = "timestep"  # "timestep" | "hidden"
+    delta_dim: Optional[int] = None
+    # delta_b / lora block scoping: "all" | "last_N" | "i,j,k"
+    target_blocks: str = "all"
+    # norm_tune: cross_attn_norm | qk_norm | all_norm, optionally with a
+    # delta_a vector trained alongside
+    norm_target: str = "cross_attn_norm"
+    also_tune_delta: bool = False
+    # film: which adaLN chunks get a correction
+    film_mode: str = "full"  # full | shift_scale | scale_only
 
 
 @dataclass(frozen=True)

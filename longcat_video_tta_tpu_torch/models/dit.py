@@ -13,9 +13,22 @@ attention, PAB, the CFG-reuse conditional half, bucketed valid counts):
   - ``forward``                (reference ``dit_forward``)
   - ``precompute_cond_cache``  (``dit_precompute_cond_cache``)
   - ``forward_with_cache``     (``dit_forward_with_cache``)
-Each takes the reference's ``adapters`` dict; only ``delta_t`` (the
-delta_a adapter, added to the fp32 t-embedding) is ported. In training
-(grad enabled) ``forward`` checkpoints every block when ``cfg.remat``.
+Each takes the reference's ``adapters`` dict, the one way every TTA
+method reaches the model (all keys optional):
+    delta_t        [C_t]          delta_a: added to the fp32 t-embedding
+    delta_t_blocks [depth, C_t]   delta_b timestep: per block, on its
+                                  t-embedding before its adaLN
+    film_blocks    [depth, 6D]    FiLM: added to each block's adaLN output
+    lora           {site: {'a': [depth, in, r], 'b': [depth, r, out]}}
+                   with ``lora_scale``: the side branch of the block
+                   linears (sites qkv, attn_proj, xattn_q, xattn_kv,
+                   xattn_proj, ffn_w1, ffn_w2, ffn_w3)
+    delta_h_blocks [depth, D]     delta_b hidden: added to each block's output
+    delta_h_final  [D]            delta_b hidden: before the final layer
+    delta_out      [C_out]        delta_c: added to the velocity after
+                                  unpatchify, in the compute dtype
+In training (grad enabled) ``forward`` checkpoints every block when
+``cfg.remat``.
 
 Parameter names follow the reference's parameter tree (``x_embed``,
 ``blocks[i].attn.qkv`` ...) so ``models/weights.py`` maps one onto the
@@ -47,7 +60,9 @@ from ..ops.layers import (
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]  # (k, v) each [depth, B, S, H, D]
 AdapterDict = Optional[Dict[str, torch.Tensor]]
-PORTED_ADAPTERS = ("delta_t",)
+PORTED_ADAPTERS = ("delta_t", "delta_t_blocks", "film_blocks", "lora", "lora_scale",
+                   "delta_h_blocks", "delta_h_final", "delta_out")
+_PER_BLOCK_KEYS = ("delta_t_blocks", "film_blocks", "delta_h_blocks")
 
 
 def patchify(x: torch.Tensor, patch: Tuple[int, int, int]) -> torch.Tensor:
@@ -92,7 +107,7 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, rope_cos, rope_sin, num_cond_tokens: int,
                 kv_cache: Optional[KVCache] = None, kv_valid: Optional[int] = None,
-                bsa_cfg: Optional[BSAConfig] = None):
+                bsa_cfg: Optional[BSAConfig] = None, lora=None, lora_scale=None):
         """x: [B, nt, nhw, D]. ``kv_cache``: optional (k, v)
         [B, S_c, nH, dh] prepended to the keys (decode path). Keys at
         index >= ``kv_valid`` are masked. With ``bsa_cfg`` the decode path
@@ -100,9 +115,11 @@ class SelfAttention(nn.Module):
         conditioning blocks stay exact. Returns (out, (k, v) of this
         call's tokens)."""
         cfg = self.cfg
+        lora = lora or {}
         B, nt, nhw, D = x.shape
         nH, dh = cfg.num_heads, cfg.head_dim
-        qkv = linear(self.qkv, x).reshape(B, nt, nhw, 3, nH, dh)
+        qkv = linear(self.qkv, x, lora.get("qkv"), lora_scale).reshape(
+            B, nt, nhw, 3, nH, dh)
         q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
         if cfg.qk_norm:
             q = rms_norm(q, self.q_norm)
@@ -127,7 +144,8 @@ class SelfAttention(nn.Module):
         else:
             o = attention(q, k, v, num_cond_tokens=num_cond_tokens,
                           kv_valid_len=kv_valid)
-        return linear(self.proj, o.reshape(B, nt, nhw, D)), kv_out
+        return linear(self.proj, o.reshape(B, nt, nhw, D), lora.get("attn_proj"),
+                      lora_scale), kv_out
 
 
 class CrossAttention(nn.Module):
@@ -141,22 +159,26 @@ class CrossAttention(nn.Module):
         self.q_norm = nn.Parameter(torch.empty(dh, dtype=dtype))
         self.k_norm = nn.Parameter(torch.empty(dh, dtype=dtype))
 
-    def forward(self, x, y):
+    def forward(self, x, y, lora=None, lora_scale=None):
         """x: [B, nt, nhw, D]; y: [B, L, D]. No key mask: padded text
         tokens are zeroed upstream but still attended to, as in the
         reference."""
         cfg = self.cfg
+        lora = lora or {}
         B, nt, nhw, D = x.shape
         nH, dh = cfg.num_heads, cfg.head_dim
         L = y.shape[1]
-        q = linear(self.q, x).reshape(B, nt * nhw, nH, dh)
-        kv = linear(self.kv, y).reshape(B, L, 2, nH, dh)
+        q = linear(self.q, x, lora.get("xattn_q"), lora_scale).reshape(
+            B, nt * nhw, nH, dh)
+        kv = linear(self.kv, y, lora.get("xattn_kv"), lora_scale).reshape(
+            B, L, 2, nH, dh)
         k, v = kv[:, :, 0], kv[:, :, 1]
         if cfg.cross_qk_norm:
             q = rms_norm(q, self.q_norm)
             k = rms_norm(k, self.k_norm)
         o = attention(q, k, v)
-        return linear(self.proj, o.reshape(B, nt, nhw, D))
+        return linear(self.proj, o.reshape(B, nt, nhw, D), lora.get("xattn_proj"),
+                      lora_scale)
 
 
 class FFN(nn.Module):
@@ -167,8 +189,11 @@ class FFN(nn.Module):
         self.w3 = nn.Linear(D, F_, bias=False, dtype=dtype)
         self.w2 = nn.Linear(F_, D, bias=False, dtype=dtype)
 
-    def forward(self, x):
-        return linear(self.w2, F.silu(linear(self.w1, x)) * linear(self.w3, x))
+    def forward(self, x, lora=None, lora_scale=None):
+        lora = lora or {}
+        h = (F.silu(linear(self.w1, x, lora.get("ffn_w1"), lora_scale))
+             * linear(self.w3, x, lora.get("ffn_w3"), lora_scale))
+        return linear(self.w2, h, lora.get("ffn_w2"), lora_scale)
 
 
 class DiTBlock(nn.Module):
@@ -184,15 +209,25 @@ class DiTBlock(nn.Module):
     def forward(self, x, t_emb, y, rope_cos, rope_sin, num_cond_tokens: int,
                 kv_cache: Optional[KVCache] = None, kv_valid: Optional[int] = None,
                 bsa_cfg: Optional[BSAConfig] = None,
-                pab_cached: Optional[torch.Tensor] = None):
+                pab_cached: Optional[torch.Tensor] = None,
+                ad: Optional[Dict] = None):
         """One block. Returns (x_out, (k, v) of this call's tokens or None,
-        the self-attention output).
+        the self-attention output). ``ad``: this block's slice of the
+        adapter dict (``_block_adapters``), applied in the reference's
+        order: delta_t_blocks on the t-embedding, film_blocks on the adaLN
+        output, LoRA in every block linear, delta_h_blocks on the output.
 
         ``pab_cached`` (Pyramid Attention Broadcast, arXiv:2408.12588):
         when given, it is taken as the self-attention output and the
         attention is skipped; the caller's cache holds the output of the
         block's last computed step. Cross-attention is never broadcast."""
+        ad = ad or {}
+        if ad.get("delta_t_blocks") is not None:
+            t_emb = t_emb + ad["delta_t_blocks"].float()[None, None, :]
         mod = linear(self.adaln, F.silu(t_emb).to(x.dtype))  # [B, nt, 6D]
+        if ad.get("film_blocks") is not None:
+            mod = mod + ad["film_blocks"].to(mod.dtype)[None, None, :]
+        lora, lora_scale = ad.get("lora") or {}, ad.get("lora_scale", 1.0)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
             mod.chunk(6, dim=-1)
         e = lambda m: m[:, :, None, :]  # per-latent-frame, broadcast over hw
@@ -203,14 +238,16 @@ class DiTBlock(nn.Module):
         else:
             attn_out, kv = self.attn(h, rope_cos, rope_sin, num_cond_tokens,
                                      kv_cache=kv_cache, kv_valid=kv_valid,
-                                     bsa_cfg=bsa_cfg)
+                                     bsa_cfg=bsa_cfg, lora=lora, lora_scale=lora_scale)
         x = x + e(gate_msa) * attn_out
 
         h = layer_norm(x, self.pre_crs_norm.weight, self.pre_crs_norm.bias)
-        x = x + self.cross_attn(h, y)
+        x = x + self.cross_attn(h, y, lora, lora_scale)
 
         h = modulate(layer_norm(x), e(shift_mlp), e(scale_mlp))
-        x = x + e(gate_mlp) * self.ffn(h)
+        x = x + e(gate_mlp) * self.ffn(h, lora, lora_scale)
+        if ad.get("delta_h_blocks") is not None:
+            x = x + ad["delta_h_blocks"].to(x.dtype)[None, None, None, :]
         return x, kv, attn_out
 
 
@@ -250,8 +287,8 @@ class LongCatDiT(nn.Module):
         unported = sorted(set(adapters or {}) - set(PORTED_ADAPTERS))
         if unported:
             raise NotImplementedError(
-                f"DiT adapters {unported} are not yet ported (only delta_t; the "
-                "other TTA methods come in a later slice)")
+                f"DiT adapters {unported} are not yet ported to the LongCat DiT "
+                f"(it takes {', '.join(PORTED_ADAPTERS)})")
         cdtype = resolve_dtype(cfg.compute_dtype)
         B, C, T, H, W = latents.shape
         pt, ph, pw = cfg.patch_size
@@ -277,13 +314,36 @@ class LongCatDiT(nn.Module):
             y = y * text_mask.to(y.dtype)[:, :, None]
         return x, t_emb, y, (nt, nh, nw)
 
-    def _final_layer(self, x, t_emb, nt, nh, nw):
+    def _final_layer(self, x, t_emb, nt, nh, nw, adapters: AdapterDict = None):
+        """delta_h_final before the final adaLN layer, delta_out after
+        unpatchify in the compute dtype, then the cast to fp32."""
         cfg = self.cfg
+        adapters = adapters or {}
+        if "delta_h_final" in adapters:
+            x = x + adapters["delta_h_final"].to(x.dtype)[None, None, None, :]
         mod = linear(self.final["adaln"], F.silu(t_emb).to(x.dtype))
         shift, scale = mod.chunk(2, dim=-1)
         h = modulate(layer_norm(x), shift[:, :, None, :], scale[:, :, None, :])
         h = linear(self.final["proj"], h)
-        return unpatchify(h, cfg.patch_size, nt, nh, nw, cfg.out_channels).float()
+        out = unpatchify(h, cfg.patch_size, nt, nh, nw, cfg.out_channels)
+        if "delta_out" in adapters:
+            out = out + adapters["delta_out"].to(out.dtype)[None, :, None, None, None]
+        return out.float()
+
+    def _block_adapters(self, adapters: AdapterDict):
+        """Per-block slices of the adapter dict (the reference's scan
+        inputs): one dict per block, or None per block without adapters."""
+        if not adapters:
+            return [None] * len(self.blocks)
+        out = []
+        for i in range(len(self.blocks)):
+            ad = {k: adapters[k][i] for k in _PER_BLOCK_KEYS if k in adapters}
+            if "lora" in adapters:
+                ad["lora"] = {site: {"a": ab["a"][i], "b": ab["b"][i]}
+                              for site, ab in adapters["lora"].items()}
+                ad["lora_scale"] = adapters.get("lora_scale", 1.0)
+            out.append(ad)
+        return out
 
     def _rope(self, nt, nh, nw, device, t_offset=0):
         cfg = self.cfg
@@ -293,7 +353,7 @@ class LongCatDiT(nn.Module):
     # ------------------------------------------------------------------
     def _decode_blocks(self, x, t_emb, y, cos, sin, num_cond_tokens, *,
                        kv_cache, kv_valid, bsa_cfg, pab_reuse, pab_cache,
-                       cache_cond_half):
+                       cache_cond_half, block_ads):
         """The block loop of the sampling forwards (no autograd).
 
         ``pab_cache`` ([depth, B_cache, nt, nhw, D]) is read when
@@ -310,7 +370,8 @@ class LongCatDiT(nn.Module):
             slot = None if pab_cache is None else half(pab_cache[i])
             x, _, attn_out = blk(x, t_emb, y, cos, sin, num_cond_tokens,
                                  kv_cache=kv, kv_valid=kv_valid, bsa_cfg=bsa_cfg,
-                                 pab_cached=slot if pab_reuse else None)
+                                 pab_cached=slot if pab_reuse else None,
+                                 ad=block_ads[i])
             if slot is not None and not pab_reuse:
                 slot.copy_(attn_out)
         return x
@@ -335,21 +396,24 @@ class LongCatDiT(nn.Module):
         kv_valid = None
         if num_valid_latents is not None:
             kv_valid = (int(num_valid_latents) // cfg.patch_size[0]) * nh * nw
+        block_ads = self._block_adapters(adapters)
         if pab_cache is not None:
             x = self._decode_blocks(x, t_emb, y, cos, sin, num_cond_tokens,
                                     kv_cache=None, kv_valid=kv_valid, bsa_cfg=None,
                                     pab_reuse=pab_reuse, pab_cache=pab_cache,
-                                    cache_cond_half=cache_cond_half)
-            return self._final_layer(x, t_emb, nt, nh, nw)
+                                    cache_cond_half=cache_cond_half,
+                                    block_ads=block_ads)
+            return self._final_layer(x, t_emb, nt, nh, nw, adapters)
 
-        def block(blk, x, t_emb):
-            return blk(x, t_emb, y, cos, sin, num_cond_tokens, kv_valid=kv_valid)[0]
+        def block(blk, x, t_emb, ad):
+            return blk(x, t_emb, y, cos, sin, num_cond_tokens, kv_valid=kv_valid,
+                       ad=ad)[0]
 
         body = remat_wrap(block, cfg.remat and torch.is_grad_enabled(),
                           cfg.remat_policy)
-        for blk in self.blocks:
-            x = body(blk, x, t_emb)
-        return self._final_layer(x, t_emb, nt, nh, nw)
+        for blk, ad in zip(self.blocks, block_ads):
+            x = body(blk, x, t_emb, ad)
+        return self._final_layer(x, t_emb, nt, nh, nw, adapters)
 
     def precompute_cond_cache(self, cond_latents, text_emb, text_mask=None, *,
                               adapters: AdapterDict = None) -> KVCache:
@@ -363,8 +427,8 @@ class LongCatDiT(nn.Module):
         cos, sin = self._rope(nt, nh, nw, cond_latents.device)
         num_cond_tokens = nt * nh * nw  # every token is conditioning here
         k_all = v_all = None
-        for i, blk in enumerate(self.blocks):
-            x, (k, v), _ = blk(x, t_emb, y, cos, sin, num_cond_tokens)
+        for i, (blk, ad) in enumerate(zip(self.blocks, self._block_adapters(adapters))):
+            x, (k, v), _ = blk(x, t_emb, y, cos, sin, num_cond_tokens, ad=ad)
             if k_all is None:
                 k_all = k.new_empty((len(self.blocks),) + tuple(k.shape))
                 v_all = v.new_empty((len(self.blocks),) + tuple(v.shape))
@@ -407,8 +471,9 @@ class LongCatDiT(nn.Module):
         x = self._decode_blocks(x, t_emb, y, cos, sin, 0, kv_cache=kv_cache,
                                 kv_valid=kv_valid, bsa_cfg=bsa_cfg,
                                 pab_reuse=pab_reuse, pab_cache=pab_cache,
-                                cache_cond_half=cache_cond_half)
-        return self._final_layer(x, t_emb, nt, nh, nw)
+                                cache_cond_half=cache_cond_half,
+                                block_ads=self._block_adapters(adapters))
+        return self._final_layer(x, t_emb, nt, nh, nw, adapters)
 
 
 def pab_init_cache(cfg: DiTConfig, batch: int, t_noise: int, lat_h: int, lat_w: int,

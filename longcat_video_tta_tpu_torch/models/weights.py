@@ -257,3 +257,38 @@ def init_random(cfg: ModelConfig, device, generator: torch.Generator):
         fill(m, random_getter(generator, device))
         out.append(m)
     return tuple(out)
+
+
+def train_params_from_numpy(scheme, tree: Dict[str, Any],
+                            device="cuda") -> Dict[str, torch.Tensor]:
+    """A reference scheme's trainable tree (numpy leaves) as the port
+    scheme's flat dict (``tta/adapters.py``):
+      - delta_a / delta_b / delta_c / film: the same keys and arrays;
+      - lora {site: {'a': [depth, in, r], 'b': [depth, r, out]}} ->
+        "<site>.a" / "<site>.b" in the same layout (builtin mode
+        transposes the merged update into ``nn.Linear``'s [out, in] at
+        ``to_forward``);
+      - norm_tune {"blocks/<path>": [depth, ...]} (under "norms" with a
+        "delta_t" when also_tune_delta) -> "blocks.<i>.<path>" per block;
+      - full: the whole parameter tree, through ``load_dit_from_numpy``.
+    """
+    method = scheme.method
+    if method == "full":
+        dit = load_dit_from_numpy(tree, scheme.cfg, device)
+        return {name: p.detach() for name, p in dit.named_parameters()}
+    out: Dict[str, torch.Tensor] = {}
+    if method == "lora":
+        for site, ab in tree.items():
+            for part in ("a", "b"):
+                out[f"{site}.{part}"] = _to_torch(ab[part]).to(device)
+    elif method == "norm_tune":
+        norms = tree["norms"] if "norms" in tree else tree
+        for path, stacked in norms.items():
+            rest = ".".join(path.split("/")[1:])  # "blocks/attn/q_norm" -> "attn.q_norm"
+            for i in range(np.shape(stacked)[0]):
+                out[f"blocks.{i}.{rest}"] = _to_torch(np.asarray(stacked)[i]).to(device)
+        if "delta_t" in tree:
+            out["delta_t"] = _to_torch(tree["delta_t"]).to(device)
+    else:
+        out = {k: _to_torch(v).to(device) for k, v in tree.items()}
+    return out

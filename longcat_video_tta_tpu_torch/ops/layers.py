@@ -6,14 +6,14 @@ its reference counterpart (``longcat_video_tta_tpu/ops/layers.py``)."""
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from .quant import Int8Linear, int8_linear
+from .quant import Int8Linear, int8_linear, lora_term
 
 
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor], eps: float = 1e-6):
@@ -40,15 +40,21 @@ def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor):
     return x * (1.0 + scale) + shift
 
 
-def linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def linear(layer: nn.Module, x: torch.Tensor,
+           lora: Optional[Dict[str, torch.Tensor]] = None,
+           lora_scale=None) -> torch.Tensor:
     """Dense layer computed in x's dtype (weights cast as in the
-    reference's ``linear``); an ``Int8Linear`` runs W8A8 (the reference
-    dispatches on its 'kernel_i8' key)."""
+    reference's ``linear``), plus the LoRA side branch when ``lora`` is
+    given; an ``Int8Linear`` runs W8A8 (the reference dispatches on its
+    'kernel_i8' key)."""
     if isinstance(layer, Int8Linear):
-        return int8_linear(layer, x)
+        return int8_linear(layer, x, lora=lora, lora_scale=lora_scale)
     w = layer.weight.to(x.dtype)
     b = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.linear(x, w, b)
+    y = F.linear(x, w, b)
+    if lora is not None:
+        y = y + lora_term(x, lora, lora_scale)
+    return y
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0):

@@ -18,7 +18,7 @@ row-major (``nn.Linear``'s layout) and passed transposed.
 from __future__ import annotations
 
 import copy
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -56,10 +56,21 @@ class Int8Linear(nn.Module):
         return cls(wi, s, layer.bias)
 
 
-def int8_linear(layer: Int8Linear, x: torch.Tensor) -> torch.Tensor:
+def lora_term(x: torch.Tensor, lora: Dict[str, torch.Tensor],
+              lora_scale) -> torch.Tensor:
+    """The LoRA side branch (x @ a) @ b * scale in x's dtype; ``lora`` is
+    {'a': [in, r], 'b': [r, out]}."""
+    lx = (x @ lora["a"].to(x.dtype)) @ lora["b"].to(x.dtype)
+    return lx * torch.as_tensor(lora_scale, dtype=x.dtype, device=x.device)
+
+
+def int8_linear(layer: Int8Linear, x: torch.Tensor,
+                lora: Optional[Dict[str, torch.Tensor]] = None,
+                lora_scale=None) -> torch.Tensor:
     """W8A8 dense in x's dtype: per-token abs-max activation quantization
     (1e-8 floor), int32 accumulation, y = (int32 * x_scale) * w_scale + b
-    in fp32."""
+    in fp32. A LoRA side branch is added after the cast, in x's dtype
+    (the adapter stays 16-bit, as in the reference)."""
     dtype = x.dtype
     K = x.shape[-1]
     xf = x.float().reshape(-1, K)
@@ -72,14 +83,19 @@ def int8_linear(layer: Int8Linear, x: torch.Tensor) -> torch.Tensor:
     y = yi.float() * sx * layer.scale
     if layer.bias is not None:
         y = y + layer.bias.float()
-    return y.to(dtype).reshape(*x.shape[:-1], -1)
+    y = y.to(dtype).reshape(*x.shape[:-1], -1)
+    if lora is not None:
+        y = y + lora_term(x, lora, lora_scale)
+    return y
 
 
-def _shallow(mod: nn.Module) -> nn.Module:
+def shallow_module(mod: nn.Module) -> nn.Module:
     """A copy of ``mod`` that shares its parameters and buffers but whose
-    submodule table can be changed without touching ``mod``."""
+    submodule and parameter tables can be changed without touching
+    ``mod``."""
     new = copy.copy(mod)
     new._modules = dict(mod._modules)
+    new._parameters = dict(mod._parameters)
     return new
 
 
@@ -88,12 +104,12 @@ def quantize_dit_blocks_int8(dit: nn.Module) -> nn.Module:
     every other parameter (embedders, adaLN, norms, the final layer, the
     biases) is the same tensor as in ``dit``, so no second 16-bit copy
     exists. ``ops.layers.linear`` dispatches on the layer type."""
-    new = _shallow(dit)
+    new = shallow_module(dit)
     blocks = nn.ModuleList()
     for blk in dit.blocks:
-        nb = _shallow(blk)
+        nb = shallow_module(blk)
         for group, names in _BLOCK_LINEARS.items():
-            sub = _shallow(getattr(blk, group))
+            sub = shallow_module(getattr(blk, group))
             for name in names:
                 sub._modules[name] = Int8Linear.from_linear(getattr(sub, name))
             nb._modules[group] = sub

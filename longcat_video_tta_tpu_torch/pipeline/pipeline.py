@@ -147,6 +147,7 @@ def generate_vc(
     use_kv_cache: bool = True,
     init_noise: Optional[torch.Tensor] = None,
     adapters: Optional[Dict[str, torch.Tensor]] = None,
+    dit: Optional[LongCatDiT] = None,
     bsa_cfg: Optional[BSAConfig] = None,
     quantize_decode: str = "none",
     bucket_gen: bool = False,
@@ -163,7 +164,10 @@ def generate_vc(
     its leading L* latent frames (the reference's carried-noise rule;
     tests pass a full-size draw so both packages start from the same
     noise). ``adapters`` (a TTA scheme's ``to_forward`` output) reach
-    every DiT call of the sampler.
+    every DiT call of the sampler. ``dit``: a per-video adapted DiT
+    (norm_tune, full, builtin LoRA) to sample with in place of
+    ``bundle.dit``; under W8A8 it is quantized uncached, so the bundle's
+    cache never pins one video's adapted model through the next video.
 
     Decode levers (the reference's, with its meaning): ``bsa_cfg``
     block-sparse decode attention; ``quantize_decode="int8"`` W8A8 block
@@ -194,13 +198,14 @@ def generate_vc(
     nemb, nmask = bundle.encode_prompt(negative_prompt)
     lat_h, lat_w = cond_latents.shape[3], cond_latents.shape[4]
 
-    decode_dit = bundle.dit
+    decode_dit = bundle.dit if dit is None else dit
     if quantize_decode == "int8qk":
         bsa_cfg = dataclasses.replace(
             bsa_cfg if bsa_cfg is not None else BSAConfig(keep_ratio=1.0),
             qk_int8=True)
     if quantize_decode in ("int8", "int8qk"):
-        decode_dit = _quantized_cached(bundle, bundle.dit)
+        decode_dit = (_quantized_cached(bundle, bundle.dit) if dit is None
+                      else quantize_dit_blocks_int8(dit))
     elif quantize_decode != "none":
         raise ValueError(f"quantize_decode {quantize_decode!r} is not one of "
                          "none, int8, int8qk")

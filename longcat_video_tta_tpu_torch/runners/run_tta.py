@@ -1,18 +1,22 @@
 """TTA runner of the PyTorch port (counterpart of
-``longcat_video_tta_tpu/runners/run_tta.py``). Two methods are ported:
-the no-TTA baseline (``--method none``) and delta_a (one delta on the
-t-embedding, the reference runner's default). Per video: load and encode
-the TTA window that ends at the anchor; for delta_a, split it into
-cond/train/val latents, set up the anchored early stopper, run the
+``longcat_video_tta_tpu/runners/run_tta.py``), with every ``--method``
+of the reference runner: the no-TTA baseline (``none``), the seven TTA
+methods (``delta_a``, the default; ``delta_b``, ``delta_c``, ``film``,
+``lora``, ``norm_tune``, ``full``: ``tta/adapters.py``) and SAVi-DNO noise
+optimization (``dno``: ``comparisons/noise_opt.py``). Per video: load and
+encode the TTA window that ends at the anchor; for a TTA method, split it
+into cond/train/val latents, set up the anchored early stopper, run the
 chunked train loop (``check_every`` AdamW steps, then the anchor eval, one
-host sync per chunk), restore the best state; then ``generate_vc`` with
-the trained adapter (VAE encode, prompt encode, cond-cache precompute,
-CFG Euler loop, VAE decode), PSNR/SSIM against the ground truth,
-``checkpoint.json``; at the end ``summary.json`` with the reference
-runner's keys. Generation takes the reference runner's decode levers
-(``--bsa-keep-ratio``, ``--quantize-decode``, ``--fast-decode``,
-``--pab-*``, ``--cfg-reuse-*``, ``--gen-segment-steps``, ``--bucket-gen``)
-and its ``--fast-decode-verify`` fidelity record.
+host sync per chunk), restore the best state; for dno, optimize the
+initial noise against the window's train latents; then ``generate_vc``
+with the trained adapter, adapted DiT or optimized noise (VAE encode,
+prompt encode, cond-cache precompute, CFG Euler loop, VAE decode),
+PSNR/SSIM against the ground truth, ``checkpoint.json``; at the end
+``summary.json`` with the reference runner's keys. Generation takes the
+reference runner's decode levers (``--bsa-keep-ratio``,
+``--quantize-decode``, ``--fast-decode``, ``--pab-*``, ``--cfg-reuse-*``,
+``--gen-segment-steps``, ``--bucket-gen``) and its
+``--fast-decode-verify`` fidelity record.
 
 CLI:
   python -m longcat_video_tta_tpu_torch.runners.run_tta \\
@@ -29,7 +33,6 @@ phases, "video_end"), so a profiler can time the code that serves.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -39,7 +42,6 @@ import torch
 
 METHODS = ["none", "full", "lora", "delta_a", "delta_b", "delta_c",
            "norm_tune", "film", "dno"]
-PORTED_METHODS = ("none", "delta_a")
 
 # the per-video record of a disabled CLIP gate (reference defaults)
 CLIP_GATE_OFF = {
@@ -141,6 +143,32 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--es-holdout-fraction", type=float, default=0.25)
     p.add_argument("--feature-frame-guard-mode", default="fail",
                    choices=["fail", "warn", "off"])
+    # method knobs (the reference runner's flags and defaults)
+    p.add_argument("--lora-rank", type=int, default=8)
+    p.add_argument("--lora-alpha", type=float, default=16.0)
+    p.add_argument("--lora-target-modules", default="qkv,proj")
+    p.add_argument("--lora-target-ffn", action="store_true")
+    p.add_argument("--num-groups", type=int, default=4)
+    p.add_argument("--delta-target", default="timestep", choices=["timestep", "hidden"])
+    p.add_argument("--delta-dim", type=int, default=None)
+    p.add_argument("--target-blocks", default="all")
+    p.add_argument("--norm-target", default="cross_attn_norm",
+                   choices=["cross_attn_norm", "qk_norm", "all_norm"])
+    p.add_argument("--also-tune-delta", action="store_true",
+                   help="norm_tune with a delta_a vector trained alongside")
+    p.add_argument("--use-builtin-lora", action="store_true",
+                   help="merge scale * a @ b into the block weights instead of the "
+                        "low-rank side branch (same function, a weight copy per step)")
+    p.add_argument("--film-mode", default="full",
+                   choices=["full", "shift_scale", "scale_only"])
+    # --method dno: --steps noise-optimization steps at Adam lr --lr
+    p.add_argument("--dno-sampler-steps", type=int, default=4,
+                   help="K of the differentiable K-step Euler sampler backpropagated "
+                        "through per DNO step")
+    p.add_argument("--dno-interp-p", type=float, default=0.9,
+                   help="noise-interpolation regularization p (1.0 disables)")
+    p.add_argument("--dno-interp-every", type=int, default=5,
+                   help="apply the noise interpolation every N optimization steps")
     # reference options that are not ported yet: asking for one raises
     p.add_argument("--bucket-shapes", action="store_true", help="not yet ported")
     p.add_argument("--save-adapters", action="store_true", help="not yet ported")
@@ -164,10 +192,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(args) -> None:
-    if args.method not in PORTED_METHODS:
-        raise NotImplementedError(
-            f"--method {args.method} is not yet ported to the PyTorch runner "
-            f"(ported: {', '.join(PORTED_METHODS)})")
     unported = [flag for on, flag in (
         (args.bucket_shapes, "--bucket-shapes"),
         (args.save_adapters, "--save-adapters"),
@@ -177,6 +201,20 @@ def _check_ported(args) -> None:
     if unported:
         raise NotImplementedError(
             f"{', '.join(unported)}: not yet ported to the PyTorch runner")
+
+
+def adapter_config(args):
+    """The TTA method's ``AdapterConfig`` from the flags."""
+    from ..config import AdapterConfig
+
+    return AdapterConfig(
+        method=args.method, lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
+        lora_target_modules=tuple(args.lora_target_modules.split(",")),
+        lora_target_ffn=args.lora_target_ffn, num_groups=args.num_groups,
+        delta_target=args.delta_target, delta_dim=args.delta_dim,
+        target_blocks=args.target_blocks, norm_target=args.norm_target,
+        film_mode=args.film_mode, also_tune_delta=args.also_tune_delta,
+        lora_builtin=args.use_builtin_lora)
 
 
 def apply_fast_decode_defaults(args) -> None:
@@ -394,7 +432,6 @@ def main(argv: Optional[List[str]] = None,
     mark = on_phase or (lambda name: None)
 
     from ..config import (
-        AdapterConfig,
         CaptionGuardConfig,
         EarlyStoppingConfig,
         FrameConfig,
@@ -436,8 +473,10 @@ def main(argv: Optional[List[str]] = None,
         tta_context_frames=args.tta_context_frames,
         height=args.height, width=args.width))
     is_tta = args.method != "none"
+    is_dno = args.method == "dno"
+    is_adapter = is_tta and not is_dno
     escfg = EarlyStoppingConfig(
-        enabled=(not args.es_disable) and is_tta,
+        enabled=(not args.es_disable) and is_adapter,
         check_every=args.es_check_every,
         patience=args.es_patience,
         anchor_sigmas=tuple(float(x) for x in args.es_anchor_sigmas.split(",")),
@@ -468,8 +507,8 @@ def main(argv: Optional[List[str]] = None,
     bundle = load_bundle(args)
     dit_cfg = bundle.cfg.dit
     scheme = opt = stopper = None
-    if is_tta:
-        scheme = build_scheme(dit_cfg, AdapterConfig(method=args.method))
+    if is_adapter:
+        scheme = build_scheme(dit_cfg, adapter_config(args))
         opt = build_optimizer(OptimConfig(
             optimizer=args.optimizer, lr=args.lr, steps=args.steps,
             warmup_steps=args.warmup_steps, weight_decay=args.weight_decay,
@@ -514,22 +553,26 @@ def main(argv: Optional[List[str]] = None,
             res["clip_gate_eval_time"] = 0.0
 
             train_time = es_time = 0.0
-            tp = None
-            if is_tta:
+            tp = dno_noise = None
+            if is_adapter:
                 tp, train_time, es_time = _adapt(
                     args, res, bundle, scheme, opt, stopper, escfg, window_lat,
                     n_ctx_lat, entry["caption"], idx, vid_id, mark)
                 res["adapter_norm"] = adapter_norm(tp)
                 res["trainable_params"] = scheme.num_params(tp)
+            elif is_dno:
+                dno_noise, train_time = _optimize_noise(
+                    args, res, bundle, window_lat, n_ctx_lat, entry["caption"], idx,
+                    mark)
 
             gen_time = 0.0
             if not args.skip_generation:
                 mark("generation")
-                gen_bundle, adapters = bundle, None
+                adapters = adapted = None
                 if tp is not None:
-                    dit, adapters = scheme.to_forward(tp, bundle.dit)
-                    if dit is not bundle.dit:
-                        gen_bundle = dataclasses.replace(bundle, dit=dit)
+                    adapted, adapters = scheme.to_forward(tp, bundle.dit)
+                    if adapted is bundle.dit:
+                        adapted = None
                 cond_px = load_video_frames(
                     entry["path"], frames.num_cond_frames, frames.height,
                     frames.width,
@@ -540,9 +583,10 @@ def main(argv: Optional[List[str]] = None,
                               guidance_scale=args.guidance_scale,
                               seed=args.seed + idx,
                               use_kv_cache=not args.no_kv_cache, adapters=adapters,
+                              dit=adapted, init_noise=dno_noise,
                               gen_segment_steps=args.gen_segment_steps)
                 t0 = time.time()
-                gen = generate_vc(gen_bundle, cond_px, entry["caption"],
+                gen = generate_vc(bundle, cond_px, entry["caption"],
                                   on_phase=on_phase, **gen_kw, **levers)
                 gen_time = time.time() - t0
                 gt = load_gt_frames(entry["path"], len(gen), frames.height,
@@ -551,7 +595,7 @@ def main(argv: Optional[List[str]] = None,
                 res.update(evaluate_generation_metrics(gen, gt, device=device))
                 if fd_verified < args.fast_decode_verify:
                     res["fast_decode_verify"] = _verify_fast_decode(
-                        gen_bundle, cond_px, entry["caption"], gen, gt, res,
+                        bundle, cond_px, entry["caption"], gen, gt, res,
                         gen_kw, args.bucket_gen, device)
                     fd_verified += 1
                 if not args.no_save_videos:
@@ -625,7 +669,9 @@ def _adapt(args, res, bundle, scheme, opt, stopper, escfg, window_lat, n_ctx_lat
                                                escfg.holdout_fraction)
     with torch.no_grad():
         emb, mask = bundle.encode_prompt(caption)
-    tp = scheme.init(device)
+    # the video's draws: LoRA's init first, then each step's sigma and noise
+    gen = torch.Generator(device=device).manual_seed(video_seed(args.seed, idx))
+    tp = scheme.init(device, dit=bundle.dit, generator=gen)
     opt_state = opt.init(tp)
     es_active = stopper is not None and val_l is not None
     es_time = 0.0
@@ -636,7 +682,6 @@ def _adapt(args, res, bundle, scheme, opt, stopper, escfg, window_lat, n_ctx_lat
         stopper.setup(bundle.dit, cond_l, val_l, emb, mask, vid_id, tp)
         es_time += time.time() - t0
 
-    gen = torch.Generator(device=device).manual_seed(video_seed(args.seed, idx))
     k0 = escfg.check_every if es_active else (args.loss_fetch_every or 25)
     marks = {}
 
@@ -674,6 +719,35 @@ def _adapt(args, res, bundle, scheme, opt, stopper, escfg, window_lat, n_ctx_lat
         res["early_stopping_info"] = stopper.state
     res["losses"] = losses
     return tp, train_time, es_time
+
+
+def _optimize_noise(args, res, bundle, window_lat, n_ctx_lat, caption, idx, mark):
+    """One video's DNO: the initial noise of the window's train latents
+    (split at holdout 0, which still keeps the last latent out; no early
+    stopping), optimized over ``--steps`` Adam steps
+    of the ``--dno-sampler-steps``-step sampler; draws from a generator
+    seeded with seed + video index. Writes ``losses``,
+    ``trainable_params`` and ``noise_norm`` into ``res``; returns (noise,
+    train_time)."""
+    from ..comparisons.noise_opt import optimize_noise
+    from ..tta.split import split_tta_latents
+
+    device = bundle.device
+    cond_l, train_l, _ = split_tta_latents(window_lat, n_ctx_lat, 0.0)
+    with torch.no_grad():
+        emb, mask = bundle.encode_prompt(caption)
+    mark("train_chunk")
+    t0 = time.time()
+    noise, info = optimize_noise(
+        bundle.dit, bundle.cfg.scheduler, cond_l, train_l, emb, mask,
+        torch.Generator(device=device).manual_seed(args.seed + idx),
+        num_opt_steps=args.steps, sampler_steps=args.dno_sampler_steps, lr=args.lr,
+        interp_p=args.dno_interp_p, interp_every=args.dno_interp_every)
+    train_time = time.time() - t0
+    res["losses"] = info["losses"]
+    res["trainable_params"] = int(noise.numel())
+    res["noise_norm"] = float(noise.norm())
+    return noise, train_time
 
 
 if __name__ == "__main__":

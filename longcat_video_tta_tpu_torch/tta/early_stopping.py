@@ -9,6 +9,16 @@ The fixed noises come from ``torch.Generator``s seeded with seed + d
 (the reference uses jax PRNG keys of the same seeds, so the numbers
 differ); ``setup`` takes them as an argument so tests can inject the
 reference's draws.
+
+Snapshots are plain references: the engine's updates make new tensors
+and never write into old ones, so the best state stays as it was when
+recorded, for a few adapter tensors and for ``full``'s whole DiT alike.
+For ``full`` the best snapshot is one more model's worth of memory
+whenever it is neither the current state nor the initial one (which
+shares the base model's storage); with the current weights, the
+gradients and AdamW's mu and nu that is five copies of the weights
+beside the base, and during an update the new weights and moments are
+made beside the old ones.
 """
 
 from __future__ import annotations

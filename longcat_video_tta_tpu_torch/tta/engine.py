@@ -11,8 +11,14 @@ decays weights after the Adam scaling, before the learning rate. With
 eps 1e-15 the first Adam step is lr * sign(g) in every coordinate.
 
 Updates are functional: a step returns new tensors and never writes into
-the old ones, so the early stopper keeps plain references as snapshots
-(the trainable state is one small tensor per method here).
+the old ones, so the early stopper keeps plain references as snapshots.
+For the adapter methods the trainable state is a few small tensors. For
+``full`` it is every DiT weight: the first state shares the base model's
+storage, and from the first step on the current weights, the best
+snapshot (when it is not the current or the base state), the gradients
+and AdamW's mu and nu (in the parameters' dtype, as optax keeps them)
+each take one more model's worth of memory, and during an update the new
+weights and moments exist beside the old ones.
 """
 
 from __future__ import annotations
@@ -61,38 +67,35 @@ class Optimizer:
         frac = 1.0 - min(max(count, 0), c.warmup_steps) / c.warmup_steps
         return (0.0 - c.lr) * frac + c.lr
 
-    def clip(self, grads: TrainParams) -> TrainParams:
-        """optax.clip_by_global_norm: t / norm * max_norm when norm >=
-        max_norm, t otherwise."""
-        max_norm = self.cfg.grad_clip_norm
-        norm = global_norm(grads)
-        keep = norm < max_norm
-        return {k: torch.where(keep, g, g / norm.to(g.dtype) * max_norm)
-                for k, g in grads.items()}
-
     def update(self, grads: TrainParams, state: Dict,
                params: TrainParams) -> Tuple[TrainParams, Dict]:
+        """One step -> (new params, new state). Tensor by tensor: clip by
+        the global norm (optax.clip_by_global_norm: t / norm * max_norm
+        when norm >= max_norm, t otherwise), then the AdamW or SGD update;
+        no clipped copy of all the gradients is made at once."""
         c = self.cfg
-        grads = self.clip(grads)
+        max_norm = c.grad_clip_norm
+        norm = global_norm(grads)
+        keep = norm < max_norm
         lr = self.learning_rate(state["count"])
         count = state["count"] + 1
-        if c.optimizer == "adamw":
-            b1, b2 = c.betas
-            mu = {k: (1 - b1) * g + b1 * state["mu"][k] for k, g in grads.items()}
-            nu = {k: (1 - b2) * g * g + b2 * state["nu"][k] for k, g in grads.items()}
-            new = {}
-            for k, p in params.items():
+        b1, b2 = c.betas
+        new, mu, nu, trace = {}, {}, {}, {}
+        for k, p in params.items():
+            g = grads[k]
+            g = torch.where(keep, g, g / norm.to(g.dtype) * max_norm)
+            if c.optimizer == "adamw":
+                mu[k] = (1 - b1) * g + b1 * state["mu"][k]
+                nu[k] = (1 - b2) * g * g + b2 * state["nu"][k]
                 u = (mu[k] / (1 - b1 ** count)) / (
                     torch.sqrt(nu[k] / (1 - b2 ** count)) + c.eps)
-                u = u + c.weight_decay * p
-                new[k] = p + (-lr) * u
+                g = u + c.weight_decay * p
+            elif c.momentum:
+                g = trace[k] = g + c.momentum * state["trace"][k]
+            new[k] = p + (-lr) * g
+        if c.optimizer == "adamw":
             return new, {"count": count, "mu": mu, "nu": nu}
-        trace = state["trace"]
-        if c.momentum:
-            trace = {k: g + c.momentum * trace[k] for k, g in grads.items()}
-            grads = trace
-        new = {k: p + (-lr) * grads[k] for k, p in params.items()}
-        return new, {"count": count, "trace": trace}
+        return new, {"count": count, "trace": trace if c.momentum else None}
 
 
 def build_optimizer(ocfg: OptimConfig) -> Optimizer:
@@ -115,9 +118,12 @@ def train_step(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
         loss = flow_matching_loss_conditioned(
             fwd_dit, cond_latents, target_latents, text_emb, text_mask,
             adapters=adapters, sigma=sigma, noise=noise, generator=generator)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-    train_params, opt_state = opt.update(dict(zip(leaves, grads)), opt_state,
-                                         train_params)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    # a tensor the loss does not reach gets a zero gradient, as in the reference
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(leaves.items(), grads)}
+    del leaves
+    train_params, opt_state = opt.update(grads, opt_state, train_params)
     return train_params, opt_state, loss.detach()
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where one request's time goes in the PyTorch port, on one NVIDIA GPU.
 
-    python3 scripts/torch_profile_request.py [--method none|delta_a] [--depth 48]
-        [--steps N --cond-frames N --gen-frames N] [run_tta decode-lever flags]
+    python3 scripts/torch_profile_request.py [--method none|METHOD] [--depth 48]
+        [--steps N --cond-frames N --gen-frames N] [run_tta flags]
 
 LongCat-13.6B width (random bf16 weights drawn on the card), 480x832
 synthetic clips. Phase times come from the serving code's own
@@ -17,19 +17,22 @@ one of run_tta's decode levers (for example ``--bsa-keep-ratio 0.5`` or
 ``--fast-decode --quantize-decode int8qk``): the runner's own parser and
 ``apply_fast_decode_defaults`` turn them into generate_vc's arguments.
 
-``--method delta_a``: the runner (``run_tta.main``) on 3 videos with the
-chip_smoke TTA geometry (29-frame window, 6 AdamW steps, anchor check
-every 3, 4 denoising steps); video 0 warms up, video 1 gives the phase
-times (window encode, stopper setup anchor, each train chunk and anchor
-check, generation and its sub-phases), and video 2 is profiled.
+``--method METHOD`` (delta_a or any other TTA method, or dno): the runner
+(``run_tta.main``) on 3 videos with the chip_smoke TTA geometry (29-frame
+window, 6 AdamW steps, anchor check every 3, 4 denoising steps; ``full``
+on longcat_bench_3b, as chip_smoke runs it); any other flag goes to the
+runner (a method's flags, for example ``--film-mode shift_scale``, or
+``--lr``). Video 0 warms up, video 1 gives the phase times (window
+encode, stopper setup anchor, each train chunk and anchor check,
+generation and its sub-phases), and video 2 is profiled.
 
-Then one more request (none) or video (delta_a) runs under
+Then one more request (none) or video (a method) runs under
 torch.profiler, and the script prints the device's busy and idle share
 and the kernels by total device time, then by kind (the port's flash and
 BSA kernels, library GEMMs, convolutions, everything else).
 Only the port is imported (no JAX). Prints the card's name and power
 limit first. Writes only the runner's own output directory under
-.chip_smoke/ (delta_a).
+.chip_smoke/ (a method).
 """
 
 from __future__ import annotations
@@ -123,9 +126,9 @@ def print_phases(marks):
     return phases
 
 
-def profile_delta_a(args) -> int:
-    """Phase times of one delta_a video and a profile of the next, both
-    from the runner's own on_phase hook."""
+def profile_tta(args, runner_flags) -> int:
+    """Phase times of one video of a TTA method (or dno) and a profile of
+    the next, both from the runner's own on_phase hook."""
     import shutil
 
     import torch
@@ -159,7 +162,8 @@ def profile_delta_a(args) -> int:
             state["wall"] = time.perf_counter() - state["t0"]
             prof.stop()
 
-    argv = ["--method", "delta_a", "--preset", "longcat_13b", "--synthetic", "3",
+    preset = "longcat_bench_3b" if args.method == "full" else "longcat_13b"
+    argv = ["--method", args.method, "--preset", preset, "--synthetic", "3",
             "--output-dir", out_dir, "--device", "cuda",
             "--height", str(T["height"]), "--width", str(T["width"]),
             "--num-cond-frames", str(T["cond_frames"]),
@@ -168,9 +172,11 @@ def profile_delta_a(args) -> int:
             "--es-check-every", str(T["check_every"]),
             "--es-patience", str(T["patience"]),
             "--num-inference-steps", str(T["inference_steps"]),
-            "--guidance-scale", str(T["guidance"]), "--no-save-videos"]
+            "--guidance-scale", str(T["guidance"]), "--no-save-videos", *runner_flags]
+    print(f"[runner] run_tta {' '.join(argv)}")
+    steps = run_tta.build_arg_parser().parse_args(argv).steps
     if args.depth != 48:
-        raise SystemExit("--method delta_a profiles the full 48-block preset")
+        raise SystemExit(f"--method {args.method} profiles the full preset")
     summary = run_tta.main(argv, on_phase=on_phase)
     if summary["num_success"] != 3:
         raise SystemExit(f"{summary['num_success']}/3 videos succeeded")
@@ -181,10 +187,11 @@ def profile_delta_a(args) -> int:
     print("[video 1] phases:")
     phases = print_phases(marks[1])
     chunk_ms = sum(phases["train_chunk"])
-    anchor_ms = phases["setup_anchor"] + phases["anchor_check"]
-    print(f"[tta] train step {chunk_ms / T['tta_steps']:.1f} ms (mean of {T['tta_steps']}); "
-          f"anchor eval {sum(anchor_ms) / len(anchor_ms):.1f} ms (mean of "
-          f"{len(anchor_ms)}); per-video TTA {chunk_ms + sum(anchor_ms):.1f} ms")
+    anchor_ms = phases.get("setup_anchor", []) + phases.get("anchor_check", [])
+    print(f"[tta] train step {chunk_ms / steps:.1f} ms (mean of {steps}); "
+          f"anchor eval {sum(anchor_ms) / max(1, len(anchor_ms)):.1f} ms (mean of "
+          f"{len(anchor_ms)}); per-video TTA {chunk_ms + sum(anchor_ms):.1f} ms; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[profiled video] {state['wall']:.3f} s wall; launches fwd {fa.launches} "
           f"dq {fa.bwd_dq_launches} dkv {fa.bwd_dkv_launches}")
     device_breakdown(prof, state["wall"])
@@ -209,7 +216,9 @@ def lever_kwargs(args, runner_flags):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--method", default="none", choices=["none", "delta_a"])
+    ap.add_argument("--method", default="none",
+                    choices=["none", "delta_a", "delta_b", "delta_c", "film", "lora",
+                             "norm_tune", "full", "dno"])
     ap.add_argument("--depth", type=int, default=48)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--cond-frames", type=int, default=5)
@@ -228,10 +237,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    if args.method == "delta_a":
-        if runner_flags:
-            raise SystemExit(f"--method delta_a takes no decode-lever flags: {runner_flags}")
-        return profile_delta_a(args)
+    if args.method != "none":
+        return profile_tta(args, runner_flags)
     from longcat_video_tta_tpu_torch.config import longcat_13b
     from longcat_video_tta_tpu_torch.ops import flash_attention as fa
     from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle, generate_vc

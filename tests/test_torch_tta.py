@@ -145,11 +145,13 @@ def test_dit_delta_t_matches_jax(bundles, data, entry):
 
 
 def test_dit_rejects_unported_adapters(bundles, data):
+    """An adapter key no LongCat scheme produces (the MMDiT backbone's
+    double-stream LoRA) raises instead of being ignored."""
     _, tb = bundles
     lat = np.concatenate([data["cond"], data["train"]], axis=2)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tb.dit(*_t(lat, np.zeros((1,), np.float32), data["text"]),
-               adapters={"lora": torch.zeros(1)})
+               adapters={"lora_double": torch.zeros(1)})
 
 
 def test_remat_gives_the_same_gradients(bundles, data):
@@ -490,7 +492,7 @@ def test_runner_delta_a_writes_a_finite_summary(tmp_path):
 def test_runner_rejects_unported_options(tmp_path):
     base = ["--output-dir", str(tmp_path), "--device", "cpu", "--synthetic", "1"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_tta.main(["--method", "lora"] + base)
+        run_tta.main(["--method", "lora", "--save-adapters"] + base)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         run_tta.main(["--method", "delta_a", "--aug-enabled"] + base)
     assert run_tta.build_arg_parser().parse_args(base).method == "delta_a"
