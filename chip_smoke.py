@@ -80,7 +80,34 @@ Phases (each one fails the run when it fails):
      2-step sampler), 2 denoising steps. Each must succeed with finite
      losses, anchors and PSNR/SSIM, train (its anchor or DNO loss moves),
      report the trainable-parameter count of its configuration, and
-     launch each kernel as often as ``method_launches`` derives.
+     launch each kernel as often as ``method_launches`` derives;
+  9. checkpoint path: a LongCat-13.6B-layout checkpoint (dit/, vae/,
+     text_encoder/ as bf16 safetensors shards of at most 5 GB, 48 blocks,
+     UMT5-XXL, WAN VAE base 96; no tokenizer folder) drawn on the card
+     from a seed, written under a temporary folder in .chip_smoke/ (removed
+     at the end) and loaded through the runner's --checkpoint-dir: load
+     seconds, GB/s and the host's peak RSS; at least 64 loaded tensors
+     (every kind of key) equal to their drawn values after the transform;
+     one serving request on the loaded weights with [main]'s launches and
+     finite metrics; a longcat_demo-width checkpoint loaded on the card and
+     on the CPU, generate_vc agreeing at >= 30 dB;
+ 10. remat path: delta_a on longcat_bench (hidden 2048, 16 blocks, 16
+     heads of 128) at the delta_a window under full, dots and dots_attn,
+     3 steps each: step time, peak memory, launches per step against
+     ``train_step_launches`` (64 / 32 / 16, dots_attn 32 / 32 / 16), loss
+     within 1e-3 relative and gradient cosine >= 0.9999 of full's on the
+     same draws; the runner trains longcat_bench under its default policy
+     (dots_attn); the bytes each policy keeps per block at 13.6B width (2
+     blocks), extrapolated to 48;
+ 11. bucket path: a 13.6B delta_a train step with the 3-latent target
+     padded to 4 (pad filled with 1e3) against the unpadded one on the
+     same valid draws (the same gates), then the runner on 1 video with
+     --bucket-shapes --aug-enabled --aug-hflip --aug-speed-factors 2
+     --save-adapters: launches against ``method_launches``, finite losses,
+     a moving anchor, and the saved adapter loaded back.
+  The kernel phases also time B1-B3 at the remat path's 16 heads and at
+     the bucket shape (12 480 tokens, kv_valid 10 920; SDPA takes the same
+     boolean mask).
 
 The counts of every kernel are set to 0 just before each main path and
 read just after; a kernel's ``launches`` in the kernels line is its sum
@@ -202,6 +229,23 @@ def _reference_chunked(fa, q, k, v, ncond, kv_valid, heads_per_chunk):
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
 
+def sdpa_mask(Sq: int, Sk: int, ncond: int, kv_valid):
+    """The boolean allowed-mask SDPA takes for the kernels' masks (the
+    conditioning prefix when Sq == Sk, keys past kv_valid), or None."""
+    import torch
+
+    if not (ncond > 0 and Sq == Sk) and kv_valid is None:
+        return None
+    qi = torch.arange(Sq, device="cuda")[:, None]
+    ki = torch.arange(Sk, device="cuda")[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+    if ncond > 0 and Sq == Sk:
+        mask = (qi >= ncond) | (ki < ncond)
+    if kv_valid is not None:
+        mask = mask & (ki < kv_valid)
+    return mask
+
+
 def case_inputs(B, H, Sq, Sk, D, *, dtype_name="bfloat16", fused_kv=False, seed=0):
     """Seeded q, k, v on the card; with ``fused_kv`` k and v are strided
     views of one [B, Sk, 2, H, D] tensor (the cross-attention layout)."""
@@ -267,10 +311,7 @@ def check_kernel_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
         res["plain_ms"] = _events_ms(lambda: reference(fa, q, k, v, ncond, kv_valid),
                                      iters=1, warmup=0)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        mask = None
-        if ncond > 0 and Sq == Sk:
-            idx = torch.arange(Sq, device="cuda")
-            mask = (idx[:, None] >= ncond) | (idx[None, :] < ncond)
+        mask = sdpa_mask(Sq, Sk, ncond, kv_valid)
         res["library_ms"] = _events_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask), iters=10)
         res["bound_ms"], res["bound_by"] = _bound_ms(
@@ -306,15 +347,24 @@ def tta_kernel_cases(dit_cfg, tokens_per_frame):
     recompute; DNO's sampler step has the same shape) and the anchor
     eval's (6 rows of 4 cond + 1 val latents, 7800 tokens; 96 launches
     per eval); and the train step at longcat_bench_3b's 20 heads."""
+    from longcat_video_tta_tpu_torch.tta.bucket import bucket_len
+
     H, D = dit_cfg.num_heads, dit_cfg.head_dim
     n_cond_lat, n_train_lat, n_val_lat = tta_split()
     ncond = n_cond_lat * tokens_per_frame
     s_train = (n_cond_lat + n_train_lat) * tokens_per_frame
     s_anchor = (n_cond_lat + n_val_lat) * tokens_per_frame
+    s_bucket = (n_cond_lat + bucket_len(n_train_lat)) * tokens_per_frame
     return [("train_self", (1, H, s_train, s_train, D), dict(ncond=ncond, seed=8)),
             ("anchor_self", (6, H, s_anchor, s_anchor, D), dict(ncond=ncond, seed=9)),
             # full's train step on longcat_bench_3b (20 heads of 128)
-            ("train_self_h20", (1, 20, s_train, s_train, D), dict(ncond=ncond, seed=12))]
+            ("train_self_h20", (1, 20, s_train, s_train, D), dict(ncond=ncond, seed=12)),
+            # the remat path's train step on longcat_bench (16 heads of 128)
+            ("train_self_h16", (1, 16, s_train, s_train, D), dict(ncond=ncond, seed=13)),
+            # the bucket path's: the 3-latent target padded to 4, the pad
+            # masked as keys by kv_valid
+            ("train_self_bucket", (1, H, s_bucket, s_bucket, D),
+             dict(ncond=ncond, kv_valid=s_train, seed=14))]
 
 
 def phase_kernel_checks(fa, dit_cfg, tokens_per_frame):
@@ -372,10 +422,11 @@ def grad_errors(d, d_ref, dtype_name):
 
 def check_bwd_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
                    dtype_name="bfloat16", fused_kv=False, timed=False, seed=0,
-                   dkv=True, all_zero=False):
+                   dkv=True, all_zero=False, zero_do_from=None):
     """The dQ (and, with ``dkv``, dK/dV) kernel against the plain backward
     on one shape, from the forward kernel's o and lse; returns a result
-    dict per kernel."""
+    dict per kernel. ``zero_do_from``: query rows from this index on get
+    dO = 0 (the bucket pad, which the masked loss does not reach)."""
     import torch
     import torch.nn.functional as F
 
@@ -383,6 +434,8 @@ def check_bwd_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
                           seed=seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 100)
     do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    if zero_do_from is not None:
+        do[:, zero_do_from:] = 0
     kw = dict(num_cond_tokens=ncond, kv_valid_len=kv_valid)
     o, lse = fa.flash_attention(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
@@ -415,10 +468,7 @@ def check_bwd_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
                               iters=1, warmup=0)
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                       for x in (q, k, v))
-        mask = None
-        if ncond > 0 and Sq == Sk:
-            idx = torch.arange(Sq, device="cuda")
-            mask = (idx[:, None] >= ncond) | (idx[None, :] < ncond)
+        mask = sdpa_mask(Sq, Sk, ncond, kv_valid)
         ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
         dot = do.transpose(1, 2).contiguous()
         library_ms = _events_ms(lambda: ot.backward(dot, retain_graph=True), iters=5)
@@ -438,6 +488,8 @@ def check_bwd_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
 def phase_bwd_kernel_checks(fa, dit_cfg, tokens_per_frame):
     """The backward kernels at the delta_a train step's shapes, then small
     ragged cases."""
+    from longcat_video_tta_tpu_torch.tta.bucket import bucket_len
+
     H, D = dit_cfg.num_heads, dit_cfg.head_dim
     n_cond_lat, n_train_lat = tta_split()[:2]
     s_train = (n_cond_lat + n_train_lat) * tokens_per_frame
@@ -457,6 +509,15 @@ def phase_bwd_kernel_checks(fa, dit_cfg, tokens_per_frame):
     s_dno = sum(tta_split(holdout=0.0)[:2]) * tokens_per_frame
     cases += check_bwd_case(fa, "dno_self", 1, H, s_dno, s_dno, D, ncond=ncond,
                             timed=True, seed=34)
+    # the remat path's train step on longcat_bench (16 heads), and the
+    # bucket path's: 12 480 tokens of which the last 1560 are pad, masked
+    # as keys (kv_valid 10 920) and given a zero dO by the masked loss
+    cases += check_bwd_case(fa, "train_self_h16", 1, 16, s_train, s_train, D, ncond=ncond,
+                            timed=True, seed=35)
+    s_bucket = (n_cond_lat + bucket_len(n_train_lat)) * tokens_per_frame
+    cases += check_bwd_case(fa, "train_self_bucket", 1, H, s_bucket, s_bucket, D,
+                            ncond=ncond, kv_valid=s_train, timed=True, seed=36,
+                            zero_do_from=s_train)
     cases += check_bwd_case(fa, "ragged_prefix_d32", 2, 2, 150, 150, 32, ncond=37,
                             seed=23)
     cases += check_bwd_case(fa, "ragged_kv_valid_d64", 1, 3, 200, 333, 64,
@@ -1125,7 +1186,7 @@ def tta_split(holdout: float = 0.25):
     return s["cond_latents"], s["train_latents"], s["val_latents"]
 
 
-def train_step_launches(graph: str, depth: int):
+def train_step_launches(graph: str, depth: int, policy: str = "full"):
     """Launches per kernel of one train step with full remat (2 attention
     calls per block), by where the trainable tensors enter the graph. A
     block whose inputs depend on no trainable tensor runs once and is not
@@ -1148,7 +1209,10 @@ def train_step_launches(graph: str, depth: int):
       "output"     (delta_c): the gradient stops at the output residual:
                    the forward alone.
     DNO's sampler step is a "t_embed" step: its noise reaches every
-    attention's q, and self-attention's k and v."""
+    attention's q, and self-attention's k and v. Under the "dots" policy
+    the attention forward is recomputed as under "full"; under
+    "dots_attn" its o and lse are kept, so each attention runs forward
+    once (2 x depth) and the backward counts do not change."""
     d = depth
     fwd, dq, dkv = {
         "t_embed": (4 * d, 2 * d, d),
@@ -1157,6 +1221,8 @@ def train_step_launches(graph: str, depth: int):
         "hidden": (2 * d + 2 * (d - 1), 2 * (d - 1), d - 1),
         "output": (2 * d, 0, 0),
     }[graph]
+    if policy == "dots_attn":
+        fwd = 2 * d
     return {"flash_fwd": fwd, "flash_bwd_dq": dq, "flash_bwd_dkv": dkv}
 
 
@@ -1172,12 +1238,12 @@ def tta_launches(depth: int):
 
 
 def method_launches(graph: str, depth: int, *, steps: int, anchors: int,
-                    inference_steps: int, sampler_steps: int = 1):
+                    inference_steps: int, sampler_steps: int = 1, policy: str = "full"):
     """Launches per kernel of one video of a method run: ``steps`` train
     steps (a DNO step backpropagates through ``sampler_steps`` sampler
     steps), ``anchors`` anchor evals (one batched forward each), then
     generation (cond-cache precompute plus one decode per step)."""
-    per_step = train_step_launches(graph, depth)
+    per_step = train_step_launches(graph, depth, policy)
     out = {k: steps * sampler_steps * n for k, n in per_step.items()}
     out["flash_fwd"] += 2 * depth * (anchors + 1 + inference_steps)
     return out
@@ -1364,6 +1430,668 @@ def phase_method_path(fa, method: str):
     return got
 
 
+# ---------------------------------------------------------------------------
+# Checkpoint path: a LongCat-layout folder drawn on the card, loaded through
+# the runner's --checkpoint-dir
+# ---------------------------------------------------------------------------
+
+CKPT = dict(seed=11, shard_bytes=5 * 10 ** 9, rss_every_s=0.05)
+
+
+def synth_value(key: str, shape, gen, device="cuda"):
+    """A bf16 tensor for one upstream key, drawn on the card: biases
+    N(0, 0.02), norm scales N(1, 0.02), the UMT5 embedding N(0, 1), its
+    relative-attention tables N(0, 0.1), other weights N(0, 1/fan_in)."""
+    import torch
+
+    t = torch.empty(shape, device=device)
+    if key.endswith(".bias"):
+        t.normal_(0.0, 0.02, generator=gen)
+    elif len(shape) == 1 or key.endswith(".gamma"):
+        t.normal_(1.0, 0.02, generator=gen)
+    elif key == "shared.weight":
+        t.normal_(0.0, 1.0, generator=gen)
+    elif "relative_attention_bias" in key:
+        t.normal_(0.0, 0.1, generator=gen)
+    else:
+        t.normal_(0.0, math.prod(shape[1:]) ** -0.5, generator=gen)
+    return t.to(torch.bfloat16)
+
+
+def checkpoint_sample_keys(cfg):
+    """Upstream keys the checkpoint check holds against the loaded modules:
+    every kind of key of the three models (fused qkv, the conv patch
+    embedding, norm scales, UMT5's relative-attention tables, VAE conv3d,
+    resample conv2d and attention convs) at the first, a middle and the
+    last block."""
+    d, L, v = cfg.dit.depth, cfg.text.num_layers, cfg.vae
+    keys = {"dit": ["x_embedder.proj.weight", "x_embedder.proj.bias",
+                    "t_embedder.mlp.0.weight", "t_embedder.mlp.2.bias",
+                    "y_embedder.y_proj.0.weight", "final_layer.adaLN_modulation.1.weight",
+                    "final_layer.linear.weight", "final_layer.linear.bias"],
+            "text_encoder": ["encoder.final_layer_norm.weight"], "vae": []}
+    for i in sorted({0, d // 3, d - 1}):
+        keys["dit"] += [f"blocks.{i}.{name}" for name in (
+            "adaLN_modulation.1.weight", "attn.qkv.weight", "attn.qkv.bias",
+            "attn.q_norm.weight", "attn.k_norm.weight", "cross_attn.q_linear.weight",
+            "cross_attn.kv_linear.weight", "cross_attn.k_norm.weight",
+            "pre_crs_attn_norm.weight", "pre_crs_attn_norm.bias", "ffn.w2.weight")]
+    for i in sorted({0, L - 1}):
+        a, f = f"encoder.block.{i}.layer.0.", f"encoder.block.{i}.layer.1."
+        keys["text_encoder"] += [a + "SelfAttention.q.weight", a + "SelfAttention.o.weight",
+                                 a + "SelfAttention.relative_attention_bias.weight",
+                                 a + "layer_norm.weight", f + "DenseReluDense.wi_0.weight",
+                                 f + "DenseReluDense.wo.weight", f + "layer_norm.weight"]
+    nrb = v.num_res_blocks
+    keys["vae"] += ["encoder.conv1.weight", "encoder.conv1.bias",
+                    "encoder.downsamples.0.residual.0.gamma",
+                    "encoder.downsamples.0.residual.2.weight",
+                    f"encoder.downsamples.{nrb + 1}.shortcut.weight",
+                    f"encoder.downsamples.{nrb}.resample.1.weight",
+                    f"encoder.downsamples.{2 * nrb + 1}.time_conv.weight",
+                    "encoder.middle.1.to_qkv.weight", "encoder.middle.1.to_qkv.bias",
+                    "encoder.middle.1.proj.weight", "encoder.middle.2.residual.6.weight",
+                    "encoder.head.0.gamma", "encoder.head.2.weight", "conv1.weight",
+                    "conv2.weight", "decoder.conv1.weight", "decoder.middle.1.to_qkv.weight",
+                    "decoder.upsamples.0.residual.3.gamma",
+                    "decoder.upsamples.0.residual.6.weight",
+                    f"decoder.upsamples.{nrb + 1}.resample.1.weight",
+                    f"decoder.upsamples.{nrb + 1}.time_conv.weight",
+                    "decoder.head.0.gamma", "decoder.head.2.weight"]
+    return keys
+
+
+_PORT_NAMES = {
+    "dit": [(r"^x_embedder\.proj\.", "x_embed."), (r"^t_embedder\.mlp\.0\.", "t_embed.w1."),
+            (r"^t_embedder\.mlp\.2\.", "t_embed.w2."), (r"^y_embedder\.y_proj\.0\.", "y_embed.in."),
+            (r"^y_embedder\.y_proj\.2\.", "y_embed.out."),
+            (r"^final_layer\.adaLN_modulation\.1\.", "final.adaln."),
+            (r"^final_layer\.linear\.", "final.proj."), (r"adaLN_modulation\.1\.", "adaln."),
+            (r"_norm\.weight$", "_norm"), (r"pre_crs_attn_norm", "pre_crs_norm"),
+            (r"q_linear", "q"), (r"kv_linear", "kv"), (r"pre_crs_norm$", "pre_crs_norm.weight")],
+    "text_encoder": [(r"^shared\.weight$", "embed"),
+                     (r"^encoder\.final_layer_norm\.weight$", "final_ln"),
+                     (r"^encoder\.block\.(\d+)\.layer\.0\.SelfAttention\.relative_attention_bias"
+                      r"\.weight$", r"blocks.\1.rel_bias"),
+                     (r"^encoder\.block\.(\d+)\.layer\.0\.SelfAttention\.", r"blocks.\1."),
+                     (r"^encoder\.block\.(\d+)\.layer\.0\.layer_norm\.weight$", r"blocks.\1.ln1"),
+                     (r"^encoder\.block\.(\d+)\.layer\.1\.layer_norm\.weight$", r"blocks.\1.ln2"),
+                     (r"^encoder\.block\.(\d+)\.layer\.1\.DenseReluDense\.wi_0", r"blocks.\1.wi0"),
+                     (r"^encoder\.block\.(\d+)\.layer\.1\.DenseReluDense\.wi_1", r"blocks.\1.wi1"),
+                     (r"^encoder\.block\.(\d+)\.layer\.1\.DenseReluDense\.wo", r"blocks.\1.wo")],
+}
+
+
+def expected_port_tensors(component: str, key: str, value, vcfg):
+    """[(port state-dict name, expected tensor)] of one upstream tensor
+    after the transform the port applies, written out independently of
+    the converter: torch layouts match the port's except the Conv3d patch
+    embedding (flattened in patchify order), the VAE's flat module lists
+    (mapped to scales), norm gammas (flattened), 1x1 attention convs (as
+    matrices, to_qkv split in three) and the resample Conv2d (kt = 1)."""
+    if component != "vae":
+        name = key
+        for pat, rep in _PORT_NAMES[component]:
+            name = re.sub(pat, rep, name)
+        if key == "x_embedder.proj.weight" and value.ndim == 5:
+            value = value.permute(0, 2, 3, 4, 1).reshape(value.shape[0], -1)
+        return [(name, value)]
+    nrb, n_scales = vcfg.num_res_blocks, len(vcfg.dim_mults)
+    parts = key.split(".")
+    fixed = {"encoder.conv1": "enc.conv_in", "encoder.head.2": "enc.conv_out",
+             "encoder.head.0": "enc.norm_out", "conv1": "enc.quant",
+             "conv2": "dec.post_quant", "decoder.conv1": "dec.conv_in",
+             "decoder.head.2": "dec.conv_out", "decoder.head.0": "dec.norm_out"}
+    stem, leaf = ".".join(parts[:-1]), parts[-1]
+    if stem in fixed:
+        base = fixed[stem]
+    elif parts[1] == "middle":
+        side = "enc" if parts[0] == "encoder" else "dec"
+        sub = {"0": "res1", "1": "attn", "2": "res2"}[parts[2]]
+        base = f"{side}.mid.{sub}" + ("." + ".".join(parts[3:-1]) if len(parts) > 4 else "")
+    else:
+        side, k = ("enc", nrb + 1) if parts[0] == "encoder" else ("dec", nrb + 2)
+        flat = int(parts[2])
+        scale, j = divmod(flat, k)
+        rest = ".".join(parts[3:-1])
+        if j < k - 1:
+            base = f"{side}.scales.{scale}.res.{j}." + rest
+        else:
+            assert side == "dec" or scale < n_scales - 1
+            base = f"{side}.scales.{scale}." + {
+                "resample.1": "sdown" if side == "enc" else "sup",
+                "time_conv": "tdown" if side == "enc" else "tup"}[rest]
+    for up, port in (("residual.0", "norm1"), ("residual.2", "conv1"), ("residual.3", "norm2"),
+                     ("residual.6", "conv2")):
+        base = base.replace(up, port)
+    if leaf == "gamma":
+        return [(base + ".weight", value.reshape(-1))]
+    if base.endswith("attn.to_qkv"):
+        c = value.shape[0] // 3
+        return [(base.replace("to_qkv", n) + "." + leaf,
+                 value[i * c:(i + 1) * c].reshape(c, -1) if leaf == "weight"
+                 else value[i * c:(i + 1) * c]) for i, n in enumerate("qkv")]
+    if base.endswith("attn.proj") and leaf == "weight":
+        return [(base + ".weight", value.reshape(value.shape[0], -1))]
+    if value.ndim == 4:  # the resample Conv2d as a kt = 1 Conv3d
+        value = value[:, :, None]
+    return [(base + "." + leaf, value)]
+
+
+def check_loaded(bundle, kept, vae_cfg) -> int:
+    """Hold each loaded tensor of the drawn sample ``kept`` against its
+    shard value after the transform; returns how many were equal (raises
+    on the first that is not)."""
+    import torch
+
+    mods = {"dit": bundle.dit, "vae": bundle.vae, "text_encoder": bundle.text}
+    checked = 0
+    for component, drawn in kept.items():
+        params = mods[component].state_dict()
+        for key, value in drawn.items():
+            for name, want in expected_port_tensors(component, key, value, vae_cfg):
+                got = params[name]
+                if not torch.equal(got, want.to(got.dtype)):
+                    raise AssertionError(f"{component} {key} -> {name}: loaded tensor "
+                                         f"differs from the shard value")
+                checked += 1
+    return checked
+
+
+def write_checkpoint(folder: str, cfg, seed: int, sample=None, device="cuda"):
+    """A LongCat-layout checkpoint of ``cfg`` (dit/, vae/, text_encoder/
+    as bf16 safetensors shards of at most CKPT["shard_bytes"]; no
+    tokenizer folder) drawn on the card from ``seed``. Returns (bytes
+    written, {component: {key: drawn tensor}} for the keys of
+    ``sample``)."""
+    import torch
+
+    from longcat_video_tta_tpu_torch.models.convert import STATE_SHAPES
+    from longcat_video_tta_tpu_torch.utils.safetensors import save_file
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    total, kept = 0, {}
+    for component, shapes_of in STATE_SHAPES.items():
+        os.makedirs(os.path.join(folder, component))
+        want, kept[component] = set((sample or {}).get(component, ())), {}
+        shard, size, n = {}, 0, 0
+
+        def flush():
+            nonlocal shard, size, n
+            save_file(shard, os.path.join(folder, component, f"model-{n:05d}.safetensors"))
+            n, shard, size = n + 1, {}, 0
+
+        for key, shape in shapes_of(cfg).items():
+            nbytes = 2 * math.prod(shape)
+            if shard and size + nbytes > CKPT["shard_bytes"]:
+                flush()
+            shard[key] = synth_value(key, shape, gen, device)
+            if key in want:
+                kept[component][key] = shard[key].clone()
+            size += nbytes
+            total += nbytes
+        flush()
+        missing = want - set(kept[component])
+        if missing:
+            raise AssertionError(f"sample keys not in the {component} layout: {missing}")
+    return total, kept
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class PeakRSS:
+    """The largest resident set size of this process while the block
+    runs, sampled every CKPT["rss_every_s"] seconds by a thread."""
+
+    def __enter__(self):
+        import threading
+
+        self.base = self.peak = _rss_bytes()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(CKPT["rss_every_s"]):
+                self.peak = max(self.peak, _rss_bytes())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_bytes())
+        return False
+
+
+def phase_checkpoint_path(fa):
+    """A LongCat-13.6B-layout checkpoint (48 blocks, UMT5-XXL, WAN VAE base
+    96; bf16 shards of at most 5 GB) written under a temporary folder and
+    loaded through the runner's --checkpoint-dir: load time, rate and the
+    host's peak RSS; sampled tensors against their drawn values; one
+    serving request on the loaded weights. Then the same kind of folder at
+    longcat_demo widths loaded on the card and on the CPU: generate_vc must
+    agree."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import get_model_config
+    from longcat_video_tta_tpu_torch.runners import run_tta
+
+    cfg = get_model_config("longcat_13b")
+    folder = tempfile.mkdtemp(prefix="ckpt-", dir=RUN_DIR)
+    try:
+        sample = checkpoint_sample_keys(cfg)
+        n_sample = sum(len(v) for v in sample.values())
+        t0 = time.time()
+        nbytes, kept = write_checkpoint(folder, cfg, CKPT["seed"], sample)
+        t_write = time.time() - t0
+        shards = {c: sorted(os.listdir(os.path.join(folder, c))) for c in kept}
+        print(f"[ckpt] wrote {nbytes / 1e9:.2f} GB of bf16 shards in {t_write:.1f} s "
+              f"({ {c: len(s) for c, s in shards.items()} } shards, at most "
+              f"{CKPT['shard_bytes'] / 1e9:.0f} GB each) under {folder}")
+        base = ["--preset", "longcat_13b", "--device", "cuda", "--checkpoint-dir", folder]
+        args = run_tta.build_arg_parser().parse_args(
+            base + ["--output-dir", os.path.join(RUN_DIR, "ckpt_run")])
+        torch.cuda.synchronize()
+        with PeakRSS() as rss:
+            t0 = time.time()
+            bundle = run_tta.load_bundle(args)
+            torch.cuda.synchronize()
+            t_load = time.time() - t0
+        print(f"[ckpt] load through --checkpoint-dir: {t_load:.2f} s, "
+              f"{nbytes / t_load / 1e9:.2f} GB/s; host RSS peak {rss.peak / 2**30:.2f} GiB "
+              f"(before the load {rss.base / 2**30:.2f} GiB, +{(rss.peak - rss.base) / 2**30:.2f}"
+              f" GiB); card memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        checked = check_loaded(bundle, kept, cfg.vae)
+        print(f"[ckpt] {checked} loaded tensors of {n_sample} sampled upstream keys equal "
+              f"their shard values after the transform")
+        if checked < 64:
+            raise AssertionError(f"only {checked} tensors checked")
+        del bundle, kept
+        torch.cuda.empty_cache()
+
+        out_dir = os.path.join(RUN_DIR, "ckpt_run")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        argv = ["--method", "none", *base, "--synthetic", "1", "--output-dir", out_dir,
+                "--height", str(MAIN["height"]), "--width", str(MAIN["width"]),
+                "--num-cond-frames", str(MAIN["cond_frames"]),
+                "--num-frames", str(MAIN["gen_frames"]),
+                "--num-inference-steps", str(MAIN["steps"]),
+                "--guidance-scale", str(MAIN["guidance"]), "--no-save-videos",
+                "--caption-guard-mode", "off"]
+        print("[ckpt] run_tta " + " ".join(argv))
+        fa.reset_launches()
+        t0 = time.time()
+        summary = run_tta.main(argv)
+        wall = time.time() - t0
+        launches = fa.launches
+        r = summary["results"][0]
+        expected = cfg.dit.depth * 2 * (1 + MAIN["steps"])
+        print(f"[ckpt] request on the loaded weights: success={r['success']} "
+              f"gen_time={r.get('gen_time')} s psnr={r.get('psnr')} ssim={r.get('ssim')}; "
+              f"wall {wall:.1f} s with the load; flash_fwd launches {launches} "
+              f"(expected {expected}, as [main] per request)"
+              + (f" error={r['error']}" if "error" in r else ""))
+        if not (r["success"] and np.isfinite([r["psnr"], r["ssim"]]).all()):
+            raise AssertionError(f"request on the checkpoint's weights failed: {r}")
+        if launches != expected:
+            raise AssertionError(f"flash_fwd launches {launches}, expected {expected}")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+        shutil.rmtree(os.path.join(RUN_DIR, "ckpt_run"), ignore_errors=True)
+    phase_checkpoint_agreement()
+    return launches
+
+
+def phase_checkpoint_agreement():
+    """A longcat_demo-width LongCat-layout folder loaded on the card and
+    on the CPU (``ModelBundle.from_checkpoint_dir``): generate_vc on the
+    same conditioning and noise must agree."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import longcat_demo
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle, generate_vc
+
+    folder = tempfile.mkdtemp(prefix="ckpt-demo-", dir=RUN_DIR)
+    try:
+        write_checkpoint(folder, longcat_demo(), CKPT["seed"] + 1)
+        cpu = ModelBundle.from_checkpoint_dir(longcat_demo(), folder, "cpu")
+        gpu = ModelBundle.from_checkpoint_dir(longcat_demo(), folder, "cuda")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    rng = np.random.default_rng(5)
+    cond = rng.uniform(-1, 1, (1, 3, 5, 64, 128)).astype(np.float32)
+    noise = torch.from_numpy(rng.standard_normal((1, 16, 2, 8, 16)).astype(np.float32))
+    kw = dict(num_frames=5, num_inference_steps=2, init_noise=noise)
+    a = generate_vc(cpu, cond, "a ball moving across the scene", **kw)
+    b = generate_vc(gpu, cond, "a ball moving across the scene", **kw)
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    psnr = float("inf") if mse == 0 else -10 * math.log10(mse)
+    print(f"[ckpt] longcat_demo checkpoint generate_vc card vs cpu: shape {b.shape}, "
+          f"max|diff| {float(np.abs(a - b).max()):.4g}, psnr {psnr:.2f} dB "
+          f"(min {E2E_PSNR_MIN})")
+    if not (np.isfinite(b).all() and psnr >= E2E_PSNR_MIN):
+        raise AssertionError("card and CPU generate_vc on the loaded checkpoint disagree")
+
+
+# ---------------------------------------------------------------------------
+# Remat path: delta_a on longcat_bench under the three policies
+# ---------------------------------------------------------------------------
+
+REMAT = dict(steps=3, seed=21, loss_rtol=1e-3, grad_cos_min=0.9999)
+
+
+def _window_inputs(dit_cfg, n_train_lat, seed, *, pad_to=None, pad_value=None):
+    """Seeded delta_a inputs on the card at the delta_a window (480x832:
+    cond and train latents of 60 x 104, the text at full length), the
+    train latents and the noise optionally padded to ``pad_to`` latents
+    with ``pad_value``."""
+    import torch
+
+    n_cond_lat = tta_split()[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lat = lambda t: torch.randn((1, dit_cfg.in_channels, t, 60, 104), generator=g,
+                                device="cuda")
+    out = dict(cond=lat(n_cond_lat), train=lat(n_train_lat), noise=lat(n_train_lat),
+               emb=torch.randn((1, dit_cfg.text_len, dit_cfg.text_dim), generator=g,
+                               device="cuda").to(torch.bfloat16),
+               mask=torch.ones((1, dit_cfg.text_len), dtype=torch.int64, device="cuda"),
+               sigma=torch.tensor([0.6], device="cuda"))
+    if pad_to is not None:
+        for k in ("train", "noise"):
+            pad = torch.full(out[k].shape[:2] + (pad_to - n_train_lat,) + out[k].shape[3:],
+                             pad_value, device="cuda")
+            out[k] = torch.cat([out[k], pad], dim=2)
+    return out
+
+
+def _loss_grad(dit, x, num_valid_target=None):
+    """Loss and d(loss)/d(delta_t) of one delta_a step at delta_t = 0.01."""
+    import torch
+
+    from longcat_video_tta_tpu_torch.tta.losses import flow_matching_loss_conditioned
+
+    delta = torch.full((dit.cfg.adaln_tembed_dim,), 0.01, device="cuda",
+                       requires_grad=True)
+    loss = flow_matching_loss_conditioned(
+        dit, x["cond"], x["train"], x["emb"], x["mask"], adapters={"delta_t": delta},
+        sigma=x["sigma"], noise=x["noise"], num_valid_target=num_valid_target)
+    (grad,) = torch.autograd.grad(loss, [delta])
+    return float(loss.detach()), grad.double()
+
+
+def _agree_gate(tag, loss, grad, loss_ref, grad_ref, rtol, cos_min):
+    rel = abs(loss - loss_ref) / abs(loss_ref)
+    cos = float((grad @ grad_ref) / (grad.norm() * grad_ref.norm()))
+    print(f"[{tag}] loss {loss:.7g} vs {loss_ref:.7g} (rel {rel:.3g}, max {rtol}); "
+          f"grad cosine {cos:.7f} (min {cos_min})")
+    if not (rel <= rtol and cos >= cos_min):
+        raise AssertionError(f"{tag}: loss or gradient disagrees")
+
+
+def random_dit(cfg, seed: int):
+    """A DiT of ``cfg`` with random weights drawn on the card."""
+    import torch
+
+    from longcat_video_tta_tpu_torch.models import weights
+    from longcat_video_tta_tpu_torch.models.dit import LongCatDiT
+
+    dit = weights._empty(LongCatDiT, cfg, "cuda")
+    weights._fill_dit(dit, weights.random_getter(
+        torch.Generator(device="cuda").manual_seed(seed), "cuda"))
+    return dit
+
+
+def phase_remat_path(fa):
+    """delta_a on longcat_bench (hidden 2048, 16 blocks, 16 heads of 128) at
+    the delta_a window under full, dots and dots_attn: per policy the
+    train-step time, peak memory and launches per step against
+    ``train_step_launches``, the loss and gradient on the same injected
+    draws against full's; then the runner trains longcat_bench under its
+    own default policy (dots_attn); then the bytes dots_attn saves per
+    block at LongCat-13.6B width (a DiT cut to 2 blocks), extrapolated to
+    48 blocks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import AdapterConfig, OptimConfig, \
+        get_model_config
+    from longcat_video_tta_tpu_torch.runners import run_tta
+    from longcat_video_tta_tpu_torch.tta.adapters import build_scheme
+    from longcat_video_tta_tpu_torch.tta.engine import build_optimizer, train_step
+
+    cfg = get_model_config("longcat_bench")
+    dit = random_dit(cfg.dit, REMAT["seed"])
+    x = _window_inputs(cfg.dit, tta_split()[1], REMAT["seed"] + 1)
+    scheme = build_scheme(cfg.dit, AdapterConfig(method="delta_a"))
+    opt = build_optimizer(OptimConfig(lr=1e-3, steps=REMAT["steps"]))
+    per_policy, ref = {}, None
+    for policy in ("full", "dots", "dots_attn"):
+        dit.cfg = dataclasses.replace(cfg.dit, remat_policy=policy)
+        loss, grad = _loss_grad(dit, x)
+        if ref is None:
+            ref = (loss, grad)
+        else:
+            _agree_gate(f"remat {policy} vs full", loss, grad, *ref,
+                        REMAT["loss_rtol"], REMAT["grad_cos_min"])
+        tp = scheme.init("cuda", dit=dit, generator=torch.Generator(device="cuda"))
+        state = opt.init(tp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        times, counts = [], []
+        for _ in range(REMAT["steps"]):
+            fa.reset_launches()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            tp, state, _ = train_step(scheme, dit, opt, tp, state, x["cond"], x["train"],
+                                      x["emb"], x["mask"], sigma=x["sigma"],
+                                      noise=x["noise"])
+            t1.record()
+            torch.cuda.synchronize()
+            times.append(t0.elapsed_time(t1) / 1e3)
+            counts.append({"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+                           "flash_bwd_dkv": fa.bwd_dkv_launches})
+        expected = train_step_launches("t_embed", cfg.dit.depth, policy)
+        peak = torch.cuda.max_memory_allocated()
+        per_policy[policy] = dict(step_s=times, peak_gib=peak / 2**30,
+                                  above_weights_gib=(peak - base_mem) / 2**30,
+                                  launches_per_step=counts[-1])
+        print(f"[remat] longcat_bench {policy}: train step {times} s; peak "
+              f"{peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} GiB above the "
+              f"weights); launches per step {counts[-1]} (expected {expected})")
+        if any(c != expected for c in counts):
+            raise AssertionError(f"remat {policy}: launches per step {counts}, "
+                                 f"expected {expected}")
+    del dit
+    torch.cuda.empty_cache()
+
+    # the runner trains longcat_bench under its default policy
+    out_dir = os.path.join(RUN_DIR, "remat_run")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--method", "delta_a", "--preset", "longcat_bench", "--synthetic", "1",
+            "--output-dir", out_dir, "--device", "cuda",
+            "--height", str(METHOD["height"]), "--width", str(METHOD["width"]),
+            "--num-cond-frames", str(METHOD["cond_frames"]),
+            "--tta-total-frames", str(METHOD["tta_total_frames"]),
+            "--num-frames", str(METHOD["gen_frames"]), "--steps", str(METHOD["steps"]),
+            "--es-check-every", str(METHOD["check_every"]),
+            "--num-inference-steps", str(METHOD["inference_steps"]),
+            "--guidance-scale", str(METHOD["guidance"]), "--no-save-videos",
+            "--caption-guard-mode", "off"]
+    print("[remat] run_tta " + " ".join(argv))
+    expected = method_launches("t_embed", cfg.dit.depth, steps=METHOD["steps"],
+                               anchors=1 + METHOD["steps"] // METHOD["check_every"],
+                               inference_steps=METHOD["inference_steps"],
+                               policy=cfg.dit.remat_policy)
+    fa.reset_launches()
+    summary = run_tta.main(argv)
+    got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+           "flash_bwd_dkv": fa.bwd_dkv_launches}
+    r = summary["results"][0]
+    anchors = [loss for _, loss in (r.get("early_stopping_info") or {}).get(
+        "loss_history", [])]
+    print(f"[remat] longcat_bench under its default policy "
+          f"({cfg.dit.remat_policy}): success={r['success']} train_time="
+          f"{r.get('train_time')} s losses={r.get('losses')} anchors={anchors} "
+          f"psnr={r.get('psnr')}; launches {got} (expected {expected})"
+          + (f" error={r['error']}" if "error" in r else ""))
+    if not (r["success"] and np.isfinite(r["losses"] + anchors).all()
+            and len(anchors) == 2 and anchors[0] != anchors[1]):
+        raise AssertionError(f"longcat_bench did not train under dots_attn: {r}")
+    if got != expected:
+        raise AssertionError(f"longcat_bench runner launches {got}, expected {expected}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # what each policy keeps per block at LongCat-13.6B width
+    big = get_model_config("longcat_13b").dit
+    cut = dataclasses.replace(big, depth=2)
+    dit = random_dit(cut, REMAT["seed"] + 2)
+    x = _window_inputs(cut, tta_split()[1], REMAT["seed"] + 3)
+    kept = {}
+    for policy in ("full", "dots", "dots_attn"):
+        from longcat_video_tta_tpu_torch.tta.losses import flow_matching_loss_conditioned
+
+        dit.cfg = dataclasses.replace(cut, remat_policy=policy)
+        delta = torch.zeros((cut.adaln_tembed_dim,), device="cuda", requires_grad=True)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        loss = flow_matching_loss_conditioned(
+            dit, x["cond"], x["train"], x["emb"], x["mask"], adapters={"delta_t": delta},
+            sigma=x["sigma"], noise=x["noise"])
+        torch.cuda.synchronize()
+        kept[policy] = (torch.cuda.memory_allocated() - before) / cut.depth
+        del loss, delta
+    tokens = sum(tta_split()[:2]) * (MAIN["height"] // 16) * (MAIN["width"] // 16)
+    weights_gib = 36.0
+    extra = {p: big.depth * (kept[p] - kept["full"]) / 2**30 for p in kept}
+    print(f"[remat] LongCat-13.6B width, delta_a window ({tokens} tokens), bytes kept "
+          f"per block by the forward: " + ", ".join(
+              f"{p} {kept[p] / 2**20:.1f} MiB ({kept[p] / tokens / 1e3:.1f} KB per token)"
+              for p in kept)
+          + f"; over 48 blocks beyond full's: dots {extra['dots']:.1f} GiB, dots_attn "
+          f"{extra['dots_attn']:.1f} GiB beside about {weights_gib:.0f} GiB of weights "
+          f"on an 80 GB card")
+    del dit, x
+    torch.cuda.empty_cache()
+    return per_policy, got
+
+
+# ---------------------------------------------------------------------------
+# Bucket path: delta_a at 13.6B with --bucket-shapes and augmentation
+# ---------------------------------------------------------------------------
+
+BUCKET = dict(seed=31, pad_value=1e3, loss_rtol=1e-3, grad_cos_min=0.9999)
+
+
+def phase_bucket_path(fa):
+    """A bucketed delta_a train step at LongCat-13.6B width and depth (the
+    3-latent target padded to 4 with large values) against the same step
+    unpadded on the same valid noise and sigma; then the runner on 1 video
+    with --bucket-shapes --aug-enabled --aug-hflip --aug-speed-factors 2
+    --save-adapters: its launches against ``method_launches`` and the
+    saved adapter loaded back."""
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import get_model_config
+    from longcat_video_tta_tpu_torch.runners import run_tta
+    from longcat_video_tta_tpu_torch.tta.bucket import bucket_len
+    from longcat_video_tta_tpu_torch.tta.engine import global_norm
+    from longcat_video_tta_tpu_torch.utils.checkpoint import load_adapter_state
+
+    cfg = get_model_config("longcat_13b")
+    n_train = tta_split()[1]
+    n_pad = bucket_len(n_train)
+    dit = random_dit(cfg.dit, BUCKET["seed"])
+    plain = _window_inputs(cfg.dit, n_train, BUCKET["seed"] + 1)
+    padded = _window_inputs(cfg.dit, n_train, BUCKET["seed"] + 1, pad_to=n_pad,
+                            pad_value=BUCKET["pad_value"])
+    loss_ref, grad_ref = _loss_grad(dit, plain)
+    fa.reset_launches()
+    loss, grad = _loss_grad(dit, padded, num_valid_target=n_train)
+    got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+           "flash_bwd_dkv": fa.bwd_dkv_launches}
+    tpf = (MAIN["height"] // 16) * (MAIN["width"] // 16)
+    print(f"[bucket] train step with the target padded {n_train} -> {n_pad} latents "
+          f"(Sq = Sk = {(tta_split()[0] + n_pad) * tpf}, kv_valid "
+          f"{(tta_split()[0] + n_train) * tpf}; pad filled with {BUCKET['pad_value']}) vs "
+          f"unpadded; launches {got}")
+    _agree_gate("bucket padded vs unpadded", loss, grad, loss_ref, grad_ref,
+                BUCKET["loss_rtol"], BUCKET["grad_cos_min"])
+    if got != train_step_launches("t_embed", cfg.dit.depth):
+        raise AssertionError(f"bucketed step launches {got}")
+    del dit, plain, padded
+    torch.cuda.empty_cache()
+
+    out_dir = os.path.join(RUN_DIR, "bucket_run")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--method", "delta_a", "--preset", "longcat_13b", "--synthetic", "1",
+            "--output-dir", out_dir, "--device", "cuda",
+            "--height", str(METHOD["height"]), "--width", str(METHOD["width"]),
+            "--num-cond-frames", str(METHOD["cond_frames"]),
+            "--tta-total-frames", str(METHOD["tta_total_frames"]),
+            "--num-frames", str(METHOD["gen_frames"]), "--steps", str(METHOD["steps"]),
+            "--es-check-every", str(METHOD["check_every"]),
+            "--num-inference-steps", str(METHOD["inference_steps"]),
+            "--guidance-scale", str(METHOD["guidance"]), "--no-save-videos",
+            "--caption-guard-mode", "off", "--bucket-shapes", "--aug-enabled",
+            "--aug-hflip", "--aug-speed-factors", "2", "--save-adapters"]
+    print("[bucket] run_tta " + " ".join(argv))
+    expected = method_launches("t_embed", cfg.dit.depth, steps=METHOD["steps"],
+                               anchors=1 + METHOD["steps"] // METHOD["check_every"],
+                               inference_steps=METHOD["inference_steps"])
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.time()
+    summary = run_tta.main(argv)
+    wall = time.time() - t0
+    got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+           "flash_bwd_dkv": fa.bwd_dkv_launches}
+    r = summary["results"][0]
+    anchors = [loss for _, loss in (r.get("early_stopping_info") or {}).get(
+        "loss_history", [])]
+    print(f"[bucket] success={r['success']} train_time={r.get('train_time')} s "
+          f"es_check_time={r.get('es_check_time')} s gen_time={r.get('gen_time')} s "
+          f"losses={r.get('losses')} anchors={anchors} adapter_norm={r.get('adapter_norm')} "
+          f"psnr={r.get('psnr')} ssim={r.get('ssim')} adapter_path={r.get('adapter_path')}; "
+          f"wall {wall:.1f} s; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got} "
+          f"(expected {expected})" + (f" error={r['error']}" if "error" in r else ""))
+    if not (r["success"] and np.isfinite(r["losses"] + anchors + [r["psnr"]]).all()
+            and len(anchors) == 2 and anchors[0] != anchors[1]):
+        raise AssertionError(f"bucketed delta_a run failed or did not train: {r}")
+    if got != expected:
+        raise AssertionError(f"bucketed delta_a launches {got}, expected {expected}")
+    saved = load_adapter_state(r["adapter_path"], "cuda")
+    shapes = {k: tuple(v.shape) for k, v in saved.items()}
+    # delta_a trains one vector of the t-embedding's width; its norm is the
+    # run's adapter_norm, computed on the same tensor before it was saved
+    if (list(shapes.values()) != [(cfg.dit.adaln_tembed_dim,)]
+            or float(global_norm(saved)) != r["adapter_norm"]):
+        raise AssertionError(f"the saved adapter does not load back: {shapes}, norm "
+                             f"{float(global_norm(saved))} vs {r['adapter_norm']}")
+    print(f"[bucket] adapter {r['adapter_path']} loads back: {shapes}, norm "
+          f"{float(global_norm(saved))} (the run's adapter_norm {r['adapter_norm']})")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return got
+
+
 def print_build(fa):
     spills = []
     for path, log, seconds in fa.build_libraries():
@@ -1381,7 +2109,14 @@ def print_build(fa):
         raise AssertionError(f"kernels spill registers: {spills}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="drive the port on one NVIDIA GPU")
+    ap.add_argument("--only", default="",
+                    help="development: run the build and these comma-separated phases "
+                         "(checkpoint, remat, bucket, kernel, bwd) and print no result")
+    only = [x for x in ap.parse_args(argv).only.split(",") if x]
     try:
         import torch
     except ImportError:
@@ -1418,6 +2153,15 @@ def main() -> int:
     cfg = longcat_13b()
     sf = cfg.vae.spatial_factor * cfg.dit.patch_size[1]
     tokens_per_frame = (MAIN["height"] // sf) * (MAIN["width"] // sf)
+    if only:  # a development run of the named phases alone: no result lines
+        phases = {"checkpoint": (phase_checkpoint_path, fa), "remat": (phase_remat_path, fa),
+                  "bucket": (phase_bucket_path, fa),
+                  "kernel": (phase_kernel_checks, fa, cfg.dit, tokens_per_frame),
+                  "bwd": (phase_bwd_kernel_checks, fa, cfg.dit, tokens_per_frame)}
+        for name in only:
+            timed_phase(name, *phases[name])
+        print(f"[time] all phases {time.time() - t_start:.1f} s")
+        return 0
     cases = timed_phase("kernel check", phase_kernel_checks, fa, cfg.dit, tokens_per_frame)
     bwd_cases = timed_phase("backward kernel check", phase_bwd_kernel_checks, fa, cfg.dit,
                             tokens_per_frame)
@@ -1437,6 +2181,9 @@ def main() -> int:
               f"(5 cond, 8 generated frames, 4 steps) {[g for g, _ in serving_gen]} s")
     methods = {m: timed_phase(f"method run {m}", phase_method_path, fa, m)
                for m in METHOD_RUNS}
+    ckpt_launches = timed_phase("checkpoint path", phase_checkpoint_path, fa)
+    _, remat_run = timed_phase("remat path", phase_remat_path, fa)
+    bucket_run = timed_phase("bucket path", phase_bucket_path, fa)
     print(f"[time] all phases {time.time() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, all_cases):
@@ -1452,10 +2199,12 @@ def main() -> int:
     by_kernel = lambda name: [c for c in bwd_cases if c["kernel"] == name]
     bsa_kernel = lambda name: [c for c in bsa_cases if c["kernel"] == name]
     lever_sum = lambda name: sum(levers[run][name] for run in levers)
-    train_sum = lambda name: tta[name] + sum(m[name] for m in methods.values())
+    train_sum = lambda name: (tta[name] + sum(m[name] for m in methods.values())
+                              + remat_run[name] + bucket_run[name])
     kernels = [
         entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:133",
-              serving_launches + train_sum("flash_fwd") + lever_sum("flash_fwd"), cases),
+              serving_launches + ckpt_launches + train_sum("flash_fwd")
+              + lever_sum("flash_fwd"), cases),
         entry("flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:327",
               train_sum("flash_bwd_dq"), by_kernel("flash_bwd_dq")),
         entry("flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:261",

@@ -285,6 +285,20 @@ def get_model_config(preset: str) -> ModelConfig:
 
 
 @dataclass(frozen=True)
+class AugmentationConfig:
+    """TTA clip augmentation (the reference's ``AugmentationConfig``)."""
+
+    enabled: bool = False
+    hflip: bool = False
+    rotate_degrees: Tuple[float, ...] = ()
+    random_rotate: bool = False
+    random_rotate_max_deg: float = 15.0
+    num_random_rotations: int = 0
+    speed_factors: Tuple[float, ...] = ()
+    latent_space: bool = True  # re-encode variants through the VAE
+
+
+@dataclass(frozen=True)
 class EarlyStoppingConfig:
     """Anchored early stopping (the reference's ``EarlyStoppingConfig``)."""
 

@@ -493,6 +493,27 @@ def flash_attention(
                            scale)
 
 
+@torch.library.custom_op("lc_port::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 num_cond_tokens: int, kv_valid_len: Optional[int],
+                 scale: Optional[float], q_offset: int,
+                 k_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention`` as a dispatcher op, so that a selective
+    checkpoint policy (``ops/layers.py::remat_wrap``, "dots_attn") can
+    save its o and lse: the recompute then returns them instead of
+    launching the kernel again. CUDA tensors launch csrc/flash_fwd.cu,
+    CPU tensors run ``attention_reference``."""
+    return flash_attention(q, k, v, num_cond_tokens=num_cond_tokens,
+                           kv_valid_len=kv_valid_len, scale=scale,
+                           q_offset=q_offset, k_offset=k_offset)
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v, num_cond_tokens, kv_valid_len, scale, q_offset, k_offset):
+    B, Sq, H, D = q.shape
+    return q.new_empty((B, Sq, H, D)), q.new_empty((B, Sq, H), dtype=torch.float32)
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, num_cond_tokens: int = 0,
                            kv_valid_len: Optional[int] = None,
                            scale: Optional[float] = None, q_offset: int = 0,
@@ -536,14 +557,15 @@ class FlashAttentionFunction(torch.autograd.Function):
     kernel, and the dK/dV kernel only when k or v needs a gradient
     (cross-attention's k and v come from the frozen text path), through
     the same entry as the public wrappers. CPU tensors go through
-    ``attention_backward_reference``."""
+    ``attention_backward_reference``. The forward runs ``flash_fwd_op``,
+    the one op a remat policy can save (the reference names its o and lse
+    "flash_out" and "flash_lse", :501-511)."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_cond_tokens, kv_valid_len, scale, q_offset,
                 k_offset):
-        o, lse = flash_attention(q, k, v, num_cond_tokens=num_cond_tokens,
-                                 kv_valid_len=kv_valid_len, scale=scale,
-                                 q_offset=q_offset, k_offset=k_offset)
+        o, lse = flash_fwd_op(q, k, v, int(num_cond_tokens), kv_valid_len, scale,
+                              int(q_offset), int(k_offset))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw = dict(num_cond_tokens=num_cond_tokens, kv_valid_len=kv_valid_len,
                       scale=scale, q_offset=q_offset, k_offset=k_offset)

@@ -111,21 +111,58 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return torch.cat([xa * c - xb * s, xb * c + xa * s], dim=-1)
 
 
+REMAT_POLICIES = ("full", "dots", "dots_attn")
+
+
+def remat_saved_ops(policy: str) -> Tuple:
+    """The ops whose outputs a remat policy keeps for the backward:
+      - "full": none (the block keeps only its inputs);
+      - "dots": the un-batched matmuls, ``aten.mm`` and ``aten.addmm``
+        (the linears), the reference's ``dots_with_no_batch_dims_saveable``:
+        no ``bmm``;
+      - "dots_attn": those and ``lc_port::flash_fwd``'s o and lse (the
+        reference's "flash_out"/"flash_lse" names), so the backward never
+        runs the attention forward again."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; one of {REMAT_POLICIES}")
+    if policy == "full":
+        return ()
+    dots = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+    if policy == "dots":
+        return dots
+    from . import flash_attention  # registers lc_port::flash_fwd
+
+    return dots + (flash_attention.flash_fwd_op._opoverload,)
+
+
 def remat_wrap(body: Callable, remat: bool, policy: str = "full") -> Callable:
     """Per-block gradient checkpoint (the reference's ``remat_wrap``,
-    :141): with ``policy="full"`` the block keeps only its inputs and is
-    recomputed in the backward (``torch.utils.checkpoint``,
-    non-reentrant, as the LongCat reference's torch checkpoint). The
-    reference's "dots" / "dots_attn" policies, which also save matmul
-    outputs and the flash o/lse, are not ported yet."""
+    :141), non-reentrant ``torch.utils.checkpoint`` as the LongCat
+    reference's torch checkpoint. ``policy="full"`` keeps only the block's
+    inputs and recomputes the block in the backward; "dots" and
+    "dots_attn" keep the outputs of ``remat_saved_ops(policy)`` through a
+    selective checkpoint context, and the recompute returns those instead
+    of running them again."""
     if not remat:
         return body
-    if policy != "full":
-        raise NotImplementedError(
-            f"remat policy {policy!r} is not yet ported (only 'full' is)")
+    saved = remat_saved_ops(policy)
+    if not saved:
+        def wrapped(*args, **kwargs):
+            return torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False,
+                                                     **kwargs)
+
+        return wrapped
+
+    from torch.utils.checkpoint import CheckpointPolicy, \
+        create_selective_checkpoint_contexts
+
+    def choose(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
 
     def wrapped(*args, **kwargs):
-        return torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False,
-                                                 **kwargs)
+        return torch.utils.checkpoint.checkpoint(
+            body, *args, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(choose), **kwargs)
 
     return wrapped

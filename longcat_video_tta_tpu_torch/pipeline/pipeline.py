@@ -55,6 +55,44 @@ class HashTokenizer:
                 np.asarray(mask, np.int32)[None])
 
 
+def load_hf_tokenizer(checkpoint_dir: str, max_length: int,
+                      subfolder: str = "tokenizer"):
+    """The HF tokenizer of ``<checkpoint_dir>/<subfolder>`` as a callable
+    text -> (ids [1, L] int32, mask [1, L] int32) padded to ``max_length``
+    (the reference's ``load_hf_tokenizer``)."""
+    from transformers import AutoTokenizer
+
+    tok = AutoTokenizer.from_pretrained(checkpoint_dir, subfolder=subfolder)
+
+    def tokenize(text: str):
+        out = tok([text], padding="max_length", max_length=max_length,
+                  truncation=True, add_special_tokens=True,
+                  return_attention_mask=True, return_tensors="np")
+        return (out["input_ids"].astype(np.int32),
+                out["attention_mask"].astype(np.int32))
+
+    return tokenize
+
+
+def load_tokenizer(ckpt_dir: str, cfg: ModelConfig):
+    """The tokenizer of a checkpoint folder: ``<ckpt_dir>/tokenizer``
+    through ``transformers``' ``AutoTokenizer`` where the folder exists
+    (raising when ``transformers`` cannot be imported: real weights never
+    run on hash ids), else the ``HashTokenizer``, as the reference's
+    loader does for a bundle without a tokenizer (``convert.py:108-112``)."""
+    import os
+
+    if not os.path.isdir(os.path.join(ckpt_dir, "tokenizer")):
+        return HashTokenizer(cfg.text.vocab_size, cfg.text.max_length)
+    try:
+        import transformers  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(
+            f"{ckpt_dir}/tokenizer needs the transformers package, which cannot be "
+            f"imported ({e}); refusing to run real weights on hash token ids") from e
+    return load_hf_tokenizer(ckpt_dir, cfg.text.max_length)
+
+
 @dataclass
 class ModelBundle:
     """All model state for the LongCat backbone, on one device."""
@@ -88,6 +126,45 @@ class ModelBundle:
                    load_vae_from_numpy(vae_params, cfg.vae, device),
                    load_umt5_from_numpy(text_params, cfg.text, device),
                    HashTokenizer(cfg.text.vocab_size, cfg.text.max_length), device)
+
+    @classmethod
+    def from_checkpoint_dir(cls, cfg: ModelConfig, ckpt_dir: str,
+                            device="cuda") -> "ModelBundle":
+        """Bundle from a LongCat checkpoint folder in the upstream torch
+        layout: ``<ckpt_dir>/{dit,vae,text_encoder}`` as ``.safetensors``
+        (or ``.bin``) shards, converted tensor by tensor onto ``device``
+        (``models/convert.py``), and the tokenizer of ``load_tokenizer``.
+        The VAE's latent statistics come from ``vae/config.json``'s
+        ``latents_mean``/``latents_std`` where it has them (the diffusers
+        convention), else from the preset. Differs from the reference by
+        design: the reference reads the orbax bundle that
+        ``scripts/convert_checkpoint.py`` writes, the port reads the torch
+        layout directly."""
+        import json
+        import os
+
+        from ..models.convert import (
+            load_dit_checkpoint,
+            load_umt5_checkpoint,
+            load_vae_checkpoint,
+        )
+
+        device = resolve_device(device)
+        vae_json = os.path.join(ckpt_dir, "vae", "config.json")
+        if os.path.exists(vae_json):
+            with open(vae_json) as f:
+                vmeta = json.load(f)
+            if "latents_mean" in vmeta:
+                cfg = dataclasses.replace(cfg, vae=dataclasses.replace(
+                    cfg.vae, latents_mean=tuple(vmeta["latents_mean"]),
+                    latents_std=tuple(vmeta["latents_std"])))
+        tokenize = load_tokenizer(ckpt_dir, cfg)
+        return cls(cfg,
+                   load_dit_checkpoint(os.path.join(ckpt_dir, "dit"), cfg.dit, device),
+                   load_vae_checkpoint(os.path.join(ckpt_dir, "vae"), cfg.vae, device),
+                   load_umt5_checkpoint(os.path.join(ckpt_dir, "text_encoder"),
+                                        cfg.text, device),
+                   tokenize, device)
 
     def encode_prompt(self, prompt: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (embeds [1, L, C], mask [1, L])."""

@@ -16,7 +16,13 @@ PSNR/SSIM against the ground truth, ``checkpoint.json``; at the end
 reference runner's decode levers (``--bsa-keep-ratio``,
 ``--quantize-decode``, ``--fast-decode``, ``--pab-*``, ``--cfg-reuse-*``,
 ``--gen-segment-steps``, ``--bucket-gen``) and its
-``--fast-decode-verify`` fidelity record.
+``--fast-decode-verify`` fidelity record. Weights come from
+``--checkpoint-dir`` (a LongCat folder in the upstream torch layout,
+converted tensor by tensor: ``models/convert.py``) or are drawn from
+``--seed``; ``--remat-policy`` picks the per-block checkpoint. The TTA
+loop takes the reference's ``--bucket-shapes``, ``--aug-*`` and
+``--batch-videos`` inputs (``TrainInputs``), ``--save-adapters``, the
+``--stop-file`` drain and ``--preflight-only``.
 
 CLI:
   python -m longcat_video_tta_tpu_torch.runners.run_tta \\
@@ -33,12 +39,15 @@ phases, "video_end"), so a profiler can time the code that serves.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.layers import REMAT_POLICIES
 
 METHODS = ["none", "full", "lora", "delta_a", "delta_b", "delta_c",
            "norm_tune", "film", "dno"]
@@ -56,9 +65,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(description="LongCat video TTA (PyTorch port)")
     p.add_argument("--method", default="delta_a", choices=METHODS)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="LongCat checkpoint folder in the upstream torch layout "
+                        "(<dir>/{dit,vae,text_encoder} .safetensors or .bin shards, "
+                        "optional <dir>/tokenizer); random-init weights if unset")
     p.add_argument("--data-dir", default=None)
     p.add_argument("--output-dir", required=True)
     p.add_argument("--preset", default="longcat_13b", choices=sorted(MODEL_PRESETS))
+    p.add_argument("--remat-policy", default=None, choices=list(REMAT_POLICIES),
+                   help="override the preset's per-block gradient-checkpoint policy "
+                        "(ops/layers.py::remat_wrap): 'full' keeps only block inputs; "
+                        "'dots' also the linears' outputs; 'dots_attn' also the "
+                        "attention forward's o and lse (no forward kernel in the "
+                        "backward; the most memory)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     p.add_argument("--synthetic", type=int, default=0,
@@ -72,6 +91,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--loss-fetch-every", type=int, default=0,
                    help="host-sync cadence of the chunked train loop "
                         "(0 = auto: es check_every, or 25 when ES is off)")
+    p.add_argument("--bucket-shapes", action="store_true",
+                   help="pad the TTA target latents up to the bucket ladder "
+                        "(tta/bucket.py); the pad is masked out of attention and "
+                        "of the loss")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
     p.add_argument("--warmup-steps", type=int, default=0)
@@ -130,8 +153,20 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="for the first K videos also generate with every "
                         "decode lever off (same seed and adapters) and record "
                         "fast-vs-dense PSNR and the metric deltas (0 = off)")
+    p.add_argument("--save-adapters", action="store_true",
+                   help="save each video's trained tensors (torch.save) under "
+                        "<output-dir>/adapters/ and record adapter_path")
     p.add_argument("--skip-generation", action="store_true")
     p.add_argument("--no-save-videos", action="store_true")
+    p.add_argument("--stop-file", default=None,
+                   help="graceful drain: when this file (or $LONGCAT_STOP_FILE, or "
+                        "<output-dir>/STOP) exists at a video boundary, checkpoint, "
+                        "write <output-dir>/DRAINED and exit without summary.json; "
+                        "a later run resumes from checkpoint.json")
+    p.add_argument("--preflight-only", action="store_true",
+                   help="validate the run (frame window, feature budget, data, "
+                        "captions, flag combinations) and exit without loading "
+                        "the model")
     # early stopping
     p.add_argument("--es-disable", action="store_true")
     p.add_argument("--es-check-every", type=int, default=5)
@@ -169,11 +204,22 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="noise-interpolation regularization p (1.0 disables)")
     p.add_argument("--dno-interp-every", type=int, default=5,
                    help="apply the noise interpolation every N optimization steps")
+    # augmentation of the TTA clip (data/augment.py)
+    p.add_argument("--aug-enabled", action="store_true")
+    p.add_argument("--aug-hflip", action="store_true")
+    p.add_argument("--aug-rotate-degrees", default="",
+                   help="comma-separated fixed rotations in degrees")
+    p.add_argument("--aug-speed-factors", default="",
+                   help="comma-separated speed factors (>1 strides, <1 repeats)")
+    # batch TTA: train on the video and its caption neighbours in turn
+    p.add_argument("--batch-videos", type=int, default=1)
+    p.add_argument("--batch-method", default="similarity", choices=["similarity"])
+    p.add_argument("--retrieval-pool-dir", default=None)
+    p.add_argument("--retrieval-sbert-path", default=None,
+                   help="local SentenceTransformer folder (needs the "
+                        "sentence_transformers package); absent = hashed "
+                        "bag-of-words embedding")
     # reference options that are not ported yet: asking for one raises
-    p.add_argument("--bucket-shapes", action="store_true", help="not yet ported")
-    p.add_argument("--save-adapters", action="store_true", help="not yet ported")
-    p.add_argument("--aug-enabled", action="store_true", help="not yet ported")
-    p.add_argument("--batch-videos", type=int, default=1, help="not yet ported")
     p.add_argument("--clip-gate-enabled", action="store_true", help="not yet ported")
     # caption guard / override
     p.add_argument("--caption-guard-topk", type=int, default=5)
@@ -192,15 +238,52 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(args) -> None:
-    unported = [flag for on, flag in (
-        (args.bucket_shapes, "--bucket-shapes"),
-        (args.save_adapters, "--save-adapters"),
-        (args.aug_enabled, "--aug-enabled"),
-        (args.batch_videos > 1, "--batch-videos"),
-        (args.clip_gate_enabled, "--clip-gate-enabled")) if on]
-    if unported:
+    if args.clip_gate_enabled:
         raise NotImplementedError(
-            f"{', '.join(unported)}: not yet ported to the PyTorch runner")
+            "--clip-gate-enabled: not yet ported to the PyTorch runner")
+
+
+def check_composition(args) -> None:
+    """Refuse at start-up the flag combinations the reference refuses
+    (its runner :825-836 and :1011-1022), before any weight is loaded."""
+    if args.method == "dno":
+        bad = [name for on, name in ((args.aug_enabled, "augmentation"),
+                                     (args.batch_videos > 1, "--batch-videos"),
+                                     (args.bucket_shapes, "--bucket-shapes"),
+                                     (args.save_adapters, "--save-adapters")) if on]
+        if bad:
+            raise SystemExit(f"--method dno does not compose with {', '.join(bad)}")
+    if args.batch_videos > 1:
+        if args.aug_enabled:
+            # the round robin over [video + neighbours] would drop the variants
+            raise SystemExit("--batch-videos does not compose with augmentation "
+                             "(the round-robin stack would drop the augmented variants)")
+        if not args.retrieval_pool_dir:
+            raise SystemExit("--retrieval-pool-dir required for batch TTA")
+        if args.retrieval_sbert_path and not os.path.exists(args.retrieval_sbert_path):
+            raise SystemExit(f"--retrieval-sbert-path {args.retrieval_sbert_path} does "
+                             "not exist; omit the flag to use the hashed bag-of-words "
+                             "embedding")
+
+
+def augmentation_config(args):
+    from ..config import AugmentationConfig
+    from ..data.augment import parse_speed_factors
+
+    return AugmentationConfig(
+        enabled=args.aug_enabled, hflip=args.aug_hflip,
+        rotate_degrees=tuple(float(x) for x in args.aug_rotate_degrees.split(",")
+                             if x.strip()),
+        speed_factors=tuple(parse_speed_factors(args.aug_speed_factors)))
+
+
+def _drain_file(args) -> Optional[str]:
+    """The first stop-file candidate that exists, or None."""
+    for c in (args.stop_file, os.environ.get("LONGCAT_STOP_FILE"),
+              os.path.join(args.output_dir, "STOP")):
+        if c and os.path.exists(c):
+            return c
+    return None
 
 
 def adapter_config(args):
@@ -379,12 +462,23 @@ def make_synthetic_dataset(out_dir: str, n: int, height: int, width: int,
 
 
 def load_bundle(args):
+    """The preset's bundle (with ``--remat-policy`` applied) from
+    ``--checkpoint-dir``, else drawn at random from ``--seed``."""
+    import dataclasses
+
     from ..config import get_model_config
     from ..pipeline.pipeline import ModelBundle
 
+    cfg = get_model_config(args.preset)
+    if args.remat_policy:
+        cfg = dataclasses.replace(cfg, dit=dataclasses.replace(
+            cfg.dit, remat_policy=args.remat_policy))
+    if args.checkpoint_dir:
+        print(f"[runner] weights from {args.checkpoint_dir} (preset {args.preset}) "
+              f"on {args.device}")
+        return ModelBundle.from_checkpoint_dir(cfg, args.checkpoint_dir, args.device)
     print(f"[runner] random-init weights (preset {args.preset}) on {args.device}")
-    return ModelBundle.init_random(get_model_config(args.preset), seed=args.seed,
-                                   device=args.device)
+    return ModelBundle.init_random(cfg, seed=args.seed, device=args.device)
 
 
 def _summary(args, results: List[Dict], caption_stats, t_start) -> Dict[str, Any]:
@@ -429,6 +523,7 @@ def main(argv: Optional[List[str]] = None,
     apply_fast_decode_defaults(args)
     _check_ported(args)
     check_decode_levers(args)
+    check_composition(args)
     mark = on_phase or (lambda name: None)
 
     from ..config import (
@@ -456,6 +551,7 @@ def main(argv: Optional[List[str]] = None,
     )
     from ..utils.checkpoint import (
         load_checkpoint,
+        save_adapter_state,
         save_checkpoint,
         save_config,
         save_results,
@@ -503,6 +599,11 @@ def main(argv: Optional[List[str]] = None,
         max_generic_top1_ratio=args.caption_guard_max_generic_top1_ratio,
         topk=args.caption_guard_topk))
     apply_fixed_caption(videos, args.fixed_caption)
+    if args.preflight_only:
+        print(f"[preflight] OK: {len(videos)} videos, method {args.method}, preset "
+              f"{args.preset}, window total={frames.tta_total_frames} "
+              f"ctx={frames.tta_context_frames}")
+        return {"preflight": True, "num_videos": len(videos)}
 
     bundle = load_bundle(args)
     dit_cfg = bundle.cfg.dit
@@ -514,8 +615,19 @@ def main(argv: Optional[List[str]] = None,
             warmup_steps=args.warmup_steps, weight_decay=args.weight_decay,
             grad_clip_norm=args.max_grad_norm))
         stopper = build_early_stopper(escfg, scheme, dit_cfg)
+    pool = None
+    if args.batch_videos > 1:
+        from ..data.retrieval import build_retrieval_pool
+
+        pool = build_retrieval_pool(
+            load_video_list(args.retrieval_pool_dir, max_videos=10 ** 9, seed=args.seed),
+            sbert_model_path=args.retrieval_sbert_path)
+        args.retrieval_embedder = pool.embedder
 
     ckpt_path = os.path.join(args.output_dir, "checkpoint.json")
+    # a fresh (re)launch clears the sentinel of an earlier drain
+    if os.path.exists(os.path.join(args.output_dir, "DRAINED")):
+        os.remove(os.path.join(args.output_dir, "DRAINED"))
     ckpt = load_checkpoint(ckpt_path)
     start_idx = ckpt["next_idx"] if ckpt else 0
     results: List[Dict] = ckpt["results"] if ckpt else []
@@ -527,7 +639,29 @@ def main(argv: Optional[List[str]] = None,
     n_ctx_lat = estimate_latent_len(frames.tta_context_frames)
     tta_start = frames.gen_start_frame - frames.tta_total_frames
 
+    def encode_window(path: str):
+        """(pixels [1, 3, T, H, W] in [-1, 1], latents) of a video's TTA
+        window."""
+        px = load_video_frames(path, frames.tta_total_frames, frames.height,
+                               frames.width, start_frame=tta_start,
+                               target_fps=args.load_fps)
+        with torch.no_grad():
+            lat = bundle.encode_video(torch.from_numpy(px))
+        return px, lat
+
+    train_inputs = TrainInputs(args, bundle, escfg, augmentation_config(args), pool,
+                               n_ctx_lat, encode_window)
     for idx in range(start_idx, len(videos)):
+        stop_f = _drain_file(args)
+        if stop_f:
+            # no summary.json: a drained run resumes from checkpoint.json;
+            # DRAINED tells a sweep this exit was a drain
+            save_checkpoint(ckpt_path, idx, results)
+            with open(os.path.join(args.output_dir, "DRAINED"), "w") as f:
+                json.dump({"next_idx": idx, "stop_file": stop_f}, f)
+            print(f"\n[drain] stop file {stop_f} present: exiting at "
+                  f"{idx}/{len(videos)} videos (checkpointed; run again to resume)")
+            return {"drained": True, "next_idx": idx, "num_videos": len(results)}
         entry = videos[idx]
         vid_id = os.path.basename(entry["path"])
         print(f"\n[{idx + 1}/{len(videos)}] {vid_id}")
@@ -541,11 +675,7 @@ def main(argv: Optional[List[str]] = None,
             # is the conditioning window: tta_total defaults to it)
             mark("encode_window")
             t0 = time.time()
-            window_px = load_video_frames(
-                entry["path"], frames.tta_total_frames, frames.height,
-                frames.width, start_frame=tta_start, target_fps=args.load_fps)
-            with torch.no_grad():
-                window_lat = bundle.encode_video(torch.from_numpy(window_px))
+            window_px, window_lat = encode_window(entry["path"])
             _sync(device)
             res["encode_time"] = time.time() - t0
             # no CLIP gate in the port: the reference's disabled-gate record
@@ -556,10 +686,13 @@ def main(argv: Optional[List[str]] = None,
             tp = dno_noise = None
             if is_adapter:
                 tp, train_time, es_time = _adapt(
-                    args, res, bundle, scheme, opt, stopper, escfg, window_lat,
-                    n_ctx_lat, entry["caption"], idx, vid_id, mark)
+                    args, res, bundle, scheme, opt, stopper, escfg, train_inputs,
+                    window_px, window_lat, entry, idx, vid_id, mark)
                 res["adapter_norm"] = adapter_norm(tp)
                 res["trainable_params"] = scheme.num_params(tp)
+                if args.save_adapters:
+                    res["adapter_path"] = save_adapter_state(os.path.join(
+                        args.output_dir, "adapters", f"{idx:04d}_{vid_id}.pt"), tp)
             elif is_dno:
                 dno_noise, train_time = _optimize_noise(
                     args, res, bundle, window_lat, n_ctx_lat, entry["caption"], idx,
@@ -653,22 +786,81 @@ def _verify_fast_decode(bundle, cond_px, caption, gen, gt, res, gen_kw,
     }
 
 
-def _adapt(args, res, bundle, scheme, opt, stopper, escfg, window_lat, n_ctx_lat,
-           caption, idx, vid_id, mark):
-    """One video's TTA: split the window, set up the stopper, run the
-    chunked train loop and restore the best state. Writes ``losses`` and
-    ``early_stopping_info`` into ``res``; returns (train_params,
-    train_time, es_time) with the reference's accounting: es_time is the
-    stopper's setup plus every anchor check, train_time the loop's wall
-    time without the anchor checks."""
+class TrainInputs:
+    """What one video's TTA trains on, as the reference runner builds it
+    (:1343-1420): a list of stacks {"cond", "train", "emb", "mask"[,
+    "valid"]} and the stack each step takes.
+      - the video's own split (one stack);
+      - with augmentation, one stack per variant (original, hflip,
+        rotations, speeds; data/augment.py), a variant drawn per step from
+        ``RandomState(seed + video)``;
+      - with ``--batch-videos N``, the video and its N - 1 caption
+        neighbours from the retrieval pool, in turn;
+      - with ``--bucket-shapes``, each target padded to its bucket and all
+        to the largest, with the valid latent count ("valid")."""
+
+    def __init__(self, args, bundle, escfg, augcfg, pool, n_ctx_lat: int,
+                 encode_window: Callable):
+        self.args, self.bundle, self.escfg = args, bundle, escfg
+        self.augcfg, self.pool, self.n_ctx_lat = augcfg, pool, n_ctx_lat
+        self.encode_window = encode_window
+
+    def build(self, window_px, cond_l, train_l, emb, mask, entry, idx: int):
+        from ..data.augment import build_augmented_latent_variants
+        from ..tta.bucket import pad_target_latents
+        from ..tta.split import split_tta_latents
+
+        args, holdout = self.args, self.escfg.holdout_fraction
+        variants = [{"cond": cond_l, "train": train_l}]
+        if self.augcfg.enabled:
+            variants = build_augmented_latent_variants(
+                self.bundle, (window_px[0].transpose(1, 2, 3, 0) + 1) / 2, self.augcfg,
+                self.n_ctx_lat, holdout, seed=args.seed + idx)
+        stacks = [{"cond": v["cond"], "train": v["train"], "emb": emb, "mask": mask}
+                  for v in variants]
+        if self.pool is not None:
+            stacks = stacks[:1]
+            for nb in self.pool.neighbors(entry["caption"], entry["path"],
+                                          args.batch_videos - 1):
+                _, nb_lat = self.encode_window(nb["path"])
+                nc, ntr, _ = split_tta_latents(nb_lat, self.n_ctx_lat, holdout)
+                with torch.no_grad():
+                    nb_emb, nb_mask = self.bundle.encode_prompt(nb["caption"])
+                stacks.append({"cond": nc, "train": ntr, "emb": nb_emb, "mask": nb_mask})
+        if self.pool is not None and len(stacks) > 1:
+            select = [s % len(stacks) for s in range(args.steps)]
+        else:
+            rng = np.random.RandomState(args.seed + idx)
+            select = [int(rng.randint(len(stacks))) for _ in range(args.steps)]
+        if args.bucket_shapes:
+            for d in stacks:
+                d["train"], d["valid"] = pad_target_latents(d["train"])
+            t_max = max(d["train"].shape[2] for d in stacks)
+            for d in stacks:  # ragged variants padded to the largest bucket
+                t = d["train"].shape[2]
+                if t < t_max:
+                    d["train"] = torch.nn.functional.pad(
+                        d["train"], (0, 0, 0, 0, 0, t_max - t))
+        return stacks, select
+
+
+def _adapt(args, res, bundle, scheme, opt, stopper, escfg, inputs: TrainInputs,
+           window_px, window_lat, entry, idx, vid_id, mark):
+    """One video's TTA: split the window, set up the stopper, build the
+    train stacks, run the chunked train loop and restore the best state.
+    Writes ``losses`` and ``early_stopping_info`` into ``res``; returns
+    (train_params, train_time, es_time) with the reference's accounting:
+    es_time is the stopper's setup plus every anchor check, train_time the
+    loop's wall time without the anchor checks."""
     from ..tta.engine import train_chunk
     from ..tta.split import split_tta_latents
 
     device = bundle.device
-    cond_l, train_l, val_l = split_tta_latents(window_lat, n_ctx_lat,
+    cond_l, train_l, val_l = split_tta_latents(window_lat, inputs.n_ctx_lat,
                                                escfg.holdout_fraction)
     with torch.no_grad():
-        emb, mask = bundle.encode_prompt(caption)
+        emb, mask = bundle.encode_prompt(entry["caption"])
+    stacks, select = inputs.build(window_px, cond_l, train_l, emb, mask, entry, idx)
     # the video's draws: LoRA's init first, then each step's sigma and noise
     gen = torch.Generator(device=device).manual_seed(video_seed(args.seed, idx))
     tp = scheme.init(device, dit=bundle.dit, generator=gen)
@@ -689,6 +881,7 @@ def _adapt(args, res, bundle, scheme, opt, stopper, escfg, window_lat, n_ctx_lat
         marks[name] = _clock(device)
         mark(name)
 
+    first = stacks[0]  # the anchor's inputs (the reference's stack entry 0)
     losses: List[float] = []
     es_loop_time = 0.0
     t_train = time.time()
@@ -698,11 +891,12 @@ def _adapt(args, res, bundle, scheme, opt, stopper, escfg, window_lat, n_ctx_lat
         do_anchor = es_active and (s + k) % escfg.check_every == 0
         marks.clear()
         tp, opt_state, loss_vec, anchor = train_chunk(
-            scheme, bundle.dit, opt, tp, opt_state, cond_l, train_l, emb, mask,
-            steps=k, generator=gen,
+            scheme, bundle.dit, opt, tp, opt_state, first["cond"], first["train"],
+            first["emb"], first["mask"], steps=k, generator=gen,
             val_latents=val_l if do_anchor else None,
             fixed_noises=stopper.fixed_noises if do_anchor else None,
-            anchor_sigmas=escfg.anchor_sigmas, on_phase=on_phase)
+            anchor_sigmas=escfg.anchor_sigmas, on_phase=on_phase,
+            variants=stacks, select=select[s:s + k])
         end = _clock(device)
         s += k
         losses.extend(float(x) for x in loss_vec.tolist())  # the chunk's host sync

@@ -109,15 +109,18 @@ def train_step(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
                target_latents, text_emb, text_mask, *,
                sigma: Optional[torch.Tensor] = None,
                noise: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               num_valid_target: Optional[int] = None):
     """One conditioned-loss step -> (train_params, opt_state, loss as a
-    0-d tensor on the device)."""
+    0-d tensor on the device). ``num_valid_target``: the target's valid
+    latent frames when it is padded to a bucket."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in train_params.items()}
     with torch.enable_grad():
         fwd_dit, adapters = scheme.to_forward(leaves, dit)
         loss = flow_matching_loss_conditioned(
             fwd_dit, cond_latents, target_latents, text_emb, text_mask,
-            adapters=adapters, sigma=sigma, noise=noise, generator=generator)
+            adapters=adapters, sigma=sigma, noise=noise, generator=generator,
+            num_valid_target=num_valid_target)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     # a tensor the loss does not reach gets a zero gradient, as in the reference
     grads = {k: torch.zeros_like(v) if g is None else g
@@ -146,14 +149,22 @@ def train_chunk(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
                 draws: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
                 val_latents=None, fixed_noises=None,
                 anchor_sigmas: Sequence[float] = (),
-                on_phase: Optional[Callable[[str], None]] = None):
+                on_phase: Optional[Callable[[str], None]] = None,
+                variants: Optional[Sequence[Dict]] = None,
+                select: Optional[Sequence[int]] = None):
     """``steps`` optimizer steps, then (when ``val_latents`` is given) the
     anchor eval on the final params: the reference's ``make_train_chunk``
     as a plain loop. Nothing syncs with the host; the caller fetches
     (losses, anchor) once per chunk.
 
-    Per step, (sigma, noise) come from ``draws`` when given (tests inject
-    the reference's draws) and from ``generator`` otherwise.
+    Step i trains on ``variants[select[i]]`` when ``variants`` is given
+    (dicts with "cond", "train", "emb", "mask" and optionally "valid":
+    augmentation variants, or the batch-TTA round robin over a video and
+    its neighbours), else on the positional latents; the anchor always runs on the positional
+    ``cond_latents``, ``text_emb`` and ``text_mask`` (the reference's
+    stack entry 0). Per step, (sigma, noise) come from ``draws`` when
+    given (tests inject the reference's draws) and from ``generator``
+    otherwise, drawn at the step's (padded) target shape.
     ``on_phase(name)`` is called as "train_chunk" and "anchor_check"
     begin. Returns (train_params, opt_state, losses [steps] on the
     device, anchor 0-d tensor or None)."""
@@ -161,13 +172,18 @@ def train_chunk(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
     mark("train_chunk")
     losses: List[torch.Tensor] = []
     for i in range(steps):
+        if variants is not None:
+            v = variants[select[i]]
+            batch = (v["cond"], v["train"], v["emb"], v["mask"], v.get("valid"))
+        else:
+            batch = (cond_latents, target_latents, text_emb, text_mask, None)
         if draws is not None:
             sigma, noise = draws[i]
         else:
-            sigma, noise = draw_sigma_noise(target_latents, generator)
+            sigma, noise = draw_sigma_noise(batch[1], generator)
         train_params, opt_state, loss = train_step(
-            scheme, dit, opt, train_params, opt_state, cond_latents,
-            target_latents, text_emb, text_mask, sigma=sigma, noise=noise)
+            scheme, dit, opt, train_params, opt_state, *batch[:4], sigma=sigma,
+            noise=noise, num_valid_target=batch[4])
         losses.append(loss)
     anchor = None
     if val_latents is not None:

@@ -58,12 +58,19 @@ def flow_matching_loss_conditioned(
     generator: Optional[torch.Generator] = None,
     sigma_min: float = 0.001,
     sigma_max: float = 1.0,
+    num_valid_target: Optional[int] = None,
 ) -> torch.Tensor:
     """Conditioning-aware loss replicating LongCat inference: the clean
     conditioning latents and the noised target latents go through one
     forward with the prefix attention rule; fp32 MSE on the target
     slice. ``sigma`` [B] and ``noise`` (like ``target_latents``) are
-    drawn from ``generator`` when not given."""
+    drawn from ``generator`` when not given.
+
+    ``num_valid_target`` (``--bucket-shapes``): target latent frames at
+    index >= this are bucket padding: masked out of attention as keys
+    (``num_valid_latents``) and out of the MSE, whose sum runs over the
+    valid frames and is divided by their element count, so the loss and
+    its gradients do not depend on the pad's content."""
     if sigma is None or noise is None:
         s, n = draw_sigma_noise(target_latents, generator, sigma_min=sigma_min,
                                 sigma_max=sigma_max)
@@ -79,8 +86,14 @@ def flow_matching_loss_conditioned(
     hidden = torch.cat([cond_latents.float(), noisy_tgt], dim=2)
     timestep = _cond_timesteps(sigma, t_cond // pt, t_tgt // pt)
     pred = dit(hidden, timestep, text_emb, text_mask, num_cond_latents=t_cond,
-               adapters=adapters)
-    return ((pred[:, :, t_cond:] - (noise - tgt32)) ** 2).mean()
+               adapters=adapters,
+               num_valid_latents=(None if num_valid_target is None
+                                  else t_cond + int(num_valid_target)))
+    err = (pred[:, :, t_cond:] - (noise - tgt32)) ** 2
+    if num_valid_target is None:
+        return err.mean()
+    valid = int(num_valid_target)
+    return err[:, :, :valid].sum() / (valid * (err.numel() // t_tgt))
 
 
 def flow_matching_loss_conditioned_fixed(

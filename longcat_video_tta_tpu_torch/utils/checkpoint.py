@@ -75,3 +75,25 @@ def save_config(path: str, config: Dict[str, Any]):
     doc = dict(config)
     doc.setdefault("environment", environment_provenance())
     _atomic_write_json(path, doc)
+
+
+def save_adapter_state(path: str, train_params: Dict[str, Any]) -> str:
+    """One video's trained tensors as a ``torch.save`` of a dict of CPU
+    tensors at ``path`` (the LongCat reference's own adapter format,
+    run_lora_tta.py:412-418; the JAX package writes orbax instead).
+    Written atomically; returns ``path``."""
+    import torch
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({k: v.detach().cpu() for k, v in train_params.items()}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_adapter_state(path: str, device="cpu") -> Dict[str, Any]:
+    """The tensors ``save_adapter_state`` wrote, on ``device``."""
+    import torch
+
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.to(device) for k, v in state.items()}

@@ -162,8 +162,8 @@ def test_runner_summary_keys_match_jax_runner(tmp_path):
 
 
 def test_runner_rejects_unported_method(tmp_path):
-    """Every --method runs; an option that is not ported (augmentation)
+    """Every --method runs; an option that is not ported (the CLIP gate)
     still raises before any work."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_tta.main(["--method", "film", "--aug-enabled", "--output-dir",
+        run_tta.main(["--method", "film", "--clip-gate-enabled", "--output-dir",
                       str(tmp_path), "--device", "cpu", "--synthetic", "1"])

@@ -492,7 +492,7 @@ def test_runner_delta_a_writes_a_finite_summary(tmp_path):
 def test_runner_rejects_unported_options(tmp_path):
     base = ["--output-dir", str(tmp_path), "--device", "cpu", "--synthetic", "1"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_tta.main(["--method", "lora", "--save-adapters"] + base)
+        run_tta.main(["--method", "lora", "--clip-gate-enabled"] + base)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_tta.main(["--method", "delta_a", "--aug-enabled"] + base)
+        run_tta.main(["--method", "delta_a", "--clip-gate-enabled"] + base)
     assert run_tta.build_arg_parser().parse_args(base).method == "delta_a"
