@@ -108,6 +108,22 @@ Phases (each one fails the run when it fails):
   The kernel phases also time B1-B3 at the remat path's 16 heads and at
      the bucket shape (12 480 tokens, kv_valid 10 920; SDPA takes the same
      boolean mask).
+ 12. eval: the CLIP gate and the evaluation towers. (a) The five tower
+     checkpoints drawn on the card from a seed in their published layouts
+     and written (CLIP ViT-B/32 and X-CLIP base/32 as Hugging Face folders
+     without a tokenizer, LPIPS AlexNet, pytorch-i3d, torchvision
+     InceptionV3 as state dicts); (b) each tower converted on the card and
+     on the CPU from the same file, same inputs: CLIP image and text
+     embeds (4 frames at 480x832), the X-CLIP score (8 frames), LPIPS (8
+     pairs), I3D (one 16 x 224 x 224 clip), InceptionV3 (16 frames):
+     cosine >= 0.99999 and relative L2 <= 1e-4 in fp32, with each tower's
+     time per call on the card; (c) the runner at 13.6B width and depth:
+     delta_a on 2 videos (3 steps, check every 3, 4 denoising steps) with
+     a log-only CLIP gate, LPIPS and online FVD + FID (finite gate scores,
+     LPIPS, FVD and FID; 2 videos in the moments and in fvd_state.npz;
+     launches as ``method_launches``), then 1 video that the X-CLIP gate
+     skips (threshold 2.0: skip_tta, train_time 0, no backward launch,
+     one generation's forward launches).
 
 The counts of every kernel are set to 0 just before each main path and
 read just after; a kernel's ``launches`` in the kernels line is its sum
@@ -2092,6 +2108,472 @@ def phase_bucket_path(fa):
     return got
 
 
+# ---------------------------------------------------------------------------
+# [eval]: the CLIP gate and the evaluation towers at their published
+# geometries, card against CPU, then the runner gated and scored at 13.6B
+# ---------------------------------------------------------------------------
+
+# openai/clip-vit-base-patch32 and microsoft/xclip-base-patch32
+CLIP_GEOMETRY = dict(vocab=49408, max_len=77, text_width=512, text_layers=12, text_heads=8,
+                     vision_width=768, vision_layers=12, vision_heads=12, patch=32,
+                     image=224, proj=512, frames=8, mit_layers=1, mit_heads=8,
+                     prompt_layers=2, prompt_heads=8)
+# lpips.LPIPS(net='alex'): (torchvision features index, cout, cin, kernel)
+LPIPS_CONVS = ((0, 64, 3, 11), (3, 192, 64, 5), (6, 384, 192, 3), (8, 256, 384, 3),
+               (10, 256, 256, 3))
+# pytorch-i3d InceptionI3d: module -> (cin, b0, b1 reduce, b1, b2 reduce, b2, b3)
+I3D_MODULES = {"Mixed_3b": (192, 64, 96, 128, 16, 32, 32),
+               "Mixed_3c": (256, 128, 128, 192, 32, 96, 64),
+               "Mixed_4b": (480, 192, 96, 208, 16, 48, 64),
+               "Mixed_4c": (512, 160, 112, 224, 24, 64, 64),
+               "Mixed_4d": (512, 128, 128, 256, 24, 64, 64),
+               "Mixed_4e": (512, 112, 144, 288, 32, 64, 64),
+               "Mixed_4f": (528, 256, 160, 320, 32, 128, 128),
+               "Mixed_5b": (832, 256, 160, 320, 32, 128, 128),
+               "Mixed_5c": (832, 384, 192, 384, 48, 128, 128)}
+EVAL = dict(seed=41, frames=16, clip_frames=4, lpips_pairs=8, height=480, width=832,
+            cos_min=0.99999, rel_max=1e-4, gate_steps=3, check_every=3,
+            inference_steps=4, videos=2)
+
+
+def clip_hf_config(g, xclip: bool) -> dict:
+    """config.json of the published checkpoint (the keys the loaders read)."""
+    text = {"vocab_size": g["vocab"], "hidden_size": g["text_width"],
+            "intermediate_size": 4 * g["text_width"], "num_hidden_layers": g["text_layers"],
+            "num_attention_heads": g["text_heads"], "max_position_embeddings": g["max_len"],
+            "hidden_act": "quick_gelu"}
+    vision = {"hidden_size": g["vision_width"], "intermediate_size": 4 * g["vision_width"],
+              "num_hidden_layers": g["vision_layers"],
+              "num_attention_heads": g["vision_heads"], "patch_size": g["patch"],
+              "image_size": g["image"], "hidden_act": "quick_gelu"}
+    cfg = {"projection_dim": g["proj"], "text_config": text, "vision_config": vision}
+    if not xclip:
+        return dict(cfg, architectures=["CLIPModel"], model_type="clip")
+    vision.update(num_frames=g["frames"], mit_hidden_size=g["proj"],
+                  mit_intermediate_size=4 * g["proj"],
+                  mit_num_hidden_layers=g["mit_layers"],
+                  mit_num_attention_heads=g["mit_heads"])
+    return dict(cfg, architectures=["XCLIPModel"], model_type="xclip",
+                prompt_layers=g["prompt_layers"],
+                prompt_num_attention_heads=g["prompt_heads"])
+
+
+def _hf_layer(prefix: str, width: int, table) -> dict:
+    out = {}
+    for name, dims in table:
+        if dims == "ln":
+            out.update({f"{prefix}.{name}.weight": (width,), f"{prefix}.{name}.bias": (width,)})
+        else:
+            i, o, bias = dims
+            out[f"{prefix}.{name}.weight"] = (o * width, i * width)
+            if bias:
+                out[f"{prefix}.{name}.bias"] = (o * width,)
+    return out
+
+
+_HF_ATTN = [(f"self_attn.{n}_proj", (1, 1, True)) for n in "kvq"] + [
+    ("self_attn.out_proj", (1, 1, True)), ("layer_norm1", "ln"),
+    ("mlp.fc1", (1, 4, True)), ("mlp.fc2", (4, 1, True)), ("layer_norm2", "ln")]
+_HF_MSG = [("message_fc", (1, 1, True)), ("message_ln", "ln")] + [
+    (f"message_attn.{n}_proj", (1, 1, True)) for n in ("k", "v", "q", "out")]
+
+
+def clip_state_shapes(g, xclip: bool) -> dict:
+    """key -> shape of a Hugging Face CLIPModel / XCLIPModel checkpoint."""
+    T, V, P = g["text_width"], g["vision_width"], g["proj"]
+    n_patch = (g["image"] // g["patch"]) ** 2 + 1
+    sh = {"logit_scale": (),
+          "text_model.embeddings.token_embedding.weight": (g["vocab"], T),
+          "text_model.embeddings.position_embedding.weight": (g["max_len"], T),
+          "text_model.embeddings.position_ids": (1, g["max_len"]),
+          "text_model.final_layer_norm.weight": (T,), "text_model.final_layer_norm.bias": (T,),
+          "vision_model.embeddings.class_embedding": (V,),
+          "vision_model.embeddings.patch_embedding.weight": (V, 3, g["patch"], g["patch"]),
+          "vision_model.embeddings.position_embedding.weight": (n_patch, V),
+          "vision_model.embeddings.position_ids": (1, n_patch),
+          "vision_model.post_layernorm.weight": (V,), "vision_model.post_layernorm.bias": (V,),
+          "visual_projection.weight": (P, V), "text_projection.weight": (P, T)}
+    pre = "pre_layernorm" if xclip else "pre_layrnorm"
+    sh.update({f"vision_model.{pre}.weight": (V,), f"vision_model.{pre}.bias": (V,)})
+    for i in range(g["text_layers"]):
+        sh.update(_hf_layer(f"text_model.encoder.layers.{i}", T, _HF_ATTN))
+    for i in range(g["vision_layers"]):
+        sh.update(_hf_layer(f"vision_model.encoder.layers.{i}", V,
+                            (_HF_MSG if xclip else []) + _HF_ATTN))
+    if not xclip:
+        return sh
+    sh.update({"prompts_visual_projection": (V, P),
+               "prompts_visual_layernorm.weight": (V,), "prompts_visual_layernorm.bias": (V,),
+               "mit.position_embedding": (1, g["frames"], P),
+               "prompts_generator.alpha": (P,),
+               "prompts_generator.layernorm.weight": (P,),
+               "prompts_generator.layernorm.bias": (P,)})
+    for i in range(g["mit_layers"]):
+        sh.update(_hf_layer(f"mit.encoder.layers.{i}", P, _HF_ATTN))
+    for i in range(g["prompt_layers"]):
+        sh.update(_hf_layer(f"prompts_generator.decoder.{i}", P, [
+            ("cross_attn.q_proj", (1, 1, False)), ("cross_attn.k_proj", (1, 1, False)),
+            ("cross_attn.v_proj", (1, 1, False)), ("cross_attn.proj", (1, 1, True)),
+            ("norm1", "ln"), ("norm3", "ln"), ("mlp.0", (1, 4, True)),
+            ("mlp.3", (4, 1, True))]))
+    return sh
+
+
+def lpips_state_shapes() -> dict:
+    sh = {"scaling_layer.shift": (1, 3, 1, 1), "scaling_layer.scale": (1, 3, 1, 1)}
+    for i, (idx, cout, cin, k) in enumerate(LPIPS_CONVS):
+        sh[f"net.slice{i + 1}.{idx}.weight"] = (cout, cin, k, k)
+        sh[f"net.slice{i + 1}.{idx}.bias"] = (cout,)
+        sh[f"lin{i}.model.1.weight"] = (1, cout, 1, 1)
+    return sh
+
+
+def _bn_unit(prefix: str, conv: str, cout: int, kernel: tuple, cin: int) -> dict:
+    sh = {f"{prefix}.{conv}.weight": (cout, cin) + kernel,
+          f"{prefix}.bn.num_batches_tracked": ()}
+    sh.update({f"{prefix}.bn.{k}": (cout,)
+               for k in ("weight", "bias", "running_mean", "running_var")})
+    return sh
+
+
+def i3d_state_shapes() -> dict:
+    """The pytorch-i3d InceptionI3d state dict (Kinetics-400 logits)."""
+    sh = {}
+    for name, cin, cout, k in (("Conv3d_1a_7x7", 3, 64, 7), ("Conv3d_2b_1x1", 64, 64, 1),
+                               ("Conv3d_2c_3x3", 64, 192, 3)):
+        sh.update(_bn_unit(name, "conv3d", cout, (k,) * 3, cin))
+    for name, (cin, b0, b1r, b1, b2r, b2, b3) in I3D_MODULES.items():
+        for unit, i, o, k in (("b0", cin, b0, 1), ("b1a", cin, b1r, 1), ("b1b", b1r, b1, 3),
+                              ("b2a", cin, b2r, 1), ("b2b", b2r, b2, 3), ("b3b", cin, b3, 1)):
+            sh.update(_bn_unit(f"{name}.{unit}", "conv3d", o, (k,) * 3, i))
+    sh.update({"logits.conv3d.weight": (400, 1024, 1, 1, 1), "logits.conv3d.bias": (400,)})
+    return sh
+
+
+def inception_state_shapes() -> dict:
+    """torchvision's inception_v3 state dict, AuxLogits and fc included."""
+    units = [("Conv2d_1a_3x3", 3, 32, (3, 3)), ("Conv2d_2a_3x3", 32, 32, (3, 3)),
+             ("Conv2d_2b_3x3", 32, 64, (3, 3)), ("Conv2d_3b_1x1", 64, 80, (1, 1)),
+             ("Conv2d_4a_3x3", 80, 192, (3, 3))]
+    for name, cin, pool in (("Mixed_5b", 192, 32), ("Mixed_5c", 256, 64),
+                            ("Mixed_5d", 288, 64)):
+        units += [(f"{name}.{b}", i, o, k) for b, i, o, k in (
+            ("branch1x1", cin, 64, (1, 1)), ("branch5x5_1", cin, 48, (1, 1)),
+            ("branch5x5_2", 48, 64, (5, 5)), ("branch3x3dbl_1", cin, 64, (1, 1)),
+            ("branch3x3dbl_2", 64, 96, (3, 3)), ("branch3x3dbl_3", 96, 96, (3, 3)),
+            ("branch_pool", cin, pool, (1, 1)))]
+    units += [(f"Mixed_6a.{b}", i, o, k) for b, i, o, k in (
+        ("branch3x3", 288, 384, (3, 3)), ("branch3x3dbl_1", 288, 64, (1, 1)),
+        ("branch3x3dbl_2", 64, 96, (3, 3)), ("branch3x3dbl_3", 96, 96, (3, 3)))]
+    for name, c7 in (("Mixed_6b", 128), ("Mixed_6c", 160), ("Mixed_6d", 160),
+                     ("Mixed_6e", 192)):
+        units += [(f"{name}.{b}", i, o, k) for b, i, o, k in (
+            ("branch1x1", 768, 192, (1, 1)), ("branch7x7_1", 768, c7, (1, 1)),
+            ("branch7x7_2", c7, c7, (1, 7)), ("branch7x7_3", c7, 192, (7, 1)),
+            ("branch7x7dbl_1", 768, c7, (1, 1)), ("branch7x7dbl_2", c7, c7, (7, 1)),
+            ("branch7x7dbl_3", c7, c7, (1, 7)), ("branch7x7dbl_4", c7, c7, (7, 1)),
+            ("branch7x7dbl_5", c7, 192, (1, 7)), ("branch_pool", 768, 192, (1, 1)))]
+    units += [(f"Mixed_7a.{b}", i, o, k) for b, i, o, k in (
+        ("branch3x3_1", 768, 192, (1, 1)), ("branch3x3_2", 192, 320, (3, 3)),
+        ("branch7x7x3_1", 768, 192, (1, 1)), ("branch7x7x3_2", 192, 192, (1, 7)),
+        ("branch7x7x3_3", 192, 192, (7, 1)), ("branch7x7x3_4", 192, 192, (3, 3)))]
+    for name, cin in (("Mixed_7b", 1280), ("Mixed_7c", 2048)):
+        units += [(f"{name}.{b}", i, o, k) for b, i, o, k in (
+            ("branch1x1", cin, 320, (1, 1)), ("branch3x3_1", cin, 384, (1, 1)),
+            ("branch3x3_2a", 384, 384, (1, 3)), ("branch3x3_2b", 384, 384, (3, 1)),
+            ("branch3x3dbl_1", cin, 448, (1, 1)), ("branch3x3dbl_2", 448, 384, (3, 3)),
+            ("branch3x3dbl_3a", 384, 384, (1, 3)), ("branch3x3dbl_3b", 384, 384, (3, 1)),
+            ("branch_pool", cin, 192, (1, 1)))]
+    units += [("AuxLogits.conv0", 768, 128, (1, 1)), ("AuxLogits.conv1", 128, 768, (5, 5))]
+    sh = {}
+    for name, cin, cout, k in units:
+        sh.update(_bn_unit(name, "conv", cout, k, cin))
+    sh.update({"AuxLogits.fc.weight": (1000, 768), "AuxLogits.fc.bias": (1000,),
+               "fc.weight": (1000, 2048), "fc.bias": (1000,)})
+    return sh
+
+
+def tower_value(key: str, shape, gen, device):
+    """A drawn value for one checkpoint tensor, by its role: integer
+    buffers count, norm scales near 1, running variances in [1, 1.1),
+    biases and running means small, convolutions He-scaled, linears
+    1/sqrt(fan-in), embeddings 0.02, LPIPS' 1x1 weights non-negative."""
+    import torch
+
+    if key.endswith("position_ids"):
+        return torch.arange(shape[-1], device=device).view(shape)
+    if key.endswith("num_batches_tracked"):
+        return torch.zeros(shape, dtype=torch.long, device=device)
+    if key == "logit_scale":
+        return torch.full(shape, math.log(1 / 0.07), device=device)
+    if key.startswith("scaling_layer."):
+        c = (-0.030, -0.088, -0.188) if key.endswith("shift") else (0.458, 0.448, 0.450)
+        return torch.tensor(c, device=device).view(shape)
+    r = torch.randn(shape, generator=gen, device=device)
+    if key.endswith("running_var"):
+        return 1.0 + 0.1 * torch.rand(shape, generator=gen, device=device)
+    if key.endswith(("running_mean", ".bias")):
+        return 0.02 * r
+    if key.startswith("lin") or key == "prompts_generator.alpha":
+        return 0.1 * r.abs()
+    if "embedding" in key:
+        return 0.02 * r
+    if len(shape) == 1:  # layer / batch norm scales
+        return 1.0 + 0.02 * r
+    fan_in = math.prod(shape[1:]) if key != "prompts_visual_projection" else shape[0]
+    return r * math.sqrt((2.0 if len(shape) > 2 else 1.0) / fan_in)
+
+
+def write_tower_files(folder: str, seed: int, device="cuda", clip_geometry=None) -> dict:
+    """The five tower checkpoints, drawn from ``seed`` on ``device`` in
+    their published layouts: CLIP and X-CLIP as Hugging Face folders
+    (config.json + model.safetensors, no tokenizer), LPIPS, I3D and
+    InceptionV3 as torch state-dict files. Returns {tower: path}."""
+    import torch
+
+    from longcat_video_tta_tpu_torch.utils.safetensors import save_file
+
+    g = clip_geometry or CLIP_GEOMETRY
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draw = lambda shapes: {k: tower_value(k, s, gen, device) for k, s in shapes.items()}
+    paths = {}
+    for name, xclip in (("clip", False), ("xclip", True)):
+        d = os.path.join(folder, name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(clip_hf_config(g, xclip), f)
+        save_file(draw(clip_state_shapes(g, xclip)), os.path.join(d, "model.safetensors"))
+        paths[name] = d
+    for name, file, shapes in (("lpips", "lpips_alex.pth", lpips_state_shapes()),
+                               ("i3d", "i3d_pytorch.pt", i3d_state_shapes()),
+                               ("inception", "inception_v3.pth", inception_state_shapes())):
+        paths[name] = os.path.join(folder, file)
+        torch.save({k: v.cpu() for k, v in draw(shapes).items()}, paths[name])
+    return paths
+
+
+def _agreement(tag: str, card, cpu) -> dict:
+    """cosine and relative L2 error of a card result against the CPU's."""
+    import torch
+
+    a, b = card.detach().double().cpu().flatten(), cpu.detach().double().flatten()
+    cos = float(torch.dot(a, b) / (a.norm() * b.norm()))
+    rel = float((a - b).norm() / b.norm())
+    ok = cos >= EVAL["cos_min"] and rel <= EVAL["rel_max"]
+    print(f"[eval] {tag}: cosine {cos:.8f} rel_l2 {rel:.3e} "
+          f"max_abs {float((a - b).abs().max()):.3e} ({'ok' if ok else 'FAILED'})")
+    if not ok:
+        raise AssertionError(f"[eval] {tag}: card vs CPU cosine {cos} rel {rel} (gates "
+                             f"{EVAL['cos_min']}, {EVAL['rel_max']})")
+    return {"cos": cos, "rel": rel}
+
+
+def phase_eval_towers(paths: dict, smi: str, card: str = "cuda") -> dict:
+    """(b): each tower converted on the card and on the CPU from the same
+    file, fed the same inputs; the card's time per call (CUDA events,
+    after a warm-up)."""
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import (CLIPTextConfig, CLIPVisionConfig,
+                                                    XCLIPConfig)
+    from longcat_video_tta_tpu_torch.eval import i3d, inception, lpips
+    from longcat_video_tta_tpu_torch.models import clip, convert, xclip
+    from longcat_video_tta_tpu_torch.tta.clip_gate import make_clip_scorer
+    from longcat_video_tta_tpu_torch.utils.device import full_fp32
+
+    rng = np.random.default_rng(EVAL["seed"])
+    H, W, n = EVAL["height"], EVAL["width"], EVAL["clip_frames"]
+    frames = rng.random((8, H, W, 3), dtype=np.float32)
+    gt = np.clip(frames + 0.1 * rng.standard_normal(frames.shape, dtype=np.float32), 0, 1)
+    caption = "a ball moving across the scene"
+    g = CLIP_GEOMETRY
+    devices = (card, "cpu")
+    out = {}
+    on_card = lambda t: t.to(card)
+
+    # CLIP: image embeds of 4 frames, text embeds of the hash-tokenized caption
+    tcfg = CLIPTextConfig(vocab_size=g["vocab"], width=g["text_width"],
+                          num_layers=g["text_layers"], num_heads=g["text_heads"],
+                          max_length=g["max_len"])
+    vcfg = CLIPVisionConfig(width=g["vision_width"], num_layers=g["vision_layers"],
+                            num_heads=g["vision_heads"], patch_size=g["patch"],
+                            image_size=g["image"], projection_dim=g["proj"])
+    ids = torch.as_tensor(clip.clip_hash_tokenize(caption, g["max_len"], g["vocab"]),
+                          dtype=torch.long)[None]
+    sd, _ = convert.read_hf_clip_dir(paths["clip"])
+    res = {}
+    for dev in devices:
+        m = convert.convert_torch_clip_model_state(sd, vcfg, tcfg, dev)
+        with torch.no_grad(), full_fp32():
+            px = clip.preprocess_frames(frames[:n], g["image"], dev)
+            res[dev] = (m, px, m.image_embed(px), m.text_embed(ids.to(dev)))
+    _agreement(f"clip preprocess {n}x{H}x{W} -> {g['image']}", res[card][1], res["cpu"][1])
+    out["clip_image"] = _agreement("clip image embeds", res[card][2], res["cpu"][2])
+    out["clip_text"] = _agreement("clip text embeds", res[card][3], res["cpu"][3])
+    m, px = res[card][:2]
+    with torch.no_grad(), full_fp32():
+        ms_img = _events_ms(lambda: m.image_embed(px), 10)
+        ms_txt = _events_ms(lambda: m.text_embed(on_card(ids)), 10)
+    del res, m, px
+    gate = make_clip_scorer(paths["clip"], "clip", card, allow_hash_tokenizer=True)
+    out["clip_ms"] = _events_ms(lambda: gate(frames[:n], caption), 5)
+    print(f"[eval] {smi}: clip image tower {ms_img:.3f} ms per call ({n} frames), text "
+          f"tower {ms_txt:.3f} ms, the gate's scorer end to end (preprocess, both towers, "
+          f"host copy) {out['clip_ms']:.3f} ms")
+    del gate
+    # X-CLIP: the video score of 8 frames
+    sd, _ = convert.read_hf_clip_dir(paths["xclip"])
+    xcfg = XCLIPConfig(vision=vcfg, text=tcfg, num_frames=g["frames"],
+                       mit_layers=g["mit_layers"], mit_heads=g["mit_heads"],
+                       prompt_layers=g["prompt_layers"], prompt_heads=g["prompt_heads"])
+    xs = {}
+    for dev in devices:
+        m = convert.convert_torch_xclip_state(sd, xcfg, dev)
+        px = clip.preprocess_frames(frames, g["image"], dev)[None]
+        xs[dev] = (m, px, xclip.xclip_scores(m, px, ids.to(dev)))
+    out["xclip"] = _agreement(f"xclip score 8x{H}x{W}", xs[card][2], xs["cpu"][2])
+    m, px, score = xs[card]
+    out["xclip_ms"] = _events_ms(lambda: xclip.xclip_scores(m, px, on_card(ids)), 5)
+    print(f"[eval] {smi}: xclip tower {out['xclip_ms']:.3f} ms per call (8 frames); "
+          f"score {float(score):.6f}")
+    del xs, m, px, sd
+    # LPIPS on 8 frame pairs
+    lp = {dev: lpips.load_lpips_params(paths["lpips"], dev) for dev in devices}
+    d = {dev: lpips.lpips_alex(m, frames, gt) for dev, m in lp.items()}
+    out["lpips"] = _agreement(f"lpips 8 pairs {H}x{W}", d[card], d["cpu"])
+    fc, gc = on_card(torch.from_numpy(frames)), on_card(torch.from_numpy(gt))
+    out["lpips_ms"] = _events_ms(lambda: lpips.lpips_alex(lp[card], fc, gc), 5)
+    print(f"[eval] {smi}: lpips tower {out['lpips_ms']:.3f} ms per call (8 pairs)")
+    # I3D on one 16 x 224 x 224 clip in [-1, 1]
+    clip16 = rng.random((1, EVAL["frames"], 224, 224, 3), dtype=np.float32) * 2 - 1
+    m3 = {dev: i3d.load_i3d_params(paths["i3d"], dev) for dev in devices}
+    z = {dev: i3d.i3d_logits(m, clip16) for dev, m in m3.items()}
+    out["i3d"] = _agreement(f"i3d logits {EVAL['frames']}x224x224", z[card], z["cpu"])
+    xc = on_card(torch.from_numpy(clip16))
+    out["i3d_ms"] = _events_ms(lambda: i3d.i3d_logits(m3[card], xc), 5)
+    print(f"[eval] {smi}: i3d tower {out['i3d_ms']:.3f} ms per call (1 clip of "
+          f"{EVAL['frames']} frames)")
+    # InceptionV3 on 16 frames at 299
+    pre = inception.preprocess_frames(np.concatenate([frames, gt])[:EVAL["frames"]])
+    mi = {dev: inception.load_inception_params(paths["inception"], dev) for dev in devices}
+    f = {dev: inception.inception_features(m, pre) for dev, m in mi.items()}
+    out["inception"] = _agreement(f"inception features {EVAL['frames']}x299x299", f[card],
+                                  f["cpu"])
+    pc = on_card(torch.from_numpy(pre))
+    out["inception_ms"] = _events_ms(lambda: inception.inception_features(mi[card], pc), 5)
+    print(f"[eval] {smi}: inception tower {out['inception_ms']:.3f} ms per call "
+          f"({EVAL['frames']} frames)")
+    return out
+
+
+def phase_eval_runs(fa, paths: dict, depth: int, card: str = "cuda",
+                    preset: str = "longcat_13b"):
+    """(c): the runner at LongCat-13.6B width and depth, gated and scored
+    (delta_a, 2 videos, log-only CLIP gate, LPIPS, online FVD and FID),
+    then one video that the X-CLIP gate skips (threshold 2.0)."""
+    import numpy as np
+
+    from longcat_video_tta_tpu_torch.runners import run_tta
+
+    base = ["--method", "delta_a", "--preset", preset, "--device", card,
+            "--height", str(TTA["height"]), "--width", str(TTA["width"]),
+            "--num-cond-frames", str(TTA["cond_frames"]),
+            "--tta-total-frames", str(TTA["tta_total_frames"]),
+            "--num-frames", str(TTA["gen_frames"]), "--steps", str(EVAL["gate_steps"]),
+            "--es-check-every", str(EVAL["check_every"]),
+            "--es-patience", str(TTA["patience"]),
+            "--num-inference-steps", str(EVAL["inference_steps"]),
+            "--guidance-scale", str(TTA["guidance"]), "--no-save-videos"]
+    runs = {
+        "gated": ["--synthetic", str(EVAL["videos"]), "--clip-gate-enabled",
+                  "--clip-gate-model-path", paths["clip"], "--clip-gate-hash-tokenizer",
+                  "--clip-gate-log-only", "--lpips-model-path", paths["lpips"],
+                  "--fvd-enabled", "--i3d-model-path", paths["i3d"],
+                  "--inception-model-path", paths["inception"],
+                  "--min-fvd-videos", str(EVAL["videos"])],
+        "skip": ["--synthetic", "1", "--caption-guard-mode", "off", "--clip-gate-enabled",
+                 "--clip-gate-backend", "xclip", "--clip-gate-model-path", paths["xclip"],
+                 "--clip-gate-hash-tokenizer", "--clip-gate-threshold", "2.0"],
+    }
+    per_video = method_launches("t_embed", depth, steps=EVAL["gate_steps"],
+                                anchors=1 + EVAL["gate_steps"] // EVAL["check_every"],
+                                inference_steps=EVAL["inference_steps"])
+    generation = method_launches("t_embed", depth, steps=0, anchors=0,
+                                 inference_steps=EVAL["inference_steps"])
+    expected = {"gated": {k: EVAL["videos"] * n for k, n in per_video.items()},
+                "skip": generation}
+    print(f"[eval] runner cuts: {EVAL['gate_steps']} TTA steps, check every "
+          f"{EVAL['check_every']}, {EVAL['inference_steps']} denoising steps, "
+          f"{TTA['gen_frames']} generated frames; full width and depth {depth}")
+    total = {}
+    for name, flags in runs.items():
+        out_dir = os.path.join(RUN_DIR, f"eval_{name}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        argv = base + ["--output-dir", out_dir] + flags
+        print(f"[eval {name}] run_tta " + " ".join(argv))
+        fa.reset_launches()
+        t0 = time.time()
+        summary = run_tta.main(argv)
+        wall = time.time() - t0
+        got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+               "flash_bwd_dkv": fa.bwd_dkv_launches}
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        for i, r in enumerate(summary["results"]):
+            print(f"[eval {name}] video {i}: success={r['success']} "
+                  f"skip_tta={r.get('skip_tta')} clip_gate_score={r.get('clip_gate_score')} "
+                  f"clip_gate_eval_time={r.get('clip_gate_eval_time')} s "
+                  f"train_time={r.get('train_time')} s gen_time={r.get('gen_time')} s "
+                  f"total_time={r.get('total_time')} s psnr={r.get('psnr')} "
+                  f"ssim={r.get('ssim')} lpips={r.get('lpips')} losses={r.get('losses')}"
+                  + (f" error={r['error']}" if "error" in r else ""))
+        print(f"[eval {name}] wall {wall:.1f} s; online_eval {summary['online_eval']}; "
+              f"clip_gate_stats {summary['clip_gate_stats']}; launches {got} "
+              f"(expected {expected[name]})")
+        results = summary["results"]
+        if summary["num_success"] != len(results) or not results:
+            raise AssertionError(f"[eval {name}] a video failed: {results}")
+        if name == "gated":
+            state = np.load(os.path.join(out_dir, "fvd_state.npz"))
+            oe, gs = summary["online_eval"], summary["clip_gate_stats"]
+            finite = all(np.isfinite([r["clip_gate_score"], r["clip_gate_eval_time"],
+                                      r["lpips"]]).all() for r in results)
+            if not (finite and oe["num_videos"] == EVAL["videos"]
+                    and np.isfinite([oe["fvd"], oe["fid"]]).all()
+                    and gs["num_evaluated"] == EVAL["videos"]
+                    and int(state["next_idx"]) == EVAL["videos"]):
+                raise AssertionError(f"[eval gated] out of bounds: online_eval {oe}, "
+                                     f"gate {gs}, next_idx {int(state['next_idx'])}")
+        else:
+            r = results[0]
+            if not (r["skip_tta"] and r["train_time"] == 0 and "losses" not in r):
+                raise AssertionError(f"[eval skip] the gate did not skip TTA: {r}")
+        if got != expected[name]:
+            raise AssertionError(f"[eval {name}] launches {got}, expected {expected[name]}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return total
+
+
+def phase_eval(fa, depth: int, smi: str, card: str = "cuda", preset: str = "longcat_13b"):
+    import torch
+
+    folder = os.path.join(RUN_DIR, "towers")
+    shutil.rmtree(folder, ignore_errors=True)
+    t0 = time.time()
+    paths = write_tower_files(folder, EVAL["seed"], card)
+    sizes = {k: sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(p)
+                    for f in fs) if os.path.isdir(p) else os.path.getsize(p)
+             for k, p in paths.items()}
+    print(f"[eval] tower files drawn on the card and written in {time.time() - t0:.1f} s: "
+          + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in sizes.items()))
+    towers = phase_eval_towers(paths, smi, card)
+    torch.cuda.empty_cache()
+    launches = phase_eval_runs(fa, paths, depth, card, preset)
+    shutil.rmtree(folder, ignore_errors=True)
+    return towers, launches
+
+
 def print_build(fa):
     spills = []
     for path, log, seconds in fa.build_libraries():
@@ -2115,7 +2597,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive the port on one NVIDIA GPU")
     ap.add_argument("--only", default="",
                     help="development: run the build and these comma-separated phases "
-                         "(checkpoint, remat, bucket, kernel, bwd) and print no result")
+                         "(checkpoint, remat, bucket, eval, kernel, bwd) and print no result")
     only = [x for x in ap.parse_args(argv).only.split(",") if x]
     try:
         import torch
@@ -2155,7 +2637,7 @@ def main(argv=None) -> int:
     tokens_per_frame = (MAIN["height"] // sf) * (MAIN["width"] // sf)
     if only:  # a development run of the named phases alone: no result lines
         phases = {"checkpoint": (phase_checkpoint_path, fa), "remat": (phase_remat_path, fa),
-                  "bucket": (phase_bucket_path, fa),
+                  "bucket": (phase_bucket_path, fa), "eval": (phase_eval, fa, cfg.dit.depth, smi),
                   "kernel": (phase_kernel_checks, fa, cfg.dit, tokens_per_frame),
                   "bwd": (phase_bwd_kernel_checks, fa, cfg.dit, tokens_per_frame)}
         for name in only:
@@ -2184,6 +2666,7 @@ def main(argv=None) -> int:
     ckpt_launches = timed_phase("checkpoint path", phase_checkpoint_path, fa)
     _, remat_run = timed_phase("remat path", phase_remat_path, fa)
     bucket_run = timed_phase("bucket path", phase_bucket_path, fa)
+    _, eval_run = timed_phase("eval", phase_eval, fa, cfg.dit.depth, smi)
     print(f"[time] all phases {time.time() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, all_cases):
@@ -2200,7 +2683,7 @@ def main(argv=None) -> int:
     bsa_kernel = lambda name: [c for c in bsa_cases if c["kernel"] == name]
     lever_sum = lambda name: sum(levers[run][name] for run in levers)
     train_sum = lambda name: (tta[name] + sum(m[name] for m in methods.values())
-                              + remat_run[name] + bucket_run[name])
+                              + remat_run[name] + bucket_run[name] + eval_run[name])
     kernels = [
         entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:133",
               serving_launches + ckpt_launches + train_sum("flash_fwd")

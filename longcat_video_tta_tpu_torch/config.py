@@ -125,6 +125,71 @@ class TextEncoderConfig:
 
 
 @dataclass(frozen=True)
+class CLIPTextConfig:
+    """CLIP text tower (``models/clip_text.py``). The dataclass defaults
+    are CLIP-L/14's text geometry; the gate's ViT-B/32 checkpoint is read
+    from its ``config.json`` (``tta/clip_gate.py::make_clip_scorer``)."""
+
+    vocab_size: int = 49408
+    width: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    max_length: int = 77
+    param_dtype: str = "float32"
+
+    @property
+    def head_dim(self) -> int:
+        return self.width // self.num_heads
+
+
+@dataclass(frozen=True)
+class CLIPVisionConfig:
+    """CLIP ViT vision tower of the gate scorer (``models/clip.py``).
+    Defaults: ViT-B/32 at 224."""
+
+    width: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    patch_size: int = 32
+    image_size: int = 224
+    projection_dim: int = 512
+    param_dtype: str = "float32"
+
+    @property
+    def head_dim(self) -> int:
+        return self.width // self.num_heads
+
+
+@dataclass(frozen=True)
+class XCLIPConfig:
+    """X-CLIP video-text scorer (``models/xclip.py``). Defaults:
+    xclip-base-patch32. The MIT width equals the projection dim (frame
+    class embeddings are projected before integration)."""
+
+    vision: "CLIPVisionConfig" = None  # type: ignore[assignment]
+    text: "CLIPTextConfig" = None      # type: ignore[assignment]
+    num_frames: int = 8
+    mit_layers: int = 1
+    mit_heads: int = 8
+    prompt_layers: int = 2
+    prompt_heads: int = 8
+
+    def __post_init__(self):
+        if self.vision is None:
+            object.__setattr__(self, "vision", CLIPVisionConfig())
+        if self.text is None:
+            object.__setattr__(self, "text", CLIPTextConfig())
+
+    @property
+    def vision_heads(self) -> int:
+        return self.vision.num_heads
+
+    @property
+    def projection_dim(self) -> int:
+        return self.vision.projection_dim
+
+
+@dataclass(frozen=True)
 class SchedulerConfig:
     """Flow-match Euler discrete scheduler."""
 
@@ -414,6 +479,31 @@ class CFGReuseConfig:
     every: int = 2
     start_frac: float = 0.1
     end_frac: float = 0.9
+
+
+@dataclass(frozen=True)
+class ClipGateConfig:
+    """The per-video CLIP gate in front of TTA (``tta/clip_gate.py``)."""
+
+    enabled: bool = False
+    backend: str = "clip"  # "clip" | "xclip"
+    threshold: float = 0.2
+    sample_frames: int = 4
+    sampling_mode: str = "full_window"  # "full_window" | "late_only"
+    late_fraction: float = 0.4
+    aggregate: str = "mean"  # "mean" | "min" | "max"
+    log_only: bool = False
+    fail_open: bool = True
+
+
+@dataclass(frozen=True)
+class OnlineEvalConfig:
+    """Online FVD / FID over the run (``eval/frechet.py``)."""
+
+    fvd_enabled: bool = False
+    fid_enabled: bool = False
+    vbench_enabled: bool = False
+    min_videos: int = 256
 
 
 @dataclass(frozen=True)

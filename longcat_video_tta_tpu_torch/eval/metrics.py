@@ -4,19 +4,22 @@
 - PSNR per frame, mean over frames, clamped at 50 dB.
 - SSIM with an 11x11 gaussian window (sigma 1.5), the reference's
   formula exactly (no variance clamp, so flat frames can leave [-1, 1]).
-- LPIPS is NaN: the LPIPS tower is not ported, as the reference returns
-  NaN without its weights.
+- LPIPS through the AlexNet tower of ``eval/lpips.py`` (a hook made by
+  ``make_lpips_feature_fn(load_lpips_params(path))``); NaN when no hook
+  is given, as the reference returns without its weights.
 
 Inputs are [T, H, W, 3] float in [0, 1].
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.device import full_fp32
 
 
 def psnr_per_frame(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -41,10 +44,7 @@ def ssim_per_frame(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     def filt(x):
         T, H, W, C = x.shape
         xr = x.permute(0, 3, 1, 2).reshape(T * C, 1, H, W)
-        cudnn = torch.backends.cudnn
-        # full fp32 on the card (cuDNN convolutions default to TF32)
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
+        with full_fp32():  # cuDNN convolutions default to TF32
             y = F.conv2d(xr, win)
         return y.reshape(T, C, y.shape[2], y.shape[3]).permute(0, 2, 3, 1)
 
@@ -58,10 +58,20 @@ def ssim_per_frame(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(ssim_map, dim=(1, 2, 3))
 
 
+def compute_lpips(pred, target, feature_fn: Optional[Callable] = None) -> float:
+    """LPIPS mean over frames; NaN without a feature model."""
+    if feature_fn is None:
+        return float("nan")
+    return float(np.mean(feature_fn(pred, target)))
+
+
 def evaluate_generation_metrics(generated: np.ndarray, ground_truth: np.ndarray,
-                                device="cpu") -> Dict[str, float]:
+                                device="cpu",
+                                lpips_feature_fn: Optional[Callable] = None
+                                ) -> Dict[str, float]:
     """Frame-aligned PSNR/SSIM/LPIPS against the ground truth decoded
-    from the anchor frame on."""
+    from the anchor frame on (the LPIPS hook gets the frames on
+    ``device``)."""
     n = min(len(generated), len(ground_truth))
     gen = torch.as_tensor(np.asarray(generated[:n]), dtype=torch.float32,
                           device=device)
@@ -70,6 +80,6 @@ def evaluate_generation_metrics(generated: np.ndarray, ground_truth: np.ndarray,
     return {
         "psnr": float(torch.mean(psnr_per_frame(gen, gt))),
         "ssim": float(torch.mean(ssim_per_frame(gen, gt))),
-        "lpips": float("nan"),
+        "lpips": compute_lpips(gen, gt, lpips_feature_fn),
         "num_frames_scored": int(n),
     }

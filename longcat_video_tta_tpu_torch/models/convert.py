@@ -15,6 +15,11 @@ in fp32 or otherwise. Every converter refuses a layout it does not
 understand: a missing key raises ``KeyError``, a key left unread raises
 ``ValueError`` (the reference's ``_TrackedStateDict`` rule, :139-165, here
 for the DiT and UMT5 too).
+
+The CLIP part (the reference's :761-1023) maps Hugging Face ``CLIPModel``,
+``CLIPTextModel`` and ``XCLIPModel`` state dicts onto the port's towers
+(``models/clip.py``, ``models/xclip.py``) through ``load_mapped``, which
+the evaluation towers' converters (``eval/``) share.
 """
 
 from __future__ import annotations
@@ -410,3 +415,192 @@ def vae_state_shapes(cfg: VAEConfig) -> Dict[str, tuple]:
 STATE_SHAPES = {"dit": lambda cfg: dit_state_shapes(cfg.dit),
                 "vae": lambda cfg: vae_state_shapes(cfg.vae),
                 "text_encoder": lambda cfg: umt5_state_shapes(cfg.text)}
+
+
+# ---------------------------------------------------------------------------
+# CLIP / X-CLIP (Hugging Face CLIPModel / XCLIPModel state dicts)
+# ---------------------------------------------------------------------------
+
+
+class TrackedStateDict(dict):
+    """An in-memory state dict that records the keys read, so a converter
+    can refuse a layout it did not read in full (the reference's
+    ``_TrackedStateDict``, ``models/convert.py:139``)."""
+
+    def __init__(self, sd):
+        super().__init__(sd)
+        self.accessed = set()
+
+    def __getitem__(self, k):
+        self.accessed.add(k)
+        return super().__getitem__(k)
+
+    def ignore(self, pred: Callable[[str], bool]) -> None:
+        """Count the keys ``pred`` accepts as read (buffers a converter
+        does not need)."""
+        self.accessed.update(k for k in self if pred(k))
+
+    def assert_fully_consumed(self, what: str) -> None:
+        leftover = sorted(set(self) - self.accessed)
+        if leftover:
+            shown = ", ".join(leftover[:8])
+            more = f" (+{len(leftover) - 8} more)" if len(leftover) > 8 else ""
+            raise ValueError(
+                f"{what} conversion left {len(leftover)} state-dict key(s) "
+                f"unconsumed: {shown}{more}; the converter does not understand "
+                "this checkpoint layout and refuses a partial conversion")
+
+
+def as_f32(value, device) -> torch.Tensor:
+    """A state-dict value (tensor or numpy array) as an fp32 tensor on
+    ``device``."""
+    import numpy as np
+
+    t = value if isinstance(value, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(value))
+    return t.to(device=device, dtype=torch.float32)
+
+
+def load_mapped(module_fn: Callable[[], torch.nn.Module], sd: TrackedStateDict,
+                pairs, what: str, device) -> torch.nn.Module:
+    """Build ``module_fn()`` without memory, fill it from ``sd`` through
+    ``pairs`` of (module key, checkpoint key or constant tensor[,
+    transform]) and return it in eval mode on ``device``. A checkpoint
+    key that is missing raises ``KeyError``, one left unread
+    ``ValueError``, a module key no pair fills or a shape that differs
+    ``RuntimeError``."""
+    mapped = {}
+    for ours, theirs, *fn in pairs:
+        t = as_f32(sd[theirs] if isinstance(theirs, str) else theirs, device)
+        mapped[ours] = fn[0](t) if fn else t
+    sd.assert_fully_consumed(what)
+    with torch.device("meta"):
+        module = module_fn()
+    module.load_state_dict(mapped, strict=True, assign=True)
+    return module.eval().requires_grad_(False)
+
+
+# port layer name -> Hugging Face CLIPEncoderLayer name
+_CLIP_LAYER = (("ln1", "layer_norm1"), ("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+               ("v", "self_attn.v_proj"), ("out", "self_attn.out_proj"),
+               ("ln2", "layer_norm2"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))
+# X-CLIP vision layers add the message attention
+_XCLIP_VISION_LAYER = (("msg_fc", "message_fc"), ("msg_ln", "message_ln"),
+                       ("msg_q", "message_attn.q_proj"), ("msg_k", "message_attn.k_proj"),
+                       ("msg_v", "message_attn.v_proj"),
+                       ("msg_out", "message_attn.out_proj")) + _CLIP_LAYER
+# X-CLIP prompt-generator decoder layers (q, k, v carry no bias)
+_PROMPT_LAYER = (("norm1", "norm1"), ("proj", "cross_attn.proj"), ("norm3", "norm3"),
+                 ("fc1", "mlp.0"), ("fc2", "mlp.3"))
+
+
+def _pairs(ours: str, theirs: str, names=("weight", "bias")):
+    return [(f"{ours}.{n}", f"{theirs}.{n}") for n in names]
+
+
+def _layer_pairs(ours: str, theirs: str, depth: int, table):
+    out = []
+    for i in range(depth):
+        for a, b in table:
+            out += _pairs(f"{ours}.{i}.{a}", f"{theirs}.{i}.{b}")
+    return out
+
+
+def _text_pairs(ours: str, theirs: str, cfg):
+    return ([(ours + "token_embedding", theirs + "embeddings.token_embedding.weight"),
+             (ours + "position_embedding", theirs + "embeddings.position_embedding.weight")]
+            + _layer_pairs(ours + "encoder.layers", theirs + "encoder.layers",
+                           cfg.num_layers, _CLIP_LAYER)
+            + _pairs(ours + "final_ln", theirs + "final_layer_norm"))
+
+
+def _vision_pairs(ours: str, theirs: str, cfg, pre_ln: str, table):
+    return ([(ours + "class_embedding", theirs + "embeddings.class_embedding"),
+             (ours + "patch_embedding.weight", theirs + "embeddings.patch_embedding.weight"),
+             (ours + "position_embedding",
+              theirs + "embeddings.position_embedding.weight")]
+            + _pairs(ours + "pre_ln", theirs + pre_ln)
+            + _layer_pairs(ours + "encoder.layers", theirs + "encoder.layers",
+                           cfg.num_layers, table)
+            + _pairs(ours + "post_ln", theirs + "post_layernorm"))
+
+
+def _is_position_ids(key: str) -> bool:
+    return key.endswith("position_ids")  # buffers of older transformers versions
+
+
+def convert_torch_clip_text_state(sd, cfg, device="cpu"):
+    """A Hugging Face ``CLIPTextModel`` state dict (``text_model.*``, or
+    the same names without the prefix) -> ``CLIPTextTower``. Every key is
+    read or the conversion refuses (a layer-count mismatch too)."""
+    from .clip_text import CLIPTextTower
+
+    pre = "text_model." if any(k.startswith("text_model.") for k in sd) else ""
+    sd = TrackedStateDict(sd)
+    sd.ignore(_is_position_ids)
+    return load_mapped(lambda: CLIPTextTower(cfg), sd, _text_pairs("", pre, cfg),
+                       "CLIPTextModel", device)
+
+
+def convert_torch_clip_model_state(sd, vcfg, tcfg, device="cpu"):
+    """A Hugging Face ``CLIPModel`` state dict (``vision_model.*``,
+    ``text_model.*``, both projections, ``logit_scale``) -> ``CLIPModel``."""
+    from .clip import CLIPModel
+
+    sd = TrackedStateDict(sd)
+    sd.ignore(_is_position_ids)
+    pairs = (_vision_pairs("vision.", "vision_model.", vcfg, "pre_layrnorm", _CLIP_LAYER)
+             + _text_pairs("text.", "text_model.", tcfg)
+             + [("visual_projection.weight", "visual_projection.weight"),
+                ("text_projection.weight", "text_projection.weight"),
+                ("logit_scale", "logit_scale")])
+    return load_mapped(lambda: CLIPModel(vcfg, tcfg), sd, pairs, "CLIPModel", device)
+
+
+def convert_torch_xclip_state(sd, cfg, device="cpu"):
+    """A Hugging Face ``XCLIPModel`` state dict -> ``XCLIPModel``: the
+    CLIP text tower, the message-attention ViT, the MIT, the prompt
+    generator and the projections."""
+    from .xclip import XCLIPModel
+
+    sd = TrackedStateDict(sd)
+    sd.ignore(_is_position_ids)
+    pl = "prompts_generator.decoder"
+    prompt_qkv = [(f"prompts.layers.{i}.{n}.weight", f"{pl}.{i}.cross_attn.{n}_proj.weight")
+                  for i in range(cfg.prompt_layers) for n in "qkv"]
+    pairs = (_vision_pairs("vision.", "vision_model.", cfg.vision, "pre_layernorm",
+                           _XCLIP_VISION_LAYER)
+             + _text_pairs("text.", "text_model.", cfg.text)
+             + [("mit.position_embedding", "mit.position_embedding",
+                 lambda t: t.reshape(cfg.num_frames, -1))]
+             + _layer_pairs("mit.encoder.layers", "mit.encoder.layers", cfg.mit_layers,
+                            _CLIP_LAYER)
+             + _pairs("prompts.ln", "prompts_generator.layernorm")
+             + [("prompts.alpha", "prompts_generator.alpha")]
+             + _layer_pairs("prompts.layers", pl, cfg.prompt_layers, _PROMPT_LAYER)
+             + prompt_qkv
+             + [("visual_projection.weight", "visual_projection.weight"),
+                ("text_projection.weight", "text_projection.weight"),
+                ("prompts_visual_projection", "prompts_visual_projection"),
+                ("logit_scale", "logit_scale")]
+             + _pairs("prompts_visual_ln", "prompts_visual_layernorm"))
+    return load_mapped(lambda: XCLIPModel(cfg), sd, pairs, "XCLIPModel", device)
+
+
+def read_hf_clip_dir(model_path: str):
+    """A local Hugging Face CLIP / X-CLIP snapshot folder -> (state dict of
+    CPU tensors, parsed ``config.json``): ``model.safetensors`` through the
+    port's reader, else ``pytorch_model.bin`` through
+    ``torch.load(weights_only=True)``."""
+    import json
+    import os
+
+    from ..utils.safetensors import load_file
+
+    with open(os.path.join(model_path, "config.json")) as f:
+        hf = json.load(f)
+    st_path = os.path.join(model_path, "model.safetensors")
+    if os.path.exists(st_path):
+        return load_file(st_path), hf
+    return torch.load(os.path.join(model_path, "pytorch_model.bin"), map_location="cpu",
+                      weights_only=True), hf

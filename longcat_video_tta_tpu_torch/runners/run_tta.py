@@ -22,7 +22,13 @@ converted tensor by tensor: ``models/convert.py``) or are drawn from
 ``--seed``; ``--remat-policy`` picks the per-block checkpoint. The TTA
 loop takes the reference's ``--bucket-shapes``, ``--aug-*`` and
 ``--batch-videos`` inputs (``TrainInputs``), ``--save-adapters``, the
-``--stop-file`` drain and ``--preflight-only``.
+``--stop-file`` drain and ``--preflight-only``. The CLIP gate
+(``--clip-gate-*``: ``tta/clip_gate.py``) scores each TTA window against
+its caption first, and a video it skips trains nothing and generates on
+the base weights; ``--lpips-model-path`` scores LPIPS (``eval/lpips.py``)
+and ``--fvd-enabled`` / ``--inception-model-path`` stream FVD and FID
+(``eval/i3d.py``, ``eval/inception.py``, ``eval/frechet.py``) into
+``online_eval``, their moments saved in ``fvd_state.npz`` for a resume.
 
 CLI:
   python -m longcat_video_tta_tpu_torch.runners.run_tta \\
@@ -51,13 +57,6 @@ from ..ops.layers import REMAT_POLICIES
 
 METHODS = ["none", "full", "lora", "delta_a", "delta_b", "delta_c",
            "norm_tune", "film", "dno"]
-
-# the per-video record of a disabled CLIP gate (reference defaults)
-CLIP_GATE_OFF = {
-    "clip_gate_enabled": False, "clip_gate_backend": "clip",
-    "clip_gate_threshold": 0.2, "clip_gate_log_only": False,
-    "skip_tta": False, "clip_gate_score": None, "clip_gate_error": None,
-}
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -219,8 +218,43 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="local SentenceTransformer folder (needs the "
                         "sentence_transformers package); absent = hashed "
                         "bag-of-words embedding")
-    # reference options that are not ported yet: asking for one raises
-    p.add_argument("--clip-gate-enabled", action="store_true", help="not yet ported")
+    # CLIP gate (tta/clip_gate.py)
+    p.add_argument("--clip-gate-enabled", action="store_true")
+    p.add_argument("--clip-gate-backend", default="clip", choices=["clip", "xclip"])
+    p.add_argument("--clip-gate-model-path", default=None)
+    p.add_argument("--clip-gate-threshold", type=float, default=0.2)
+    p.add_argument("--clip-gate-sample-frames", type=int, default=4)
+    p.add_argument("--clip-gate-sampling-mode", default="full_window",
+                   choices=["full_window", "late_only"])
+    p.add_argument("--clip-gate-late-fraction", type=float, default=0.4)
+    p.add_argument("--clip-gate-aggregate", default="mean", choices=["mean", "min", "max"])
+    p.add_argument("--clip-gate-log-only", action="store_true")
+    p.add_argument("--clip-gate-fail-closed", action="store_true")
+    p.add_argument("--clip-gate-scorer", default="jax", choices=["jax", "torch"],
+                   help="'jax' (the reference's name, kept so a sweep's flags carry "
+                        "over): the checkpoint converted once into the port's own CLIP / "
+                        "X-CLIP towers, scored on --device (models/clip.py, "
+                        "models/xclip.py); 'torch': the transformers models at run "
+                        "time (needs the transformers package)")
+    p.add_argument("--clip-gate-hash-tokenizer", action="store_true",
+                   help="allow the deterministic hash tokenizer when the gate "
+                        "checkpoint folder has no tokenizer files (synthetic or test "
+                        "weights only: scores are meaningless on real captions)")
+    # online evaluation
+    p.add_argument("--fvd-enabled", action="store_true")
+    p.add_argument("--min-fvd-videos", type=int, default=256,
+                   help="small-sample warning threshold of the online Frechet "
+                        "accumulator")
+    p.add_argument("--i3d-model-path", default=None,
+                   help="pytorch-i3d state dict or the DFoT TorchScript file; with "
+                        "--fvd-enabled, online FVD through the port's I3D tower "
+                        "(eval/i3d.py); a file that does not convert raises")
+    p.add_argument("--inception-model-path", default=None,
+                   help="torchvision inception_v3 state dict; enables online FID "
+                        "through the port's InceptionV3 tower (eval/inception.py)")
+    p.add_argument("--lpips-model-path", default=None,
+                   help="state dict of lpips.LPIPS(net='alex'); runs the port's LPIPS "
+                        "tower per video (eval/lpips.py). Without it lpips=NaN.")
     # caption guard / override
     p.add_argument("--caption-guard-topk", type=int, default=5)
     p.add_argument("--caption-guard-min-nonempty-ratio", type=float, default=0.95)
@@ -235,12 +269,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="Subsample frames to this fps (stride = round(24 / "
                         "target)); default: consecutive frames")
     return p
-
-
-def _check_ported(args) -> None:
-    if args.clip_gate_enabled:
-        raise NotImplementedError(
-            "--clip-gate-enabled: not yet ported to the PyTorch runner")
 
 
 def check_composition(args) -> None:
@@ -387,7 +415,8 @@ def _summarize_fast_decode_verify(ok_results):
         return None
     out = {"num_verified": len(recs),
            "same_noise": all(r.get("same_noise") for r in recs)}
-    for key in ("psnr_fast_vs_dense", "psnr_delta", "ssim_delta", "dense_gen_time"):
+    for key in ("psnr_fast_vs_dense", "psnr_delta", "ssim_delta", "lpips_delta",
+                "dense_gen_time"):
         vals = [r[key] for r in recs if key in r and np.isfinite(r[key])]
         if vals:
             out[f"{key}_mean"] = float(np.mean(vals))
@@ -481,10 +510,81 @@ def load_bundle(args):
     return ModelBundle.init_random(cfg, seed=args.seed, device=args.device)
 
 
-def _summary(args, results: List[Dict], caption_stats, t_start) -> Dict[str, Any]:
-    """summary.json with the reference runner's keys (the clip gate and
-    online FVD/FID are not ported; their entries say so the way the
-    reference does when they are off)."""
+def gate_config(args):
+    from ..config import ClipGateConfig
+
+    return ClipGateConfig(
+        enabled=args.clip_gate_enabled, backend=args.clip_gate_backend,
+        threshold=args.clip_gate_threshold, sample_frames=args.clip_gate_sample_frames,
+        sampling_mode=args.clip_gate_sampling_mode,
+        late_fraction=args.clip_gate_late_fraction, aggregate=args.clip_gate_aggregate,
+        log_only=args.clip_gate_log_only, fail_open=not args.clip_gate_fail_closed)
+
+
+def make_gate_scorer(args, gatecfg, device):
+    """The gate's scorer, built once; None without a checkpoint (the gate
+    then records the error and fails open or closed)."""
+    from ..tta import clip_gate
+
+    if not (gatecfg.enabled and args.clip_gate_model_path):
+        return None
+    if args.clip_gate_scorer == "torch":
+        maker = (clip_gate.make_hf_xclip_scorer if gatecfg.backend == "xclip"
+                 else clip_gate.make_hf_clip_scorer)
+        return maker(args.clip_gate_model_path, device)
+    return clip_gate.make_clip_scorer(args.clip_gate_model_path, gatecfg.backend, device,
+                                      allow_hash_tokenizer=args.clip_gate_hash_tokenizer)
+
+
+def make_online_eval(args, device):
+    """(the FVD/FID accumulator, the LPIPS hook or None), their towers
+    converted once onto ``device``."""
+    from ..eval.frechet import OnlineFrechetAccumulator
+
+    i3d_fn = inception_fn = lpips_fn = None
+    if args.fvd_enabled and args.i3d_model_path:
+        from ..eval.i3d import load_i3d_params, make_i3d_feature_fn
+
+        i3d_fn = make_i3d_feature_fn(load_i3d_params(args.i3d_model_path, device))
+    if args.inception_model_path:
+        from ..eval.inception import load_inception_params, make_inception_feature_fn
+
+        inception_fn = make_inception_feature_fn(
+            load_inception_params(args.inception_model_path, device))
+    if args.lpips_model_path:
+        from ..eval.lpips import load_lpips_params, make_lpips_feature_fn
+
+        lpips_fn = make_lpips_feature_fn(load_lpips_params(args.lpips_model_path, device))
+    fvd = OnlineFrechetAccumulator(video_feature_fn=i3d_fn, frame_feature_fn=inception_fn,
+                                   min_videos=args.min_fvd_videos)
+    return fvd, lpips_fn
+
+
+def restore_online_eval(fvd, path: str, start_idx: int) -> None:
+    """On a resume, the saved moments back, and the videos they miss
+    reported (saves are amortised and written after the checkpoint, so
+    they can lag it; a video is never counted twice)."""
+    cursor = fvd.load_state(path)
+    if cursor is None:
+        print("[resume] WARNING: fvd_state.npz missing: online FVD/FID will cover only "
+              "post-resume videos")
+    elif cursor == -1:
+        print(f"[resume] restored legacy FVD/FID moments ({fvd.compute()['num_videos']} "
+              "pairs; pre-cursor format: if the previous run crashed between its FVD "
+              "save and its checkpoint, the first re-run video may be double-counted)")
+    elif cursor < start_idx:
+        print(f"[resume] restored FVD/FID moments through video {cursor}: "
+              f"{start_idx - cursor} completed video(s) are missing from the streaming "
+              "stats (state saves are amortized; never double-counted)")
+    else:
+        print(f"[resume] restored online FVD/FID moments "
+              f"({fvd.compute()['num_videos']} pairs)")
+
+
+def _summary(args, results: List[Dict], caption_stats, t_start, fvd) -> Dict[str, Any]:
+    """summary.json with the reference runner's keys."""
+    from ..tta.clip_gate import summarize_clip_gate_stats
+
     ok = [r for r in results if r.get("success") and "psnr" in r]
 
     def stats(key):
@@ -508,10 +608,10 @@ def _summary(args, results: List[Dict], caption_stats, t_start) -> Dict[str, Any
         "avg_es_check_time": avg("es_check_time"),
         "avg_encode_time": avg("encode_time"),
         "avg_clip_gate_eval_time": avg("clip_gate_eval_time"),
-        "clip_gate_stats": {"clip_gate_enabled": False},
+        "clip_gate_stats": summarize_clip_gate_stats(results),
         "fast_decode_verify": _summarize_fast_decode_verify(ok),
         "caption_stats": caption_stats,
-        "online_eval": {"fvd": None, "fid": None, "num_videos": 0},
+        "online_eval": fvd.compute(),
         "wall_time": time.time() - t_start,
         "results": results,
     }
@@ -521,7 +621,6 @@ def main(argv: Optional[List[str]] = None,
          on_phase: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
     args = build_arg_parser().parse_args(argv)
     apply_fast_decode_defaults(args)
-    _check_ported(args)
     check_decode_levers(args)
     check_composition(args)
     mark = on_phase or (lambda name: None)
@@ -542,6 +641,7 @@ def main(argv: Optional[List[str]] = None,
     from ..eval.metrics import evaluate_generation_metrics
     from ..pipeline.pipeline import generate_vc
     from ..tta.adapters import build_scheme
+    from ..tta.clip_gate import evaluate_clip_gate
     from ..tta.early_stopping import build_early_stopper
     from ..tta.engine import adapter_norm, build_optimizer
     from ..tta.split import (
@@ -579,8 +679,9 @@ def main(argv: Optional[List[str]] = None,
         noise_draws=args.es_noise_draws,
         strategy=args.es_strategy,
         holdout_fraction=args.es_holdout_fraction)
+    gatecfg = gate_config(args)
     validate_tta_feature_budget(frames, escfg, args.feature_frame_guard_mode,
-                                context=args.method)
+                                context=args.method, clip_gate=gatecfg)
 
     if args.synthetic:
         data_dir = make_synthetic_dataset(
@@ -615,6 +716,7 @@ def main(argv: Optional[List[str]] = None,
             warmup_steps=args.warmup_steps, weight_decay=args.weight_decay,
             grad_clip_norm=args.max_grad_norm))
         stopper = build_early_stopper(escfg, scheme, dit_cfg)
+    gate_scorer = make_gate_scorer(args, gatecfg, device)
     pool = None
     if args.batch_videos > 1:
         from ..data.retrieval import build_retrieval_pool
@@ -623,6 +725,8 @@ def main(argv: Optional[List[str]] = None,
             load_video_list(args.retrieval_pool_dir, max_videos=10 ** 9, seed=args.seed),
             sbert_model_path=args.retrieval_sbert_path)
         args.retrieval_embedder = pool.embedder
+    fvd, lpips_fn = make_online_eval(args, device)
+    fvd_state_path = os.path.join(args.output_dir, "fvd_state.npz")
 
     ckpt_path = os.path.join(args.output_dir, "checkpoint.json")
     # a fresh (re)launch clears the sentinel of an earlier drain
@@ -631,6 +735,8 @@ def main(argv: Optional[List[str]] = None,
     ckpt = load_checkpoint(ckpt_path)
     start_idx = ckpt["next_idx"] if ckpt else 0
     results: List[Dict] = ckpt["results"] if ckpt else []
+    if start_idx > 0 and fvd.enabled:
+        restore_online_eval(fvd, fvd_state_path, start_idx)
     save_config(os.path.join(args.output_dir, "config.json"), vars(args))
     videos_dir = os.path.join(args.output_dir, "videos")
     levers = decode_levers(args)
@@ -678,13 +784,18 @@ def main(argv: Optional[List[str]] = None,
             window_px, window_lat = encode_window(entry["path"])
             _sync(device)
             res["encode_time"] = time.time() - t0
-            # no CLIP gate in the port: the reference's disabled-gate record
-            res.update(CLIP_GATE_OFF)
-            res["clip_gate_eval_time"] = 0.0
+            t0 = time.time()
+            gate = evaluate_clip_gate((window_px[0].transpose(1, 2, 3, 0) + 1.0) / 2.0,
+                                      entry["caption"], gatecfg, gate_scorer)
+            res.update(gate)
+            res["clip_gate_eval_time"] = time.time() - t0
 
             train_time = es_time = 0.0
             tp = dno_noise = None
-            if is_adapter:
+            if gate["skip_tta"]:
+                print(f"  CLIP gate: score {gate['clip_gate_score']} < "
+                      f"{gatecfg.threshold}, TTA skipped")
+            elif is_adapter:
                 tp, train_time, es_time = _adapt(
                     args, res, bundle, scheme, opt, stopper, escfg, train_inputs,
                     window_px, window_lat, entry, idx, vid_id, mark)
@@ -725,12 +836,15 @@ def main(argv: Optional[List[str]] = None,
                 gt = load_gt_frames(entry["path"], len(gen), frames.height,
                                     frames.width, frames.gen_start_frame,
                                     target_fps=args.load_fps)
-                res.update(evaluate_generation_metrics(gen, gt, device=device))
+                res.update(evaluate_generation_metrics(gen, gt, device=device,
+                                                       lpips_feature_fn=lpips_fn))
                 if fd_verified < args.fast_decode_verify:
                     res["fast_decode_verify"] = _verify_fast_decode(
                         bundle, cond_px, entry["caption"], gen, gt, res,
-                        gen_kw, args.bucket_gen, device)
+                        gen_kw, args.bucket_gen, device, lpips_fn)
                     fd_verified += 1
+                if fvd.enabled:
+                    fvd.update(gen, gt)
                 if not args.no_save_videos:
                     # the baseline artifact has a green GENERATED border
                     res["video_path"] = save_video(
@@ -751,8 +865,19 @@ def main(argv: Optional[List[str]] = None,
         mark("video_end")
         results.append(res)
         save_checkpoint(ckpt_path, idx + 1, results)
+        if fvd.enabled:
+            # after the checkpoint, so a crash between the two writes leaves
+            # the moments behind it (reported on resume, never counted
+            # twice); with Inception the moments are ~67 MB, so every 5th
+            # video, and always the last
+            every = 5 if fvd.frame_feature_fn is not None else 1
+            if (idx + 1) % every == 0 or idx + 1 == len(videos):
+                try:
+                    fvd.save_state(fvd_state_path, next_idx=idx + 1)
+                except OSError as e:  # a full disk must not end the run
+                    print(f"  WARNING: fvd_state save failed: {e}")
 
-    summary = _summary(args, results, caption_stats, t_start)
+    summary = _summary(args, results, caption_stats, t_start, fvd)
     save_results(os.path.join(args.output_dir, "summary.json"), summary)
     print(f"\nDone: {summary['num_success']}/{len(results)} videos, "
           f"summary at {args.output_dir}/summary.json")
@@ -760,29 +885,28 @@ def main(argv: Optional[List[str]] = None,
 
 
 def _verify_fast_decode(bundle, cond_px, caption, gen, gt, res, gen_kw,
-                        bucket_gen: bool, device) -> Dict[str, Any]:
+                        bucket_gen: bool, device, lpips_fn=None) -> Dict[str, Any]:
     """The --fast-decode-verify record: generate again with every decode
     lever off (same seed, adapters and segmenting) and compare. The
     per-pixel PSNR is a same-sample comparison only when the fast path
     kept the plain noise draw (``bucket_gen`` draws at the bucket's
-    shape); the deltas against the ground truth hold either way. LPIPS is
-    not ported, so there are no lpips keys."""
+    shape); the deltas against the ground truth hold either way, each
+    metric's only when it is finite (LPIPS needs --lpips-model-path)."""
     from ..eval.metrics import evaluate_generation_metrics
     from ..pipeline.pipeline import generate_vc
 
     t0 = time.time()
     dense = generate_vc(bundle, cond_px, caption, **gen_kw)
     dense_time = time.time() - t0
-    dm = evaluate_generation_metrics(dense, gt, device=device)
+    dm = evaluate_generation_metrics(dense, gt, device=device, lpips_feature_fn=lpips_fn)
     mse = float(np.mean((np.asarray(gen, np.float64) - np.asarray(dense)) ** 2))
     return {
         "psnr_fast_vs_dense": float("inf") if mse == 0 else -10.0 * np.log10(mse),
         "same_noise": not bucket_gen,
         "dense_gen_time": dense_time,
-        **{f"{k}_dense": v for k, v in dm.items()
-           if k not in ("num_frames_scored", "lpips")},
+        **{f"{k}_dense": v for k, v in dm.items() if k != "num_frames_scored"},
         **{f"{k}_delta": res[k] - v for k, v in dm.items()
-           if k in ("psnr", "ssim") and np.isfinite(v)},
+           if k in ("psnr", "ssim", "lpips") and np.isfinite(v)},
     }
 
 

@@ -1,4 +1,4 @@
 """Test-time adaptation: adapter schemes, flow-matching losses, the
-optimizer and train loop, anchored early stopping, and the TTA window
-split (counterpart of ``longcat_video_tta_tpu/tta``; only ``delta_a`` is
-ported so far)."""
+optimizer and train loop, anchored early stopping, the TTA window split
+and the CLIP gate in front of it (counterpart of
+``longcat_video_tta_tpu/tta``)."""

@@ -8,7 +8,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..config import EarlyStoppingConfig, FrameConfig
+from ..config import ClipGateConfig, EarlyStoppingConfig, FrameConfig
 
 
 def split_tta_latents(
@@ -104,12 +104,23 @@ def resolve_frame_window(frames: FrameConfig) -> FrameConfig:
                                tta_context_frames=ctx)
 
 
+def _estimate_clip_candidate_frames(tta_total_frames: int, sampling_mode: str,
+                                    late_fraction: float) -> int:
+    window = max(1, int(tta_total_frames))
+    if (sampling_mode or "full_window").lower() == "late_only":
+        frac = min(max(float(late_fraction), 1e-6), 1.0)
+        return max(1, int(round(window * frac)))
+    return window
+
+
 def validate_tta_feature_budget(frames: FrameConfig, es: EarlyStoppingConfig,
-                                guard_mode: str = "fail",
-                                context: str = "") -> Dict[str, Any]:
-    """Pre-flight guard: early stopping needs at least one val latent.
-    guard_mode: fail | warn | off (the reference's guard; its CLIP-gate
-    check is not ported, the gate itself being unported)."""
+                                guard_mode: str = "fail", context: str = "",
+                                clip_gate: Optional[ClipGateConfig] = None
+                                ) -> Dict[str, Any]:
+    """Pre-flight guard: the enabled features must have enough frames.
+    Early stopping needs one val latent; an enabled CLIP gate needs as
+    many candidate frames as it samples (X-CLIP: 8). guard_mode: fail |
+    warn | off."""
     mode = (guard_mode or "fail").lower()
     if mode not in {"fail", "warn", "off"}:
         mode = "fail"
@@ -117,17 +128,29 @@ def validate_tta_feature_budget(frames: FrameConfig, es: EarlyStoppingConfig,
     total = int(frames.tta_total_frames or 0)
     ctx = int(frames.tta_context_frames or 0)
     split = estimate_tta_split_budget(total, ctx, es.holdout_fraction)
+    info: Dict[str, Any] = {"split_budget": split}
+    issues = []
+    if es.enabled and split["val_latents"] < 1:
+        issues.append(f"ES is enabled but estimated val_latents=0 (tta_total_frames={total}, "
+                      f"tta_context_frames={ctx}, holdout={es.holdout_fraction}). Increase "
+                      "tta_total_frames and/or reduce tta_context_frames.")
+    if clip_gate is not None and clip_gate.enabled:
+        required = clip_gate.sample_frames if clip_gate.backend != "xclip" else 8
+        candidates = _estimate_clip_candidate_frames(total, clip_gate.sampling_mode,
+                                                     clip_gate.late_fraction)
+        info["clip_candidates"] = candidates
+        info["clip_required_frames"] = required
+        if candidates < required:
+            issues.append(f"CLIP gate enabled but candidate frames < required "
+                          f"(candidates={candidates}, required={required}).")
     if mode != "off":
         print(f"{prefix} split(total={split['total_latents']}, "
               f"cond={split['cond_latents']}, train={split['train_latents']}, "
               f"val={split['val_latents']})")
-    if es.enabled and split["val_latents"] < 1:
-        msg = (f"{prefix} ES is enabled but estimated val_latents=0 "
-               f"(tta_total_frames={total}, tta_context_frames={ctx}, holdout="
-               f"{es.holdout_fraction}). Increase tta_total_frames and/or reduce "
-               "tta_context_frames.")
+    if issues:
+        msg = f"{prefix} " + " | ".join(issues)
         if mode == "warn":
             print(f"WARNING: {msg}")
         elif mode == "fail":
             raise RuntimeError(msg)
-    return {"split_budget": split}
+    return info

@@ -371,7 +371,8 @@ def test_runner_fast_decode_verify_record(tmp_path):
     assert rec["same_noise"] is True and np.isfinite(rec["psnr_fast_vs_dense"])
     assert {"psnr_dense", "ssim_dense", "psnr_delta", "ssim_delta",
             "dense_gen_time"} <= set(rec)
-    assert not any(k.startswith("lpips") for k in rec)  # LPIPS is not ported
+    # without --lpips-model-path: lpips_dense NaN and no delta, as the reference
+    assert np.isnan(rec["lpips_dense"]) and "lpips_delta" not in rec
     agg = summary["fast_decode_verify"]
     assert agg["num_verified"] == 1 and agg["same_noise"] is True
     assert agg["psnr_fast_vs_dense_mean"] == pytest.approx(rec["psnr_fast_vs_dense"])
