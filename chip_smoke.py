@@ -124,6 +124,29 @@ Phases (each one fails the run when it fails):
      launches as ``method_launches``), then 1 video that the X-CLIP gate
      skips (threshold 2.0: skip_tta, train_time 0, no backward launch,
      one generation's forward launches).
+ 13. opensora (``--only opensora``): the Open-Sora v2 MMDiT (11.8B: hidden
+     3072, 19 double + 38 single blocks of 24 heads of 128; T5-XXL-sized
+     encoder, CLIP-L/14 text, WAN VAE). (a) B1 at its serving shape (3
+     CFG rows of 8312 joint tokens, no prefix), its anchor eval's (1 x
+     8312) and its train step's (1 x 11 432), B2 and B3 at the train
+     step's, and a ragged case with v a strided view of a fused output,
+     all under the gates above with plain and SDPA times; (b) a small
+     MMDiT with head_dim 128 (hidden 256, the published axes_dims) on the
+     card against the CPU: generate_vc >= 30 dB, one delta_a and one LoRA
+     train step within the step agreement's gates; (c) the runner at
+     full width and depth: --method none (2 requests at [main]'s
+     geometry), a lever request (W8A8, PAB and CFG reuse every 2, 2-step
+     segments, --fast-decode-verify 1), delta_a on the TTA window (6
+     steps), lora (3 steps) and full at a depth cut of 4 double + 8
+     single blocks (3 steps; at 11.8B its AdamW state would exceed the
+     card): finite metrics and losses, a moving anchor, the trainable
+     count, peak memory and launches equal to ``opensora_run_launches``;
+     (d) a checkpoint folder (dit/ and clip/ in Open-Sora v2's layout,
+     vae/, and text_encoder/ in the UMT5 per-block layout the JAX
+     converter reads, not T5 v1.1's; bf16 shards, full width at the depth
+     cut) loaded through
+     --checkpoint-dir, sampled tensors equal to their shard values after
+     the RoPE row permutation, and one request on it.
 
 The counts of every kernel are set to 0 just before each main path and
 read just after; a kernel's ``launches`` in the kernels line is its sum
@@ -262,9 +285,13 @@ def sdpa_mask(Sq: int, Sk: int, ncond: int, kv_valid):
     return mask
 
 
-def case_inputs(B, H, Sq, Sk, D, *, dtype_name="bfloat16", fused_kv=False, seed=0):
+def case_inputs(B, H, Sq, Sk, D, *, dtype_name="bfloat16", fused_kv=False, fused_v_mlp=0,
+                seed=0):
     """Seeded q, k, v on the card; with ``fused_kv`` k and v are strided
-    views of one [B, Sk, 2, H, D] tensor (the cross-attention layout)."""
+    views of one [B, Sk, 2, H, D] tensor (the cross-attention layout);
+    with ``fused_v_mlp`` v is a view of a [B, Sk, 3 H D + fused_v_mlp]
+    tensor (the MMDiT single block's linear1 output, token stride
+    3 H D + mlp), q and k contiguous (rope's outputs)."""
     import torch
 
     dtype = getattr(torch, dtype_name)
@@ -273,6 +300,10 @@ def case_inputs(B, H, Sq, Sk, D, *, dtype_name="bfloat16", fused_kv=False, seed=
     if fused_kv:  # k, v as strided views of a fused [B, Sk, 2, H, D] output
         kv = torch.randn((B, Sk, 2, H, D), generator=g, device="cuda").to(dtype)
         k, v = kv[:, :, 0], kv[:, :, 1]
+    elif fused_v_mlp:
+        k = torch.randn((B, Sk, H, D), generator=g, device="cuda").to(dtype)
+        h = torch.randn((B, Sk, 3 * H * D + fused_v_mlp), generator=g, device="cuda")
+        v = h.to(dtype)[..., :3 * H * D].reshape(B, Sk, 3, H, D)[:, :, 2]
     else:
         k = torch.randn((B, Sk, H, D), generator=g, device="cuda").to(dtype)
         v = torch.randn((B, Sk, H, D), generator=g, device="cuda").to(dtype)
@@ -302,13 +333,14 @@ def kernel_errors(o, lse, o_ref, lse_ref, dtype_name):
 
 
 def check_kernel_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
-                      dtype_name="bfloat16", fused_kv=False, timed=False, seed=0):
+                      dtype_name="bfloat16", fused_kv=False, fused_v_mlp=0, timed=False,
+                      seed=0):
     """Kernel vs plain version on one shape; returns a result dict."""
     import torch
     import torch.nn.functional as F
 
     q, k, v = case_inputs(B, H, Sq, Sk, D, dtype_name=dtype_name, fused_kv=fused_kv,
-                          seed=seed)
+                          fused_v_mlp=fused_v_mlp, seed=seed)
     o, lse = fa.flash_attention(q, k, v, num_cond_tokens=ncond, kv_valid_len=kv_valid)
     torch.cuda.synchronize()
     o_ref, lse_ref = reference(fa, q, k, v, ncond, kv_valid)
@@ -437,8 +469,8 @@ def grad_errors(d, d_ref, dtype_name):
 
 
 def check_bwd_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
-                   dtype_name="bfloat16", fused_kv=False, timed=False, seed=0,
-                   dkv=True, all_zero=False, zero_do_from=None):
+                   dtype_name="bfloat16", fused_kv=False, fused_v_mlp=0, timed=False,
+                   seed=0, dkv=True, all_zero=False, zero_do_from=None):
     """The dQ (and, with ``dkv``, dK/dV) kernel against the plain backward
     on one shape, from the forward kernel's o and lse; returns a result
     dict per kernel. ``zero_do_from``: query rows from this index on get
@@ -447,7 +479,7 @@ def check_bwd_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
     import torch.nn.functional as F
 
     q, k, v = case_inputs(B, H, Sq, Sk, D, dtype_name=dtype_name, fused_kv=fused_kv,
-                          seed=seed)
+                          fused_v_mlp=fused_v_mlp, seed=seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 100)
     do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
     if zero_do_from is not None:
@@ -1405,6 +1437,7 @@ def phase_method_path(fa, method: str):
         inference_steps=METHOD["inference_steps"],
         sampler_steps=spec.get("sampler_steps", 1))
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
     fa.reset_launches()
     t0 = time.time()
     summary = run_tta.main(argv)
@@ -1425,7 +1458,8 @@ def phase_method_path(fa, method: str):
           f"psnr={r.get('psnr')} ssim={r.get('ssim')}"
           + (f" error={r['error']}" if "error" in r else ""))
     print(f"[method {method}] wall {wall:.1f} s; max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got} "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({held:.2f} held before "
+          f"the run); launches {got} "
           f"(expected {expected})")
     if summary["num_success"] != 1:
         raise AssertionError(f"method run {method} failed: {r.get('error')}")
@@ -1614,10 +1648,12 @@ def check_loaded(bundle, kept, vae_cfg) -> int:
     return checked
 
 
-def write_checkpoint(folder: str, cfg, seed: int, sample=None, device="cuda"):
+def write_checkpoint(folder: str, cfg, seed: int, sample=None, device="cuda",
+                     shapes=None):
     """A LongCat-layout checkpoint of ``cfg`` (dit/, vae/, text_encoder/
     as bf16 safetensors shards of at most CKPT["shard_bytes"]; no
-    tokenizer folder) drawn on the card from ``seed``. Returns (bytes
+    tokenizer folder; ``shapes``: another layout's table, e.g.
+    ``MMDIT_STATE_SHAPES``) drawn on the card from ``seed``. Returns (bytes
     written, {component: {key: drawn tensor}} for the keys of
     ``sample``)."""
     import torch
@@ -1627,7 +1663,7 @@ def write_checkpoint(folder: str, cfg, seed: int, sample=None, device="cuda"):
 
     gen = torch.Generator(device=device).manual_seed(seed)
     total, kept = 0, {}
-    for component, shapes_of in STATE_SHAPES.items():
+    for component, shapes_of in (shapes or STATE_SHAPES).items():
         os.makedirs(os.path.join(folder, component))
         want, kept[component] = set((sample or {}).get(component, ())), {}
         shard, size, n = {}, 0, 0
@@ -2574,6 +2610,554 @@ def phase_eval(fa, depth: int, smi: str, card: str = "cuda", preset: str = "long
     return towers, launches
 
 
+# ---------------------------------------------------------------------------
+# Open-Sora v2 MMDiT path: the opensora_v2 preset (11.8B MMDiT, 19 double +
+# 38 single blocks of 24 heads of 128; T5-XXL-sized encoder; CLIP-L/14
+# text; WAN VAE) through the runner, the B1-B3 kernels at its shapes, a
+# card-vs-CPU check at a small head-128 MMDiT, and its checkpoint layout
+# ---------------------------------------------------------------------------
+
+OPENSORA = dict(preset="opensora_v2", lr={"delta_a": 1e-3, "lora": 1e-3, "full": 1e-4},
+                # full's weights, gradients and AdamW moments at 11.8B are about
+                # 142 GB: full runs at full width with this depth cut
+                full_depth=(4, 8), ckpt_seed=13, small_seed=17)
+# the lever request: W8A8, PAB and CFG reuse every 2, 2-step segments and one
+# dense generation for the fidelity record
+OPENSORA_LEVERS = ["--quantize-decode", "int8", "--pab-every", "2", "--cfg-reuse-every",
+                   "2", "--gen-segment-steps", "2", "--fast-decode-verify", "1"]
+
+
+def opensora_step_launches(n_attn: int):
+    """Launches per kernel of one MMDiT train step with full remat. For
+    each of the three methods every attention's q, k and v depend on the
+    trainable tensors (delta_a's vec reaches every block's modulation;
+    LoRA patches the double blocks' qkv and the single blocks' linear1;
+    full trains every weight): each attention runs forward twice (the
+    step and the recompute), the dQ kernel once and the dK/dV kernel
+    once."""
+    return {"flash_fwd": 2 * n_attn, "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn}
+
+
+def opensora_gen_launches(n_attn: int, *, steps: int, pab_every: int = 0) -> int:
+    """Forward launches of one MMDiT generation: every joint attention per
+    denoising step (one launch for the 3-row CFG batch, one for the
+    conditional row alone on a CFG-reuse step), none on the steps PAB
+    reuses (``sampler._pab_reuse_flags`` over [0.1, 0.9) of the steps)."""
+    from longcat_video_tta_tpu_torch.config import PABConfig
+    from longcat_video_tta_tpu_torch.pipeline.sampler import _pab_reuse_flags
+
+    if pab_every <= 0:
+        return n_attn * steps
+    reused = sum(_pab_reuse_flags(steps, PABConfig(every=pab_every)))
+    return n_attn * (steps - reused)
+
+
+def opensora_run_launches(n_attn: int, *, steps: int, anchors: int, anchor_draws: int,
+                          inference_steps: int):
+    """Launches per kernel of one video of a TTA run: ``steps`` train
+    steps, ``anchors`` anchor evals of ``anchor_draws`` B-row forwards
+    each (sigmas x noise draws), then one generation."""
+    out = {k: steps * n for k, n in opensora_step_launches(n_attn).items()}
+    out["flash_fwd"] += (anchors * anchor_draws * n_attn
+                         + opensora_gen_launches(n_attn, steps=inference_steps))
+    return out
+
+
+def opensora_small_config():
+    """A small MMDiT whose head_dim is 128, for the card-vs-CPU checks:
+    hidden 256, 2 heads of 128 with the published axes_dims (16, 56, 56),
+    mlp ratio 4, 2 double + 2 single blocks, bf16; the tiny preset's VAE,
+    T5 and CLIP widths (opensora_v2_tiny runs head_dim 16, which the
+    kernels do not take)."""
+    import dataclasses
+
+    from longcat_video_tta_tpu_torch.models.backbones import opensora_v2_tiny
+
+    base = opensora_v2_tiny()
+    return dataclasses.replace(base, dit=dataclasses.replace(
+        base.dit, hidden_size=256, num_heads=2, axes_dims=(16, 56, 56), mlp_ratio=4.0,
+        param_dtype="bfloat16", compute_dtype="bfloat16"))
+
+
+def opensora_cut_config(depth_double: int, depth_single: int, preset: str = "opensora_v2"):
+    import dataclasses
+
+    from longcat_video_tta_tpu_torch.config import get_model_config
+
+    base = get_model_config(preset)
+    return dataclasses.replace(base, dit=dataclasses.replace(
+        base.dit, depth_double=depth_double, depth_single=depth_single))
+
+
+class preset_depth:
+    """Within the block, the runner's ``preset`` has the depth cut; not a
+    preset of the package. The runner reads ``config.get_model_config``
+    when it is called, never at import (tests/test_torch_mmdit_runner.py
+    holds it to that)."""
+
+    def __init__(self, depth, preset: str = "opensora_v2"):
+        self.depth, self.preset = depth, preset
+
+    def __enter__(self):
+        from longcat_video_tta_tpu_torch import config
+
+        self._orig = config.get_model_config
+        cut = opensora_cut_config(*self.depth, preset=self.preset)
+        config.get_model_config = (lambda preset: cut if preset == self.preset
+                                   else self._orig(preset))
+        return self
+
+    def __exit__(self, *exc):
+        from longcat_video_tta_tpu_torch import config
+
+        config.get_model_config = self._orig
+        return False
+
+
+def opensora_shapes():
+    """(text tokens, tokens per latent frame, serving S, train S, anchor S)
+    of the Open-Sora runs at chip_smoke's geometries: T5 pads to 512; 480 x
+    832 is 60 x 104 latents, 30 x 52 = 1560 tokens after the 2 x 2 patch;
+    serving 5 cond + 8 generated frames = 2 + 3 latents; the TTA window's
+    cond + train latents, and cond + val for the anchor."""
+    from longcat_video_tta_tpu_torch.models.backbones import opensora_v2
+
+    cfg = opensora_v2()
+    L = cfg.text.max_length
+    per = (MAIN["height"] // 16) * (MAIN["width"] // 16)
+    n_cond_lat = 1 + (MAIN["cond_frames"] - 1) // 4
+    n_gen_lat = (((MAIN["gen_frames"] - 1 + 3) // 4) * 4) // 4 + 1
+    c, t, v = tta_split()
+    return L, per, L + (n_cond_lat + n_gen_lat) * per, L + (c + t) * per, L + (c + v) * per
+
+
+def phase_opensora_kernels(fa):
+    """B1 at the serving shape (3 CFG rows, 8312 joint tokens, no prefix,
+    a ragged tail of 120), the anchor eval's (1 row of 8312) and the train
+    step's (11 432, tail 40); B2 and B3 at the train step's. The 38 single
+    blocks (2/3 of the launches) take v as a strided view of linear1's
+    output (token stride 3 H D + mlp = 21 504), the 19 double blocks a
+    contiguous one: the serving and train shapes are checked in both
+    layouts, and a small ragged case in the strided one."""
+    from longcat_video_tta_tpu_torch.models.backbones import opensora_v2
+
+    dit = opensora_v2().dit
+    H, D, mlp = dit.num_heads, dit.head_dim, dit.mlp_dim
+    L, _, s_serve, s_train, s_anchor = opensora_shapes()
+    fwd = [check_kernel_case(fa, "os_serve_joint", 3, H, s_serve, s_serve, D, timed=True,
+                             seed=51),
+           check_kernel_case(fa, "os_anchor_joint", 1, H, s_anchor, s_anchor, D,
+                             timed=True, seed=52),
+           check_kernel_case(fa, "os_train_joint", 1, H, s_train, s_train, D, timed=True,
+                             seed=53),
+           check_kernel_case(fa, "os_serve_single_v", 3, H, s_serve, s_serve, D,
+                             fused_v_mlp=mlp, seed=56),
+           check_kernel_case(fa, "os_train_single_v", 1, H, s_train, s_train, D,
+                             fused_v_mlp=mlp, seed=57)]
+    bwd = check_bwd_case(fa, "os_train_joint", 1, H, s_train, s_train, D, timed=True,
+                         seed=54)
+    bwd += check_bwd_case(fa, "os_train_single_v", 1, H, s_train, s_train, D,
+                          fused_v_mlp=mlp, seed=58)
+    fwd.append(check_kernel_case(fa, "os_single_strided_v", 2, 2, 700, 700, D,
+                                 fused_v_mlp=1024, seed=55))
+    bwd += check_bwd_case(fa, "os_single_strided_v", 2, 2, 700, 700, D, fused_v_mlp=1024,
+                          seed=55)
+    for c in fwd:
+        print("[opensora kernel] " + json.dumps(c))
+    for c in bwd:
+        print("[opensora bwd-kernel] " + json.dumps(c))
+    return fwd, bwd
+
+
+def phase_opensora_agreement(fa):
+    """The small head-128 MMDiT (``opensora_small_config``): generate_vc on
+    the card against the CPU plain path on the same weights and initial
+    volume, and one delta_a and one LoRA train step's loss and gradient,
+    same injected sigma and noise."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import AdapterConfig
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle, generate_vc
+    from longcat_video_tta_tpu_torch.tta.adapters import build_scheme
+    from longcat_video_tta_tpu_torch.tta.losses import mmdit_flow_matching_loss_conditioned
+
+    cfg = opensora_small_config()
+    cpu = ModelBundle.init_random(cfg, seed=OPENSORA["small_seed"], device="cpu")
+    gpu = dataclasses.replace(
+        cpu, dit=copy.deepcopy(cpu.dit).cuda(), vae=copy.deepcopy(cpu.vae).cuda(),
+        text=copy.deepcopy(cpu.text).cuda(), clip=copy.deepcopy(cpu.clip).cuda(),
+        device=torch.device("cuda"))
+    rng = np.random.default_rng(8)
+    cond = rng.uniform(-1, 1, (1, 3, 5, 64, 128)).astype(np.float32)
+    # 5 cond + 9 generated frames: 2 + 3 latents of 8 x 16 (32 tokens each)
+    x0 = torch.from_numpy(rng.standard_normal((1, 16, 5, 8, 16)).astype(np.float32))
+    kw = dict(num_frames=9, num_inference_steps=3, init_x=x0)
+    a = generate_vc(cpu, cond, "a ball moving across the scene", **kw)
+    fa.reset_launches()
+    b = generate_vc(gpu, cond, "a ball moving across the scene", **kw)
+    n_attn = cfg.dit.depth_double + cfg.dit.depth_single
+    launches = fa.launches
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    psnr = float("inf") if mse == 0 else -10 * math.log10(mse)
+    print(f"[opensora agree] small MMDiT (hidden 256, 2 heads of 128) generate_vc card vs "
+          f"cpu: shape {b.shape}, max|diff| {float(np.abs(a - b).max()):.4g}, psnr "
+          f"{psnr:.2f} dB (min {E2E_PSNR_MIN}); flash_fwd launches {launches} "
+          f"(expected {3 * n_attn})")
+    if not (np.isfinite(b).all() and psnr >= E2E_PSNR_MIN and launches == 3 * n_attn):
+        raise AssertionError("card and CPU MMDiT generate_vc disagree")
+
+    arrays = dict(cond=rng.standard_normal((1, 16, 2, 8, 16)),
+                  target=rng.standard_normal((1, 16, 1, 8, 16)),
+                  txt=rng.standard_normal((1, 16, cfg.dit.context_in_dim)),
+                  yv=rng.standard_normal((1, cfg.dit.vec_in_dim)),
+                  sigma=np.array([0.6]), noise=rng.standard_normal((1, 16, 1, 8, 16)))
+    on = lambda dev: {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+                      for k, v in arrays.items()}
+    for method, extra in (("delta_a", {}), ("lora", {})):
+        scheme = build_scheme(cfg.dit, AdapterConfig(method=method, **extra))
+        tp = scheme.init("cpu", dit=cpu.dit, generator=torch.Generator().manual_seed(5))
+        tp = {k: v + 0.01 for k, v in tp.items()}  # off zero: every tensor gets a gradient
+
+        def step(dit, d, dev):
+            leaves = {k: v.to(dev).clone().requires_grad_(True) for k, v in tp.items()}
+            fwd_dit, ad = scheme.to_forward(leaves, dit)
+            loss = mmdit_flow_matching_loss_conditioned(
+                fwd_dit, d["cond"], d["target"], d["txt"], d["yv"], adapters=ad,
+                sigma=d["sigma"], noise=d["noise"])
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            return float(loss.detach()), torch.cat([g.double().flatten().cpu()
+                                                    for g in grads])
+
+        _agree(f"small MMDiT {method} step card vs cpu", *step(gpu.dit, on("cuda"), "cuda"),
+               *step(cpu.dit, on("cpu"), "cpu"))
+
+
+def opensora_run(fa, tag: str, method: str, argv_extra, *, depth=None):
+    """One runner call on the opensora_v2 preset (``depth``: the cut of
+    ``preset_depth``); returns (summary, launches, wall s, peak GiB)."""
+    import gc
+
+    import torch
+
+    from longcat_video_tta_tpu_torch.runners import run_tta
+
+    out_dir = os.path.join(RUN_DIR, f"opensora_{tag}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--method", method, "--preset", OPENSORA["preset"], "--output-dir", out_dir,
+            "--device", "cuda", "--height", str(MAIN["height"]),
+            "--width", str(MAIN["width"]), "--no-save-videos", *argv_extra]
+    print(f"[opensora {tag}] run_tta " + " ".join(argv)
+          + (f" (depth cut: {depth[0]} double + {depth[1]} single blocks)" if depth else ""))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.time()
+    if depth:
+        with preset_depth(depth):
+            summary = run_tta.main(argv)
+    else:
+        summary = run_tta.main(argv)
+    wall = time.time() - t0
+    got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+           "flash_bwd_dkv": fa.bwd_dkv_launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for i, r in enumerate(summary["results"]):
+        es = r.get("early_stopping_info") or {}
+        print(f"[opensora {tag}] video {i}: success={r['success']} "
+              f"train_time={r.get('train_time')} s es_check_time={r.get('es_check_time')} s "
+              f"gen_time={r.get('gen_time')} s total_time={r.get('total_time')} s "
+              f"losses={r.get('losses')} anchors={[x for _, x in es.get('loss_history', [])]}"
+              f" adapter_norm={r.get('adapter_norm')} "
+              f"trainable_params={r.get('trainable_params')} psnr={r.get('psnr')} "
+              f"ssim={r.get('ssim')}"
+              + (f" fast_decode_verify={json.dumps(r['fast_decode_verify'])}"
+                 if "fast_decode_verify" in r else "")
+              + (f" error={r['error']}" if "error" in r else ""))
+    print(f"[opensora {tag}] wall {wall:.1f} s; max_memory_allocated {peak:.2f} GiB; "
+          f"launches {got}")
+    return summary, got, wall, peak
+
+
+def _check_run(tag, summary, got, expected, n_videos):
+    import numpy as np
+
+    if summary["num_success"] != n_videos:
+        raise AssertionError(f"opensora {tag}: {summary['num_success']}/{n_videos} "
+                             f"succeeded: {[r.get('error') for r in summary['results']]}")
+    for r in summary["results"]:
+        if not np.isfinite([r["psnr"], r["ssim"]]).all():
+            raise AssertionError(f"opensora {tag}: non-finite metrics: {r}")
+    print(f"[opensora {tag}] launches expected {expected}")
+    if got != expected:
+        raise AssertionError(f"opensora {tag}: launches {got}, expected {expected}")
+
+
+def opensora_trainable(method: str, dit_cfg) -> int:
+    """The trainable count each TTA run must report, from the widths."""
+    import torch
+
+    from longcat_video_tta_tpu_torch.models.mmdit import MMDiT, count_params
+
+    D, mlp, r = dit_cfg.hidden_size, dit_cfg.mlp_dim, 8
+    if method == "delta_a":
+        return D
+    if method == "lora":  # img/txt qkv and proj on the double blocks, lin1/lin2 single
+        dbl = 2 * ((D * r + r * 3 * D) + (D * r + r * D))
+        sgl = (D * r + r * (3 * D + mlp)) + ((D + mlp) * r + r * D)
+        return dit_cfg.depth_double * dbl + dit_cfg.depth_single * sgl
+    with torch.device("meta"):
+        return count_params(MMDiT(dit_cfg))
+
+
+def phase_opensora_runs(fa):
+    """The runner on opensora_v2: serving (2 requests), delta_a (1 video on
+    the TTA window), lora (3 steps), full at the depth cut (3 steps) and
+    the lever request. Returns the launches summed over them and the
+    serving request times."""
+    import numpy as np
+
+    from longcat_video_tta_tpu_torch.models.backbones import opensora_v2
+
+    dit_cfg = opensora_v2().dit
+    n_attn = dit_cfg.depth_double + dit_cfg.depth_single
+    serve = ["--num-cond-frames", str(MAIN["cond_frames"]),
+             "--num-frames", str(MAIN["gen_frames"]),
+             "--num-inference-steps", str(MAIN["steps"]),
+             "--guidance-scale", str(MAIN["guidance"])]
+    total = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+    def add(got):
+        for k in total:
+            total[k] += got[k]
+
+    summary, got, _, _ = opensora_run(fa, "serve", "none",
+                                      ["--synthetic", str(MAIN["requests"]), *serve])
+    expected = {"flash_fwd": MAIN["requests"] * opensora_gen_launches(
+        n_attn, steps=MAIN["steps"]), "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    _check_run("serve", summary, got, expected, MAIN["requests"])
+    add(got)
+    serve_times = [r["gen_time"] for r in summary["results"]]
+
+    summary, got, _, _ = opensora_run(fa, "levers", "none",
+                                      ["--synthetic", "1", "--caption-guard-mode", "off",
+                                       *serve, *OPENSORA_LEVERS])
+    expected = {"flash_fwd": opensora_gen_launches(n_attn, steps=MAIN["steps"],
+                                                   pab_every=2)
+                + opensora_gen_launches(n_attn, steps=MAIN["steps"]),
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    _check_run("levers", summary, got, expected, 1)
+    fdv = summary["fast_decode_verify"]
+    if not (fdv and np.isfinite(fdv.get("psnr_fast_vs_dense_mean", np.nan))):
+        raise AssertionError(f"opensora levers: no finite fast_decode_verify: {fdv}")
+    add(got)
+
+    window = ["--num-cond-frames", str(TTA["cond_frames"]),
+              "--tta-total-frames", str(TTA["tta_total_frames"]),
+              "--num-frames", str(TTA["gen_frames"]),
+              "--guidance-scale", str(TTA["guidance"]), "--caption-guard-mode", "off",
+              "--synthetic", "1"]
+    runs = {"delta_a": dict(steps=TTA["tta_steps"], check=TTA["check_every"],
+                            inference=TTA["inference_steps"]),
+            "lora": dict(steps=METHOD["steps"], check=METHOD["check_every"],
+                         inference=METHOD["inference_steps"]),
+            "full": dict(steps=METHOD["steps"], check=METHOD["check_every"],
+                         inference=METHOD["inference_steps"], depth=OPENSORA["full_depth"])}
+    for method, spec in runs.items():
+        depth = spec.get("depth")
+        cfg = opensora_cut_config(*depth).dit if depth else dit_cfg
+        n = cfg.depth_double + cfg.depth_single
+        argv = [*window, "--steps", str(spec["steps"]), "--lr", str(OPENSORA["lr"][method]),
+                "--es-check-every", str(spec["check"]), "--es-patience", str(TTA["patience"]),
+                "--num-inference-steps", str(spec["inference"])]
+        summary, got, wall, peak = opensora_run(fa, method, method, argv, depth=depth)
+        anchors = 1 + spec["steps"] // spec["check"]
+        expected = opensora_run_launches(n, steps=spec["steps"], anchors=anchors,
+                                         anchor_draws=6, inference_steps=spec["inference"])
+        _check_run(method, summary, got, expected, 1)
+        r = summary["results"][0]
+        history = [x for _, x in r["early_stopping_info"]["loss_history"]]
+        want = opensora_trainable(method, cfg)
+        if not (np.isfinite(r["losses"] + history).all()
+                and len(r["losses"]) == spec["steps"] and len(history) == anchors
+                and history[-1] != history[0] and r["trainable_params"] == want):
+            raise AssertionError(f"opensora {method}: did not train, non-finite values or "
+                                 f"trainable {r['trainable_params']} != {want}: {r}")
+        print(f"[opensora {method}] trainable {want}, peak {peak:.2f} GiB, "
+              f"wall {wall:.1f} s")
+        add(got)
+    return total, serve_times
+
+
+_OS_NAMES = [(r"\.in_layer\.", ".w1."), (r"\.out_layer\.", ".w2."),
+             (r"_mod\.lin\.", "_mod."), (r"\.norm\.query_norm\.scale$", ".q_norm"),
+             (r"\.norm\.key_norm\.scale$", ".k_norm"), (r"_mlp\.0\.", "_mlp.w_in."),
+             (r"_mlp\.2\.", "_mlp.w_out."), (r"\.modulation\.lin\.", ".mod."),
+             (r"^final_layer\.adaLN_modulation\.1\.", "final.adaln."),
+             (r"^final_layer\.linear\.", "final.proj.")]
+_CLIP_NAMES = [(r"^text_model\.embeddings\.token_embedding\.weight$", "token_embedding"),
+               (r"^text_model\.embeddings\.position_embedding\.weight$",
+                "position_embedding"),
+               (r"^text_model\.final_layer_norm\.", "final_ln."),
+               (r"^text_model\.", ""), (r"layer_norm1", "ln1"), (r"layer_norm2", "ln2"),
+               (r"self_attn\.q_proj", "q"), (r"self_attn\.k_proj", "k"),
+               (r"self_attn\.v_proj", "v"), (r"self_attn\.out_proj", "out"),
+               (r"mlp\.fc", "fc")]
+
+
+def expected_opensora_tensors(component: str, key: str, value, cfg):
+    """[(port name, expected tensor)] of one upstream Open-Sora tensor,
+    written out independently of the converter: Flux names to the port's;
+    the q and k rows of each head of a fused qkv (and of linear1's first
+    2D rows), their biases and the q/k norm scales reordered from
+    interleaved pairs to halves (even channels, then odd)."""
+    import torch
+
+    if component in ("vae", "text_encoder"):
+        return expected_port_tensors(component, key, value, cfg.vae)
+    table = _OS_NAMES if component == "dit" else _CLIP_NAMES
+    name = key
+    for pat, rep in table:
+        name = re.sub(pat, rep, name)
+    if component == "dit":
+        nH, dh = cfg.dit.num_heads, cfg.dit.head_dim
+        halves = torch.cat([torch.arange(0, dh, 2), torch.arange(1, dh, 2)]).to(value.device)
+        if key.endswith(("query_norm.scale", "key_norm.scale")):
+            value = value[halves]
+        elif ".qkv." in key or ".linear1." in key:
+            value = value.clone()
+            for h in range(2 * nH):  # the q heads, then the k heads
+                rows = value[h * dh:(h + 1) * dh].clone()
+                value[h * dh:(h + 1) * dh] = rows[halves]
+    return [(name, value)]
+
+
+def opensora_sample_keys(cfg):
+    """Every kind of key of the four components at the first and last
+    block."""
+    d, s, L = cfg.dit.depth_double, cfg.dit.depth_single, cfg.clip.num_layers
+    keys = {"dit": ["img_in.weight", "txt_in.bias", "cond_in.weight",
+                    "time_in.in_layer.weight", "vector_in.out_layer.bias",
+                    "final_layer.adaLN_modulation.1.weight", "final_layer.linear.weight"],
+            "clip": ["text_model.embeddings.token_embedding.weight",
+                     "text_model.embeddings.position_embedding.weight",
+                     "text_model.final_layer_norm.bias"],
+            "text_encoder": ["shared.weight", "encoder.block.0.layer.0.SelfAttention.q.weight",
+                             "encoder.block.0.layer.0.SelfAttention.relative_attention_bias"
+                             ".weight", "encoder.final_layer_norm.weight"],
+            "vae": ["encoder.conv1.weight", "decoder.head.2.weight", "conv1.weight"]}
+    for i in sorted({0, d - 1}):
+        keys["dit"] += [f"double_blocks.{i}.{n}" for n in (
+            "img_mod.lin.weight", "img_attn.qkv.weight", "img_attn.qkv.bias",
+            "txt_attn.qkv.weight", "img_attn.norm.query_norm.scale",
+            "txt_attn.norm.key_norm.scale", "img_attn.proj.weight", "txt_mlp.0.weight",
+            "img_mlp.2.bias")]
+    for i in sorted({0, s - 1}):
+        keys["dit"] += [f"single_blocks.{i}.{n}" for n in (
+            "linear1.weight", "linear1.bias", "linear2.weight", "norm.query_norm.scale",
+            "norm.key_norm.scale", "modulation.lin.weight")]
+    for i in sorted({0, L - 1}):
+        keys["clip"] += [f"text_model.encoder.layers.{i}.{n}" for n in (
+            "layer_norm1.weight", "self_attn.q_proj.weight", "self_attn.out_proj.bias",
+            "mlp.fc1.weight", "layer_norm2.bias")]
+    return keys
+
+
+def phase_opensora_checkpoint(fa):
+    """Synthesized shards (<dir>/{dit,vae,text_encoder,clip}, bf16, full
+    width at the depth cut) written under .chip_smoke/: dit/ and clip/ in
+    Open-Sora v2's layout, text_encoder/ in the UMT5 per-block layout
+    (a relative_attention_bias in every block) that the JAX converter
+    reads, where T5 v1.1 has one in block 0 only. Loaded
+    through the runner's --checkpoint-dir, sampled tensors held against
+    their shard values, then one serving request on them."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.models.convert import MMDIT_STATE_SHAPES
+    from longcat_video_tta_tpu_torch.runners import run_tta
+
+    depth = OPENSORA["full_depth"]
+    cfg = opensora_cut_config(*depth)
+    folder = tempfile.mkdtemp(prefix="ckpt-os-", dir=RUN_DIR)
+    try:
+        t0 = time.time()
+        nbytes, kept = write_checkpoint(folder, cfg, OPENSORA["ckpt_seed"],
+                                        opensora_sample_keys(cfg),
+                                        shapes=MMDIT_STATE_SHAPES)
+        print(f"[opensora ckpt] wrote {nbytes / 1e9:.2f} GB of bf16 shards "
+              f"(dit at {depth[0]} double + {depth[1]} single blocks) in "
+              f"{time.time() - t0:.1f} s")
+        base = ["--preset", OPENSORA["preset"], "--device", "cuda", "--checkpoint-dir",
+                folder]
+        args = run_tta.build_arg_parser().parse_args(
+            base + ["--output-dir", os.path.join(RUN_DIR, "os_ckpt_run")])
+        with preset_depth(depth):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            bundle = run_tta.load_bundle(args)
+            torch.cuda.synchronize()
+            t_load = time.time() - t0
+        mods = {"dit": bundle.dit, "vae": bundle.vae, "text_encoder": bundle.text,
+                "clip": bundle.clip}
+        checked = 0
+        for component, drawn in kept.items():
+            params = mods[component].state_dict()
+            for key, value in drawn.items():
+                for name, want in expected_opensora_tensors(component, key, value, cfg):
+                    if not torch.equal(params[name], want.to(params[name].dtype)):
+                        raise AssertionError(f"{component} {key} -> {name}: loaded tensor "
+                                             "differs from the shard value")
+                    checked += 1
+        print(f"[opensora ckpt] load {t_load:.2f} s ({nbytes / t_load / 1e9:.2f} GB/s); "
+              f"{checked} loaded tensors equal their shard values after the transform")
+        if checked < 50:
+            raise AssertionError(f"only {checked} tensors checked")
+        del bundle, mods, kept
+        serve = ["--checkpoint-dir", folder, "--synthetic", "1",
+                 "--num-cond-frames", str(MAIN["cond_frames"]),
+                 "--num-frames", str(MAIN["gen_frames"]),
+                 "--num-inference-steps", str(MAIN["steps"]),
+                 "--guidance-scale", str(MAIN["guidance"]), "--caption-guard-mode", "off"]
+        summary, got, _, _ = opensora_run(fa, "ckpt_serve", "none", serve, depth=depth)
+        n = cfg.dit.depth_double + cfg.dit.depth_single
+        _check_run("ckpt_serve", summary, got, {
+            "flash_fwd": opensora_gen_launches(n, steps=MAIN["steps"]),
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}, 1)
+        if not np.isfinite(summary["results"][0]["psnr"]):
+            raise AssertionError("opensora checkpoint request: non-finite psnr")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    return got
+
+
+def phase_opensora(fa):
+    """(a) B1-B3 at the Open-Sora shapes, (b) card vs CPU at the small
+    head-128 MMDiT, (c) the runner at full width, (d) the checkpoint
+    layout. Returns (forward cases, backward cases, launches summed over
+    the runs)."""
+    import torch
+
+    fwd, bwd = phase_opensora_kernels(fa)
+    torch.cuda.empty_cache()
+    phase_opensora_agreement(fa)
+    torch.cuda.empty_cache()
+    launches, serve_times = phase_opensora_runs(fa)
+    print(f"[opensora] serving gen_time per request {serve_times} s")
+    got = phase_opensora_checkpoint(fa)
+    for k in launches:
+        launches[k] += got[k]
+    print(f"[opensora] launches over the runs {launches}")
+    return fwd, bwd, launches
+
+
 def print_build(fa):
     spills = []
     for path, log, seconds in fa.build_libraries():
@@ -2597,7 +3181,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive the port on one NVIDIA GPU")
     ap.add_argument("--only", default="",
                     help="development: run the build and these comma-separated phases "
-                         "(checkpoint, remat, bucket, eval, kernel, bwd) and print no result")
+                         "(checkpoint, remat, bucket, eval, kernel, bwd, opensora) and print "
+                         "no result")
     only = [x for x in ap.parse_args(argv).only.split(",") if x]
     try:
         import torch
@@ -2625,8 +3210,14 @@ def main(argv=None) -> int:
     t_start = time.time()
 
     def timed_phase(name, fn, *args):
+        import gc
+
         t0 = time.time()
         out = fn(*args)
+        # a runner's bundle can sit in a reference cycle: free it before
+        # the next phase measures its peak (LongCat full after norm_tune
+        # ran out of memory with the 13.6B bundle still held)
+        gc.collect()
         torch.cuda.empty_cache()
         print(f"[time] {name} {time.time() - t0:.1f} s")
         return out
@@ -2639,7 +3230,8 @@ def main(argv=None) -> int:
         phases = {"checkpoint": (phase_checkpoint_path, fa), "remat": (phase_remat_path, fa),
                   "bucket": (phase_bucket_path, fa), "eval": (phase_eval, fa, cfg.dit.depth, smi),
                   "kernel": (phase_kernel_checks, fa, cfg.dit, tokens_per_frame),
-                  "bwd": (phase_bwd_kernel_checks, fa, cfg.dit, tokens_per_frame)}
+                  "bwd": (phase_bwd_kernel_checks, fa, cfg.dit, tokens_per_frame),
+                  "opensora": (phase_opensora, fa)}
         for name in only:
             timed_phase(name, *phases[name])
         print(f"[time] all phases {time.time() - t_start:.1f} s")
@@ -2667,6 +3259,9 @@ def main(argv=None) -> int:
     _, remat_run = timed_phase("remat path", phase_remat_path, fa)
     bucket_run = timed_phase("bucket path", phase_bucket_path, fa)
     _, eval_run = timed_phase("eval", phase_eval, fa, cfg.dit.depth, smi)
+    os_fwd, os_bwd, os_run = timed_phase("opensora", phase_opensora, fa)
+    cases += os_fwd
+    bwd_cases += os_bwd
     print(f"[time] all phases {time.time() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, all_cases):
@@ -2683,7 +3278,8 @@ def main(argv=None) -> int:
     bsa_kernel = lambda name: [c for c in bsa_cases if c["kernel"] == name]
     lever_sum = lambda name: sum(levers[run][name] for run in levers)
     train_sum = lambda name: (tta[name] + sum(m[name] for m in methods.values())
-                              + remat_run[name] + bucket_run[name] + eval_run[name])
+                              + remat_run[name] + bucket_run[name] + eval_run[name]
+                              + os_run[name])
     kernels = [
         entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:133",
               serving_launches + ckpt_launches + train_sum("flash_fwd")

@@ -1,6 +1,7 @@
 """Typed configuration for the PyTorch port (its own copy of the
 reference's ``config.py``: the model dataclasses, the frame and
-generation configs, and the LongCat presets).
+generation configs, and the LongCat presets; the Open-Sora v2 presets
+live in ``models/backbones.py``).
 
 Dtypes are stored by name so the dataclasses stay JSON-serializable;
 ``resolve_dtype`` maps a name to the ``torch.dtype``.
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple
 
 import torch
 
@@ -36,6 +37,7 @@ class DiTConfig:
     qkv self-attention (RMS qk-norm, 3D RoPE), affine pre-norm
     cross-attention over packed text, SwiGLU ffn w1/w2/w3."""
 
+    arch: ClassVar[str] = "longcat"  # the backbone's record in archs.py
     hidden_size: int = 4096
     depth: int = 48
     num_heads: int = 32
@@ -70,6 +72,64 @@ class DiTConfig:
             raise ValueError("hidden_size must be divisible by num_heads")
         if sum(self.rope_dims) != self.head_dim:
             raise ValueError(f"rope_dims {self.rope_dims} must sum to "
+                             f"head_dim {self.head_dim}")
+
+
+@dataclass(frozen=True)
+class MMDiTConfig:
+    """Open-Sora v2.0 / Flux-style MMDiT (``models/mmdit.py``):
+    ``depth_double`` dual-stream blocks (separate img/txt weights, joint
+    attention over [txt | img]) then ``depth_single`` fused blocks over
+    the concatenated sequence. Defaults are the Open-Sora v2 geometry:
+    19 double + 38 single blocks, 24 heads of 128, hidden 3072."""
+
+    arch: ClassVar[str] = "mmdit"
+    hidden_size: int = 3072
+    num_heads: int = 24
+    depth_double: int = 19
+    depth_single: int = 38
+    mlp_ratio: float = 4.0
+    in_channels: int = 16          # latent channels (before packing)
+    patch_size: int = 2            # spatial; the temporal patch is 1
+    cond_embed: bool = True        # v2v/i2v [masks | masked_ref] channel input
+    vec_in_dim: int = 768          # CLIP pooled text
+    context_in_dim: int = 4096     # T5 token embeddings
+    t_embed_freq_dim: int = 256
+    guidance_embed: bool = False
+    # RoPE over (t, h, w) position ids; text tokens get the identity
+    axes_dims: Tuple[int, int, int] = (16, 56, 56)
+    rope_theta: float = 10000.0
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "full"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def mlp_dim(self) -> int:
+        return int(self.hidden_size * self.mlp_ratio)
+
+    @property
+    def packed_channels(self) -> int:
+        return self.in_channels * self.patch_size ** 2
+
+    @property
+    def cond_channels(self) -> int:
+        return (1 + self.in_channels) * self.patch_size ** 2
+
+    @property
+    def adaln_tembed_dim(self) -> int:
+        """The delta_a site's width: the MMDiT vec is hidden-sized."""
+        return self.hidden_size
+
+    def __post_init__(self):
+        if self.hidden_size % self.num_heads != 0:
+            raise ValueError("hidden_size must be divisible by num_heads")
+        if sum(self.axes_dims) != self.head_dim:
+            raise ValueError(f"axes_dims {self.axes_dims} must sum to "
                              f"head_dim {self.head_dim}")
 
 
@@ -201,11 +261,19 @@ class SchedulerConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
+    """``arch`` names the backbone, from the type of ``dit``: "longcat"
+    (a DiTConfig) or "mmdit" (an MMDiTConfig, with the CLIP text tower
+    ``clip`` for the pooled y_vec)."""
+
     dit: DiTConfig = field(default_factory=DiTConfig)
     vae: VAEConfig = field(default_factory=VAEConfig)
     text: TextEncoderConfig = field(default_factory=TextEncoderConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
-    arch: str = "longcat"
+    clip: Optional[CLIPTextConfig] = None
+
+    @property
+    def arch(self) -> str:
+        return self.dit.arch
 
 
 # ---------------------------------------------------------------------------
@@ -338,10 +406,20 @@ MODEL_PRESETS = {
 }
 
 
+# the other backbones' presets are in models/backbones.py; this is every
+# name the runner's --preset takes
+BACKBONE_PRESET_NAMES = ("opensora_v2", "opensora_v2_tiny")
+ALL_PRESET_NAMES = tuple(MODEL_PRESETS) + BACKBONE_PRESET_NAMES
+
+
 def get_model_config(preset: str) -> ModelConfig:
-    if preset not in MODEL_PRESETS:
-        raise KeyError(f"unknown model preset {preset!r}")
-    return MODEL_PRESETS[preset]()
+    if preset in MODEL_PRESETS:
+        return MODEL_PRESETS[preset]()
+    if preset in BACKBONE_PRESET_NAMES:
+        from .models import backbones
+
+        return getattr(backbones, preset)()
+    raise KeyError(f"unknown model preset {preset!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,54 @@
+"""The other backbones' presets (counterpart of
+``longcat_video_tta_tpu/models/backbones.py``). The port runs the
+Open-Sora v2.0 MMDiT (``models/mmdit.py``): 19 double + 38 single
+blocks, hidden 3072, joint [txt | img] attention with (t, h, w) RoPE,
+cond_embed v2v conditioning, T5 token embeddings and the CLIP-L/14
+pooled y_vec, the WAN VAE. CogVideoX is not ported yet.
+"""
+
+from __future__ import annotations
+
+from ..config import (
+    CLIPTextConfig,
+    MMDiTConfig,
+    ModelConfig,
+    SchedulerConfig,
+    TextEncoderConfig,
+    VAEConfig,
+)
+
+
+def opensora_v2() -> ModelConfig:
+    """Open-Sora v2.0 at its published widths and depth: the 11.8B MMDiT,
+    a T5-XXL-sized encoder (vocab 32128, max_length 512), CLIP-L/14 text
+    and the WAN VAE, in bf16 (the CLIP tower fp32)."""
+    return ModelConfig(
+        dit=MMDiTConfig(),
+        vae=VAEConfig(param_dtype="bfloat16", compute_dtype="bfloat16"),
+        text=TextEncoderConfig(vocab_size=32128, max_length=512),
+        clip=CLIPTextConfig(),
+        scheduler=SchedulerConfig(shift=3.0),
+    )
+
+
+def opensora_v2_tiny() -> ModelConfig:
+    """A scaled-down MMDiT for tests and CPU runs (head_dim 16: the CPU
+    path only, since the kernels take head_dim 32, 64 or 128)."""
+    return ModelConfig(
+        dit=MMDiTConfig(
+            hidden_size=64, num_heads=4, depth_double=2, depth_single=2,
+            mlp_ratio=2.0, in_channels=16, patch_size=2, vec_in_dim=16,
+            context_in_dim=32, axes_dims=(4, 6, 6),
+            param_dtype="float32", compute_dtype="float32",
+        ),
+        vae=VAEConfig(base_dim=16, dim_mults=(1, 1, 2, 2),
+                      num_res_blocks=1, attn_mid_block=False),
+        text=TextEncoderConfig(vocab_size=512, d_model=32, d_kv=8,
+                               num_heads=4, d_ff=64, num_layers=2,
+                               max_length=16, param_dtype="float32",
+                               compute_dtype="float32"),
+        clip=CLIPTextConfig(vocab_size=512, width=16, num_layers=2,
+                            num_heads=2, max_length=16),
+        scheduler=SchedulerConfig(shift=3.0),
+    )
+

@@ -1,8 +1,8 @@
-"""LongCat checkpoints in the upstream torch layout -> the port's modules
+"""Checkpoints in the upstream torch layout -> the port's modules
 (counterpart of ``longcat_video_tta_tpu/models/convert.py``'s
-``convert_torch_dit_state`` :175, ``convert_torch_umt5_state`` :347 and
-``convert_torch_vae_state`` :462, with the same key mapping, transposes and
-``rope_interleaved`` permutation).
+``convert_torch_dit_state`` :175, ``convert_torch_umt5_state`` :347,
+``convert_torch_vae_state`` :462 and ``convert_torch_mmdit_state`` :624,
+with the same key mapping, transposes and RoPE row permutations).
 
 Where the reference converts a whole state dict into a numpy tree, this
 module converts one tensor at a time: each converter builds a tree of the
@@ -14,7 +14,8 @@ parameter's dtype. So a 13.6B checkpoint never stands whole on the host,
 in fp32 or otherwise. Every converter refuses a layout it does not
 understand: a missing key raises ``KeyError``, a key left unread raises
 ``ValueError`` (the reference's ``_TrackedStateDict`` rule, :139-165, here
-for the DiT and UMT5 too).
+for the DiT, the MMDiT and UMT5 too; the reference's MMDiT converter
+does not track its reads).
 
 The CLIP part (the reference's :761-1023) maps Hugging Face ``CLIPModel``,
 ``CLIPTextModel`` and ``XCLIPModel`` state dicts onto the port's towers
@@ -28,12 +29,13 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ..config import DiTConfig, TextEncoderConfig, VAEConfig
+from ..config import CLIPTextConfig, DiTConfig, MMDiTConfig, TextEncoderConfig, VAEConfig
 from ..utils.safetensors import ShardIndex
 from .dit import LongCatDiT
+from .mmdit import MMDiT
 from .umt5 import UMT5Encoder
 from .vae import WanVAE, decoder_channel_plan
-from .weights import Getter, _empty, _fill_dit, _fill_umt5, _fill_vae
+from .weights import Getter, _empty, _fill_dit, _fill_mmdit, _fill_umt5, _fill_vae
 
 Leaf = Callable[[Optional[int]], torch.Tensor]
 
@@ -152,6 +154,65 @@ def dit_tree(src: _Source, cfg: DiTConfig, rope_interleaved: bool = False) -> Di
         "final": {"adaln": top("final_layer.adaLN_modulation.1"),
                   "proj": top("final_layer.linear")},
     }
+
+
+def mmdit_tree(src: _Source, cfg: MMDiTConfig) -> Dict:
+    """The reference's MMDiT tree (``convert_torch_mmdit_state``) over an
+    Open-Sora v2 / Flux state dict: Linear weights transposed; the q/k rows
+    of every fused qkv (double blocks) and of ``linear1``'s qkv part
+    (single blocks; its mlp rows untouched), with their biases and the
+    q/k RMSNorm scales, permuted from the interleaved RoPE pairs to the
+    half-split rotation (``permute_qkv_rows``); the cond embedding under
+    ``cond_in`` or ``cond_embed``."""
+    nH, dh = cfg.num_heads, cfg.head_dim
+    perm = lambda w: w[rope_perm(dh).to(w.device)]
+    qkv_w = lambda w: permute_qkv_rows(w, nH, dh).t()
+    qkv_b = lambda b: permute_qkv_rows(b, nH, dh)
+    lin = lambda fmt: {"kernel": src.stack(fmt + ".weight", _t),
+                       "bias": src.stack(fmt + ".bias")}
+    top = lambda name: {"kernel": src.one(name + ".weight", _t),
+                        "bias": src.one(name + ".bias")}
+
+    def emb(prefix):
+        return {"w1": src.one(prefix + ".in_layer.weight", _t),
+                "b1": src.one(prefix + ".in_layer.bias"),
+                "w2": src.one(prefix + ".out_layer.weight", _t),
+                "b2": src.one(prefix + ".out_layer.bias")}
+
+    def attn(stream):
+        b = "double_blocks.{}." + stream + "_attn"
+        return {"qkv": {"kernel": src.stack(b + ".qkv.weight", qkv_w),
+                        "bias": src.stack(b + ".qkv.bias", qkv_b)},
+                "q_norm": src.stack(b + ".norm.query_norm.scale", perm),
+                "k_norm": src.stack(b + ".norm.key_norm.scale", perm),
+                "proj": lin(b + ".proj")}
+
+    def mlp(stream):
+        b = "double_blocks.{}." + stream + "_mlp"
+        return {"w_in": lin(b + ".0"), "w_out": lin(b + ".2")}
+
+    s = "single_blocks.{}."
+    tree = {
+        "img_in": top("img_in"), "txt_in": top("txt_in"),
+        "time_in": emb("time_in"), "vector_in": emb("vector_in"),
+        "double": {"img_mod": lin("double_blocks.{}.img_mod.lin"),
+                   "txt_mod": lin("double_blocks.{}.txt_mod.lin"),
+                   "img_attn": attn("img"), "txt_attn": attn("txt"),
+                   "img_mlp": mlp("img"), "txt_mlp": mlp("txt")},
+        "single": {"mod": lin(s + "modulation.lin"),
+                   "linear1": {"kernel": src.stack(s + "linear1.weight", qkv_w),
+                               "bias": src.stack(s + "linear1.bias", qkv_b)},
+                   "q_norm": src.stack(s + "norm.query_norm.scale", perm),
+                   "k_norm": src.stack(s + "norm.key_norm.scale", perm),
+                   "linear2": lin(s + "linear2")},
+        "final": {"adaln": top("final_layer.adaLN_modulation.1"),
+                  "proj": top("final_layer.linear")},
+    }
+    if cfg.cond_embed:
+        tree["cond_in"] = top("cond_in" if "cond_in.weight" in src.sd else "cond_embed")
+    if cfg.guidance_embed:
+        tree["guidance_in"] = emb("guidance_in")
+    return tree
 
 
 def umt5_tree(src: _Source, cfg: TextEncoderConfig) -> Dict:
@@ -276,6 +337,19 @@ def load_dit_checkpoint(folder: str, cfg: DiTConfig, device="cuda",
     """The LongCat DiT of a checkpoint's ``dit/`` shard folder."""
     return _load(folder, LongCatDiT, cfg, _fill_dit, dit_tree, "LongCat DiT", device,
                  rope_interleaved=rope_interleaved)
+
+
+def load_mmdit_checkpoint(folder: str, cfg: MMDiTConfig, device="cuda") -> MMDiT:
+    """The Open-Sora v2 MMDiT of a checkpoint's ``dit/`` shard folder."""
+    return _load(folder, MMDiT, cfg, _fill_mmdit, mmdit_tree, "Open-Sora MMDiT", device)
+
+
+def load_clip_text_checkpoint(folder: str, cfg: CLIPTextConfig, device="cuda"):
+    """The CLIP text tower of a checkpoint's ``clip/`` shard folder (a HF
+    ``CLIPTextModel`` state dict), through ``convert_torch_clip_text_state``:
+    a key left unread raises."""
+    sd = ShardIndex(folder)
+    return convert_torch_clip_text_state({k: sd[k] for k in sd.keys()}, cfg, device)
 
 
 def load_umt5_checkpoint(folder: str, cfg: TextEncoderConfig,
@@ -412,9 +486,74 @@ def vae_state_shapes(cfg: VAEConfig) -> Dict[str, tuple]:
     return out
 
 
+def mmdit_state_shapes(cfg: MMDiTConfig) -> Dict[str, tuple]:
+    """Key -> shape of an Open-Sora v2 / Flux MMDiT state dict (with
+    ``cond_in``)."""
+    D, mlp, dh = cfg.hidden_size, cfg.mlp_dim, cfg.head_dim
+    out: Dict[str, tuple] = {}
+
+    def lin(name, din, dout):
+        out[name + ".weight"], out[name + ".bias"] = (dout, din), (dout,)
+
+    lin("img_in", cfg.packed_channels, D)
+    lin("txt_in", cfg.context_in_dim, D)
+    if cfg.cond_embed:
+        lin("cond_in", cfg.cond_channels, D)
+    embedders = [("time_in", cfg.t_embed_freq_dim), ("vector_in", cfg.vec_in_dim)]
+    if cfg.guidance_embed:
+        embedders.append(("guidance_in", cfg.t_embed_freq_dim))
+    for name, din in embedders:
+        lin(name + ".in_layer", din, D)
+        lin(name + ".out_layer", D, D)
+    for i in range(cfg.depth_double):
+        b = f"double_blocks.{i}."
+        for st in ("img", "txt"):
+            lin(b + st + "_mod.lin", D, 6 * D)
+            lin(b + st + "_attn.qkv", D, 3 * D)
+            out[b + st + "_attn.norm.query_norm.scale"] = (dh,)
+            out[b + st + "_attn.norm.key_norm.scale"] = (dh,)
+            lin(b + st + "_attn.proj", D, D)
+            lin(b + st + "_mlp.0", D, mlp)
+            lin(b + st + "_mlp.2", mlp, D)
+    for i in range(cfg.depth_single):
+        b = f"single_blocks.{i}."
+        lin(b + "linear1", D, 3 * D + mlp)
+        lin(b + "linear2", D + mlp, D)
+        out[b + "norm.query_norm.scale"] = out[b + "norm.key_norm.scale"] = (dh,)
+        lin(b + "modulation.lin", D, 3 * D)
+    lin("final_layer.adaLN_modulation.1", D, 2 * D)
+    lin("final_layer.linear", D, cfg.packed_channels)
+    return out
+
+
+def clip_text_state_shapes(cfg: CLIPTextConfig) -> Dict[str, tuple]:
+    """Key -> shape of a HF ``CLIPTextModel`` state dict."""
+    W, pre = cfg.width, "text_model."
+    out = {pre + "embeddings.token_embedding.weight": (cfg.vocab_size, W),
+           pre + "embeddings.position_embedding.weight": (cfg.max_length, W),
+           pre + "final_layer_norm.weight": (W,), pre + "final_layer_norm.bias": (W,)}
+    for i in range(cfg.num_layers):
+        b = f"{pre}encoder.layers.{i}."
+        for n in ("layer_norm1", "layer_norm2"):
+            out[b + n + ".weight"] = out[b + n + ".bias"] = (W,)
+        for n, (o, i_) in (("self_attn.q_proj", (W, W)), ("self_attn.k_proj", (W, W)),
+                           ("self_attn.v_proj", (W, W)), ("self_attn.out_proj", (W, W)),
+                           ("mlp.fc1", (4 * W, W)), ("mlp.fc2", (W, 4 * W))):
+            out[b + n + ".weight"], out[b + n + ".bias"] = (o, i_), (o,)
+    return out
+
+
 STATE_SHAPES = {"dit": lambda cfg: dit_state_shapes(cfg.dit),
                 "vae": lambda cfg: vae_state_shapes(cfg.vae),
                 "text_encoder": lambda cfg: umt5_state_shapes(cfg.text)}
+# the MMDiT's folders <dir>/{dit,vae,text_encoder,clip}: dit/ and clip/ in
+# Open-Sora v2's layout; text_encoder/ in the UMT5 per-block layout
+# (``umt5_tree`` reads a relative_attention_bias in every block), which
+# T5 v1.1 checkpoints, with one in block 0 only, do not have
+MMDIT_STATE_SHAPES = {"dit": lambda cfg: mmdit_state_shapes(cfg.dit),
+                      "vae": lambda cfg: vae_state_shapes(cfg.vae),
+                      "text_encoder": lambda cfg: umt5_state_shapes(cfg.text),
+                      "clip": lambda cfg: clip_text_state_shapes(cfg.clip)}
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,10 @@ reference's layout:
   - depth-stacked leaves (DiT blocks, UMT5 layers) are asked for per
     block with ``index`` set.
 The numpy getter reads the tree; the random getter draws from the
-distributions of ``init_dit`` (with ``zero_init=False``, as
-``ModelBundle.init_random`` uses), ``init_vae`` and ``init_umt5``. At
-full width the DiT alone is 27 GB in bf16, so the draws happen on the
-device, one leaf at a time.
+distributions of ``init_dit`` / ``init_mmdit`` (with ``zero_init=False``,
+as ``ModelBundle.init_random`` uses), ``init_vae``, ``init_umt5`` and
+``init_clip_text``. At full width the DiT alone is 27 GB in bf16, so the
+draws happen on the device, one leaf at a time.
 """
 
 from __future__ import annotations
@@ -26,8 +26,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import DiTConfig, ModelConfig, TextEncoderConfig, VAEConfig
+from ..config import (
+    CLIPTextConfig,
+    DiTConfig,
+    MMDiTConfig,
+    ModelConfig,
+    TextEncoderConfig,
+    VAEConfig,
+)
+from .clip_text import CLIPTextTower
 from .dit import LongCatDiT
+from .mmdit import MMDiT
 from .umt5 import UMT5Encoder
 from .vae import WanVAE, decoder_channel_plan
 
@@ -140,6 +149,62 @@ def _fill_dit(m: LongCatDiT, get: Getter) -> None:
     _dense(m.final["proj"], get, ("final", "proj"))
 
 
+def _fill_mmdit(m: MMDiT, get: Getter) -> None:
+    """The reference's ``init_mmdit`` tree: embedder MLPs {w1, b1, w2, b2}
+    in fp32, per-block stacks under "double" / "single"."""
+    cfg = m.cfg
+    _dense(m.img_in, get, ("img_in",))
+    _dense(m.txt_in, get, ("txt_in",))
+    embedders = ["time_in", "vector_in"] + (["guidance_in"] if cfg.guidance_embed else [])
+    for name in embedders:
+        for w, b in (("w1", "b1"), ("w2", "b2")):
+            _kernel(getattr(m, name)[w].weight, get, (name, w))
+            _vec(getattr(m, name)[w].bias, get, (name, b))
+    if cfg.cond_embed:
+        _dense(m.cond_in, get, ("cond_in",))
+    d = ("double",)
+    for i, blk in enumerate(m.double_blocks):
+        for stream in ("img", "txt"):
+            _dense(getattr(blk, f"{stream}_mod"), get, d + (f"{stream}_mod",), i)
+            a = getattr(blk, f"{stream}_attn")
+            ap = d + (f"{stream}_attn",)
+            _dense(a.qkv, get, ap + ("qkv",), i)
+            _vec(a.q_norm, get, ap + ("q_norm",), i, ("ones",))
+            _vec(a.k_norm, get, ap + ("k_norm",), i, ("ones",))
+            _dense(a.proj, get, ap + ("proj",), i)
+            mlp = getattr(blk, f"{stream}_mlp")
+            _dense(mlp.w_in, get, d + (f"{stream}_mlp", "w_in"), i)
+            _dense(mlp.w_out, get, d + (f"{stream}_mlp", "w_out"), i)
+    s = ("single",)
+    for i, blk in enumerate(m.single_blocks):
+        _dense(blk.mod, get, s + ("mod",), i)
+        _dense(blk.linear1, get, s + ("linear1",), i)
+        _vec(blk.q_norm, get, s + ("q_norm",), i, ("ones",))
+        _vec(blk.k_norm, get, s + ("k_norm",), i, ("ones",))
+        _dense(blk.linear2, get, s + ("linear2",), i)
+    _dense(m.final["adaln"], get, ("final", "adaln"))
+    _dense(m.final["proj"], get, ("final", "proj"))
+
+
+def _fill_clip_text(m: CLIPTextTower, get: Getter) -> None:
+    """The reference's ``init_clip_text`` tree (layers stacked on a depth
+    axis)."""
+    _vec(m.token_embedding, get, ("token_embedding",), None, ("normal", 0.02))
+    _vec(m.position_embedding, get, ("position_embedding",), None, ("normal", 0.01))
+    for i, layer in enumerate(m.encoder.layers):
+        lp = ("layers",)
+        for ln in ("ln1", "ln2"):
+            _fill_norm_at(getattr(layer, ln), get, lp + (ln,), i)
+        for name in ("q", "k", "v", "out", "fc1", "fc2"):
+            _dense(getattr(layer, name), get, lp + (name,), i)
+    _fill_norm(m.final_ln, get, ("final_ln",))
+
+
+def _fill_norm_at(p, get, path, index):
+    _vec(p.weight, get, path + ("weight",), index, ("ones",))
+    _vec(p.bias, get, path + ("bias",), index)
+
+
 def _fill_umt5(m: UMT5Encoder, get: Getter) -> None:
     cfg = m.cfg
     d, dkv, dff = cfg.d_model, cfg.d_kv, cfg.d_ff
@@ -159,8 +224,7 @@ def _fill_umt5(m: UMT5Encoder, get: Getter) -> None:
 
 
 def _fill_norm(p, get, path):
-    _vec(p.weight, get, path + ("weight",), None, ("ones",))
-    _vec(p.bias, get, path + ("bias",))
+    _fill_norm_at(p, get, path, None)
 
 
 def _fill_resblock(p, get, path):
@@ -233,6 +297,20 @@ def load_dit_from_numpy(tree, cfg: DiTConfig, device="cuda") -> LongCatDiT:
     return m
 
 
+def load_mmdit_from_numpy(tree, cfg: MMDiTConfig, device="cuda") -> MMDiT:
+    """The MMDiT of the reference's ``init_mmdit`` / converter tree."""
+    m = _empty(MMDiT, cfg, device)
+    _fill_mmdit(m, numpy_getter(tree))
+    return m
+
+
+def load_clip_text_from_numpy(tree, cfg: CLIPTextConfig, device="cuda") -> CLIPTextTower:
+    """The CLIP text tower of the reference's ``init_clip_text`` tree."""
+    m = _empty(CLIPTextTower, cfg, device)
+    _fill_clip_text(m, numpy_getter(tree))
+    return m
+
+
 def load_vae_from_numpy(tree, cfg: VAEConfig, device="cuda") -> WanVAE:
     m = _empty(WanVAE, cfg, device)
     _fill_vae(m, numpy_getter(tree))
@@ -248,15 +326,26 @@ def load_umt5_from_numpy(tree, cfg: TextEncoderConfig, device="cuda") -> UMT5Enc
 def init_random(cfg: ModelConfig, device, generator: torch.Generator):
     """Random (dit, vae, text) modules drawn on ``device`` from
     ``generator`` (which must live on that device), with the reference
-    inits' distributions."""
+    inits' distributions; the DiT is ``cfg.arch``'s (``archs.py``)."""
+    from ..archs import get_arch
+
+    arch = get_arch(cfg.arch)
     out = []
-    for cls, sub, fill in ((LongCatDiT, cfg.dit, _fill_dit),
+    for cls, sub, fill in ((arch.dit_cls, cfg.dit, arch.fill),
                            (WanVAE, cfg.vae, _fill_vae),
                            (UMT5Encoder, cfg.text, _fill_umt5)):
         m = _empty(cls, sub, device)
         fill(m, random_getter(generator, device))
         out.append(m)
     return tuple(out)
+
+
+def init_random_clip_text(cfg: CLIPTextConfig, device,
+                          generator: torch.Generator) -> CLIPTextTower:
+    """A random CLIP text tower (``init_clip_text``'s distributions)."""
+    m = _empty(CLIPTextTower, cfg, device)
+    _fill_clip_text(m, random_getter(generator, device))
+    return m
 
 
 def train_params_from_numpy(scheme, tree: Dict[str, Any],
@@ -267,17 +356,26 @@ def train_params_from_numpy(scheme, tree: Dict[str, Any],
       - lora {site: {'a': [depth, in, r], 'b': [depth, r, out]}} ->
         "<site>.a" / "<site>.b" in the same layout (builtin mode
         transposes the merged update into ``nn.Linear``'s [out, in] at
-        ``to_forward``);
+        ``to_forward``); the MMDiT's {"double"|"single": {site: ...}} ->
+        "<group>.<site>.a" / ".b";
       - norm_tune {"blocks/<path>": [depth, ...]} (under "norms" with a
         "delta_t" when also_tune_delta) -> "blocks.<i>.<path>" per block;
-      - full: the whole parameter tree, through ``load_dit_from_numpy``.
+      - full: the whole parameter tree, through the backbone's
+        ``from_numpy`` (``archs.py``).
     """
+    from ..archs import get_arch
+
     method = scheme.method
     if method == "full":
-        dit = load_dit_from_numpy(tree, scheme.cfg, device)
+        dit = get_arch(scheme.cfg.arch).from_numpy(tree, scheme.cfg, device)
         return {name: p.detach() for name, p in dit.named_parameters()}
     out: Dict[str, torch.Tensor] = {}
-    if method == "lora":
+    if method == "lora" and scheme.cfg.arch == "mmdit":
+        for group, sites in tree.items():
+            for site, ab in sites.items():
+                for part in ("a", "b"):
+                    out[f"{group}.{site}.{part}"] = _to_torch(ab[part]).to(device)
+    elif method == "lora":
         for site, ab in tree.items():
             for part in ("a", "b"):
                 out[f"{site}.{part}"] = _to_torch(ab[part]).to(device)

@@ -1,8 +1,9 @@
 """Int8 (W8A8) block linears for the decode loop (counterpart of
-``longcat_video_tta_tpu/ops/quant.py``, LongCat layout).
+``longcat_video_tta_tpu/ops/quant.py``).
 
-The heavy per-block linears (fused qkv and proj, cross-attention q, kv
-and proj, SwiGLU w1/w2/w3) get int8 weights with per-output-channel
+The heavy per-block linears (LongCat: fused qkv and proj, cross-attention
+q, kv and proj, SwiGLU w1/w2/w3; MMDiT: the double blocks' img/txt qkv,
+proj and mlp, the single blocks' linear1 and linear2) get int8 weights with per-output-channel
 scales; activations are quantized per token at run time, and the
 product runs int8 x int8 -> int32. Embedders, adaLN, norms and the final
 layer stay in the compute dtype. Decode only: training stays 16-bit.
@@ -99,20 +100,45 @@ def shallow_module(mod: nn.Module) -> nn.Module:
     return new
 
 
+def _quantize_stack(blocks: nn.ModuleList, spec: Dict[str, Tuple[str, ...]]
+                    ) -> nn.ModuleList:
+    """Copies of ``blocks`` whose linears named by ``spec`` ({submodule:
+    names}; "" for the block's own linears) are ``Int8Linear``."""
+    out = nn.ModuleList()
+    for blk in blocks:
+        nb = shallow_module(blk)
+        for group, names in spec.items():
+            sub = nb if group == "" else shallow_module(getattr(blk, group))
+            for name in names:
+                sub._modules[name] = Int8Linear.from_linear(getattr(sub, name))
+            if group:
+                nb._modules[group] = sub
+        out.append(nb)
+    return out
+
+
 def quantize_dit_blocks_int8(dit: nn.Module) -> nn.Module:
     """A LongCat DiT whose per-block heavy linears are ``Int8Linear``;
     every other parameter (embedders, adaLN, norms, the final layer, the
     biases) is the same tensor as in ``dit``, so no second 16-bit copy
     exists. ``ops.layers.linear`` dispatches on the layer type."""
     new = shallow_module(dit)
-    blocks = nn.ModuleList()
-    for blk in dit.blocks:
-        nb = shallow_module(blk)
-        for group, names in _BLOCK_LINEARS.items():
-            sub = shallow_module(getattr(blk, group))
-            for name in names:
-                sub._modules[name] = Int8Linear.from_linear(getattr(sub, name))
-            nb._modules[group] = sub
-        blocks.append(nb)
-    new._modules["blocks"] = blocks
+    new._modules["blocks"] = _quantize_stack(dit.blocks, _BLOCK_LINEARS)
     return new
+
+
+_MMDIT_DOUBLE_LINEARS: Dict[str, Tuple[str, ...]] = {
+    "img_attn": ("qkv", "proj"), "txt_attn": ("qkv", "proj"),
+    "img_mlp": ("w_in", "w_out"), "txt_mlp": ("w_in", "w_out"),
+}
+
+
+def quantize_mmdit_blocks_int8(dit: nn.Module) -> nn.Module:
+    """An MMDiT whose double blocks' img/txt attention and mlp linears and
+    single blocks' linear1 / linear2 are ``Int8Linear``; the mods,
+    embedders and the final layer stay 16-bit and shared."""
+    new = shallow_module(dit)
+    new._modules["double_blocks"] = _quantize_stack(dit.double_blocks, _MMDIT_DOUBLE_LINEARS)
+    new._modules["single_blocks"] = _quantize_stack(dit.single_blocks, {"": ("linear1", "linear2")})
+    return new
+

@@ -1,9 +1,11 @@
 """High-level video pipeline (counterpart of
-``longcat_video_tta_tpu/pipeline/pipeline.py``, LongCat branch):
-``ModelBundle`` holds the DiT, VAE and UMT5 modules on one device, and
-``generate_vc`` runs video continuation: VAE-encode the conditioning
-clip, encode the prompt and the negative prompt, sample the generated
-latents with CFG, decode [cond | gen] and slice the generated frames.
+``longcat_video_tta_tpu/pipeline/pipeline.py``, LongCat and MMDiT
+branches): ``ModelBundle`` holds the DiT (LongCat) or MMDiT (Open-Sora
+v2, with its CLIP text tower), the VAE and the UMT5/T5 encoder on one
+device, and ``generate_vc`` runs video continuation: VAE-encode the
+conditioning clip, encode the prompt and the negative prompt, sample the
+generated latents with CFG, decode [cond | gen] and slice the generated
+frames.
 """
 
 from __future__ import annotations
@@ -14,22 +16,29 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import BSAConfig, CFGReuseConfig, ModelConfig, PABConfig
 from ..models import vae as vae_mod
-from ..models.dit import LongCatDiT
+from ..models.clip_text import CLIPTextTower
 from ..models.umt5 import UMT5Encoder, umt5_encode
 from ..models.vae import WanVAE
+from ..archs import get_arch
 from ..models.weights import (
     init_random,
-    load_dit_from_numpy,
+    init_random_clip_text,
+    load_clip_text_from_numpy,
     load_umt5_from_numpy,
     load_vae_from_numpy,
 )
-from ..ops.quant import quantize_dit_blocks_int8
 from ..tta.bucket import bucket_len
 from ..utils.device import resolve_device
-from .sampler import sample_latents, sample_latents_segmented
+from .sampler import (
+    sample_latents,
+    sample_latents_mmdit,
+    sample_latents_mmdit_segmented,
+    sample_latents_segmented,
+)
 
 
 class HashTokenizer:
@@ -74,6 +83,17 @@ def load_hf_tokenizer(checkpoint_dir: str, max_length: int,
     return tokenize
 
 
+def load_hf_clip_tokenizer(checkpoint_dir: str, max_length: int):
+    """The CLIP BPE tokenizer of an MMDiT checkpoint folder (the first of
+    the Flux / Open-Sora subfolder names present), or None."""
+    import os
+
+    for sub in ("tokenizer_2", "clip_tokenizer", "tokenizer_clip"):
+        if os.path.exists(os.path.join(checkpoint_dir, sub)):
+            return load_hf_tokenizer(checkpoint_dir, max_length, subfolder=sub)
+    return None
+
+
 def load_tokenizer(ckpt_dir: str, cfg: ModelConfig):
     """The tokenizer of a checkpoint folder: ``<ckpt_dir>/tokenizer``
     through ``transformers``' ``AutoTokenizer`` where the folder exists
@@ -95,16 +115,22 @@ def load_tokenizer(ckpt_dir: str, cfg: ModelConfig):
 
 @dataclass
 class ModelBundle:
-    """All model state for the LongCat backbone, on one device."""
+    """All model state for one backbone, on one device. ``cfg.arch``
+    "longcat": ``dit`` a LongCatDiT; "mmdit": ``dit`` an MMDiT, with the
+    CLIP text tower ``clip`` for the pooled y_vec and ``clip_tokenize``
+    (a checkpoint's CLIP BPE tokenizer; None = hash ids capped into the
+    CLIP vocab, for random weights only)."""
 
     cfg: ModelConfig
-    dit: LongCatDiT
+    dit: nn.Module
     vae: WanVAE
     text: UMT5Encoder
     tokenize: Callable[[str], Tuple[np.ndarray, np.ndarray]]
     device: torch.device
     # the int8 decode DiT of ``quantized_dit``: {id(dit): (dit, int8 dit)}
     int8_cache: Dict = field(default_factory=dict, repr=False)
+    clip: Optional[CLIPTextTower] = None
+    clip_tokenize: Optional[Callable[[str], Tuple[np.ndarray, np.ndarray]]] = None
 
     @classmethod
     def init_random(cls, cfg: ModelConfig, seed: int = 0,
@@ -113,27 +139,37 @@ class ModelBundle:
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         dit, vae, text = init_random(cfg, device, gen)
+        clip = (None if cfg.clip is None
+                else init_random_clip_text(cfg.clip, device, gen))
         return cls(cfg, dit, vae, text,
-                   HashTokenizer(cfg.text.vocab_size, cfg.text.max_length), device)
+                   HashTokenizer(cfg.text.vocab_size, cfg.text.max_length), device,
+                   clip=clip)
 
     @classmethod
     def from_numpy(cls, cfg: ModelConfig, dit_params: Dict, vae_params: Dict,
-                   text_params: Dict, device="cuda") -> "ModelBundle":
-        """Bundle from the reference's parameter trees as numpy arrays."""
+                   text_params: Dict, device="cuda",
+                   clip_params: Optional[Dict] = None) -> "ModelBundle":
+        """Bundle from the reference's parameter trees as numpy arrays
+        (``clip_params``: the MMDiT's CLIP text tree)."""
         device = resolve_device(device)
+        clip = (None if clip_params is None
+                else load_clip_text_from_numpy(clip_params, cfg.clip, device))
         return cls(cfg,
-                   load_dit_from_numpy(dit_params, cfg.dit, device),
+                   get_arch(cfg.arch).from_numpy(dit_params, cfg.dit, device),
                    load_vae_from_numpy(vae_params, cfg.vae, device),
                    load_umt5_from_numpy(text_params, cfg.text, device),
-                   HashTokenizer(cfg.text.vocab_size, cfg.text.max_length), device)
+                   HashTokenizer(cfg.text.vocab_size, cfg.text.max_length), device,
+                   clip=clip)
 
     @classmethod
     def from_checkpoint_dir(cls, cfg: ModelConfig, ckpt_dir: str,
                             device="cuda") -> "ModelBundle":
-        """Bundle from a LongCat checkpoint folder in the upstream torch
-        layout: ``<ckpt_dir>/{dit,vae,text_encoder}`` as ``.safetensors``
-        (or ``.bin``) shards, converted tensor by tensor onto ``device``
-        (``models/convert.py``), and the tokenizer of ``load_tokenizer``.
+        """Bundle from a checkpoint folder in the upstream torch layout:
+        ``<ckpt_dir>/{dit,vae,text_encoder}`` (an MMDiT's also ``clip``, a
+        HF CLIPTextModel) as ``.safetensors`` (or ``.bin``) shards,
+        converted tensor by tensor onto ``device`` (``models/convert.py``),
+        and the tokenizer of ``load_tokenizer`` (an MMDiT's CLIP tokenizer
+        from ``load_hf_clip_tokenizer``, with a warning when there is none).
         The VAE's latent statistics come from ``vae/config.json``'s
         ``latents_mean``/``latents_std`` where it has them (the diffusers
         convention), else from the preset. Differs from the reference by
@@ -144,7 +180,7 @@ class ModelBundle:
         import os
 
         from ..models.convert import (
-            load_dit_checkpoint,
+            load_clip_text_checkpoint,
             load_umt5_checkpoint,
             load_vae_checkpoint,
         )
@@ -159,19 +195,43 @@ class ModelBundle:
                     cfg.vae, latents_mean=tuple(vmeta["latents_mean"]),
                     latents_std=tuple(vmeta["latents_std"])))
         tokenize = load_tokenizer(ckpt_dir, cfg)
+        clip = clip_tokenize = None
+        if cfg.arch == "mmdit":
+            clip = load_clip_text_checkpoint(os.path.join(ckpt_dir, "clip"), cfg.clip,
+                                             device)
+            clip_tokenize = load_hf_clip_tokenizer(ckpt_dir, cfg.clip.max_length)
+            if clip_tokenize is None:
+                print("WARNING: no CLIP tokenizer subfolder in the checkpoint: the MMDiT "
+                      "y_vec conditioning will use hash ids capped into the CLIP vocab "
+                      "(meaningless with real CLIP weights). Copy the checkpoint's CLIP "
+                      f"tokenizer to {os.path.join(ckpt_dir, 'tokenizer_2')}.")
         return cls(cfg,
-                   load_dit_checkpoint(os.path.join(ckpt_dir, "dit"), cfg.dit, device),
+                   get_arch(cfg.arch).from_checkpoint(os.path.join(ckpt_dir, "dit"),
+                                                      cfg.dit, device),
                    load_vae_checkpoint(os.path.join(ckpt_dir, "vae"), cfg.vae, device),
                    load_umt5_checkpoint(os.path.join(ckpt_dir, "text_encoder"),
                                         cfg.text, device),
-                   tokenize, device)
+                   tokenize, device, clip=clip, clip_tokenize=clip_tokenize)
 
     def encode_prompt(self, prompt: str) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (embeds [1, L, C], mask [1, L])."""
+        """longcat -> (embeds [1, L, C], mask [1, L]); mmdit -> (txt
+        [1, L, C_t5], y_vec [1, C_clip]): the T5 tokens and the CLIP pooled
+        vector. Without a CLIP tokenizer the CLIP ids are the T5 (hash)
+        ids capped at the CLIP vocab's last id and cut to its
+        max_length."""
         ids, mask = self.tokenize(prompt)
-        ids = torch.from_numpy(ids).to(self.device)
-        mask = torch.from_numpy(mask).to(self.device)
-        return umt5_encode(self.text, ids, mask), mask
+        emb = umt5_encode(self.text, torch.from_numpy(ids).to(self.device),
+                          torch.from_numpy(mask).to(self.device))
+        if self.cfg.arch != "mmdit":
+            return emb, torch.from_numpy(mask).to(self.device)
+        ccfg = self.cfg.clip
+        if self.clip_tokenize is not None:
+            clip_ids = np.asarray(self.clip_tokenize(prompt)[0])[:, :ccfg.max_length]
+        else:
+            clip_ids = np.minimum(ids, ccfg.vocab_size - 1)[:, :ccfg.max_length]
+        y_vec = self.clip.pooled(torch.from_numpy(clip_ids.astype(np.int64)).to(
+            self.device))
+        return emb, y_vec
 
     def encode_video(self, pixels: torch.Tensor) -> torch.Tensor:
         """pixels [B, 3, T, H, W] in [-1, 1] -> normalized latents; clips
@@ -189,7 +249,7 @@ class ModelBundle:
         return vae_mod.vae_decode(self.vae, latents)
 
 
-def _quantized_cached(bundle: ModelBundle, dit: LongCatDiT) -> LongCatDiT:
+def _quantized_cached(bundle: ModelBundle, dit: nn.Module) -> nn.Module:
     """The W8A8 decode DiT of ``dit``, quantized once and kept on the
     bundle for later requests (keyed by the 16-bit DiT's identity, the
     entry holding a reference to it so the key stays valid). A stale entry
@@ -199,7 +259,7 @@ def _quantized_cached(bundle: ModelBundle, dit: LongCatDiT) -> LongCatDiT:
     if hit is not None and hit[0] is dit:
         return hit[1]
     bundle.int8_cache.clear()
-    q = quantize_dit_blocks_int8(dit)
+    q = get_arch(bundle.cfg.arch).quantize(dit)
     bundle.int8_cache[id(dit)] = (dit, q)
     return q
 
@@ -224,7 +284,7 @@ def generate_vc(
     use_kv_cache: bool = True,
     init_noise: Optional[torch.Tensor] = None,
     adapters: Optional[Dict[str, torch.Tensor]] = None,
-    dit: Optional[LongCatDiT] = None,
+    dit: Optional[nn.Module] = None,
     bsa_cfg: Optional[BSAConfig] = None,
     quantize_decode: str = "none",
     bucket_gen: bool = False,
@@ -232,9 +292,18 @@ def generate_vc(
     pab_cfg: Optional[PABConfig] = None,
     cfgr_cfg: Optional[CFGReuseConfig] = None,
     on_phase: Optional[Callable[[str], None]] = None,
+    init_x: Optional[torch.Tensor] = None,
 ) -> np.ndarray:
     """Video continuation. Returns the generated frames [N, H, W, 3] in
     [0, 1] (N = num_frames rounded up to 4k+1).
+
+    On an MMDiT bundle (``cfg.arch == "mmdit"``) the triple-CFG sampler
+    (``sample_latents_mmdit``) denoises the whole [cond | gen] volume from
+    ``init_x`` (the initial volume [1, C, T_cond + T_gen, lat_h, lat_w];
+    tests inject the reference's draw) or from a draw on the device from
+    ``seed``, and the cond region is set back to the exact cond latents
+    before decoding. BSA, ``bucket_gen``, ``init_noise`` and int8qk are
+    refused there, as in the reference; ``use_kv_cache`` does not apply.
 
     The initial noise is drawn on the bundle's device from ``seed``.
     ``init_noise`` ([1, C, L*, lat_h, lat_w], unit variance) overwrites
@@ -276,13 +345,25 @@ def generate_vc(
     lat_h, lat_w = cond_latents.shape[3], cond_latents.shape[4]
 
     decode_dit = bundle.dit if dit is None else dit
+    if init_x is not None and cfg.arch != "mmdit":
+        raise ValueError("init_x is the MMDiT sampler's initial volume; the LongCat "
+                         "sampler takes init_noise")
+    if cfg.arch == "mmdit":
+        return _generate_vc_mmdit(
+            bundle, decode_dit, dit is not None, cond_latents, emb, mask, nemb, nmask,
+            nf=nf, n_gen_latents=n_gen_latents, num_inference_steps=num_inference_steps,
+            guidance_scale=guidance_scale, seed=seed, init_noise=init_noise,
+            init_x=init_x, adapters=adapters, bsa_cfg=bsa_cfg,
+            quantize_decode=quantize_decode, bucket_gen=bucket_gen,
+            gen_segment_steps=gen_segment_steps, pab_cfg=pab_cfg, cfgr_cfg=cfgr_cfg,
+            mark=mark, on_phase=on_phase)
     if quantize_decode == "int8qk":
         bsa_cfg = dataclasses.replace(
             bsa_cfg if bsa_cfg is not None else BSAConfig(keep_ratio=1.0),
             qk_int8=True)
     if quantize_decode in ("int8", "int8qk"):
         decode_dit = (_quantized_cached(bundle, bundle.dit) if dit is None
-                      else quantize_dit_blocks_int8(dit))
+                      else get_arch(cfg.arch).quantize(dit))
     elif quantize_decode != "none":
         raise ValueError(f"quantize_decode {quantize_decode!r} is not one of "
                          "none, int8, int8qk")
@@ -312,12 +393,15 @@ def generate_vc(
     else:
         gen_latents = sample_latents(decode_dit, cfg.scheduler, emb, mask, nemb,
                                      nmask, guidance_scale, **kw)
-    gen_latents = gen_latents[:, :, :n_gen_latents]
+    return _decode_generated(bundle, cond_latents, gen_latents[:, :, :n_gen_latents],
+                             nf, mark)
 
-    # Decode [cond | gen] together so the causal decoder sees the real
-    # temporal context; n_cond latents decode to 1 + (n_cond-1)*tf
-    # frames, and the generated clip is the nf frames right after them.
-    tf = cfg.vae.temporal_factor
+
+def _decode_generated(bundle: ModelBundle, cond_latents, gen_latents, nf: int, mark):
+    """Decode [cond | gen] together so the causal decoder sees the real
+    temporal context; n_cond latents decode to 1 + (n_cond-1)*tf frames,
+    and the generated clip is the nf frames right after them."""
+    tf = bundle.cfg.vae.temporal_factor
     mark("vae_decode")
     full = torch.cat([cond_latents, gen_latents], dim=2)
     pixels = bundle.decode_latents(full)
@@ -326,3 +410,45 @@ def generate_vc(
     out = gen_px.permute(1, 2, 3, 0).float().cpu().numpy()
     mark("end")
     return out
+
+
+def _generate_vc_mmdit(bundle: ModelBundle, decode_dit, adapted: bool, cond_latents,
+                       emb, y_vec, nemb, ny_vec, *, nf, n_gen_latents,
+                       num_inference_steps, guidance_scale, seed, init_noise, init_x,
+                       adapters, bsa_cfg, quantize_decode, bucket_gen, gen_segment_steps,
+                       pab_cfg, cfgr_cfg, mark, on_phase) -> np.ndarray:
+    """``generate_vc``'s Open-Sora v2 branch: the triple-CFG batch
+    [prompt, neg, neg], the sampler's whole volume with its cond region
+    swapped back to the exact latents, then the decode."""
+    cfg = bundle.cfg
+    for flag, name in ((bsa_cfg, "bsa_cfg"), (bucket_gen, "bucket_gen"),
+                       (init_noise is not None, "init_noise")):
+        if flag:
+            raise NotImplementedError(
+                f"{name} is not supported on the {cfg.arch} decode path (LongCat only): "
+                "no cond-KV/noise split to exploit in the joint-volume sampler — see "
+                "generate_vc")
+    if quantize_decode == "int8qk":
+        raise NotImplementedError("quantize_decode='int8qk' rides the BSA kernel "
+                                  "(LongCat decode only); use 'int8' here")
+    if quantize_decode == "int8":
+        decode_dit = (get_arch(cfg.arch).quantize(decode_dit) if adapted
+                      else _quantized_cached(bundle, decode_dit))
+    elif quantize_decode != "none":
+        raise ValueError(f"quantize_decode {quantize_decode!r} is not one of "
+                         "none, int8, int8qk")
+    lat_h, lat_w = cond_latents.shape[3], cond_latents.shape[4]
+    gen = torch.Generator(device=bundle.device).manual_seed(seed)
+    kw = dict(num_gen_latents=n_gen_latents, num_steps=num_inference_steps,
+              lat_h=lat_h, lat_w=lat_w, cond_latents=cond_latents, adapters=adapters,
+              guidance=float(guidance_scale), pab_cfg=pab_cfg, cfgr_cfg=cfgr_cfg,
+              init_x=init_x, generator=gen, on_phase=on_phase)
+    txt3 = torch.cat([emb, nemb, nemb], dim=0)
+    yv3 = torch.cat([y_vec, ny_vec, ny_vec], dim=0)
+    if gen_segment_steps > 0:
+        full = sample_latents_mmdit_segmented(decode_dit, txt3, yv3,
+                                              segment_steps=gen_segment_steps, **kw)
+    else:
+        full = sample_latents_mmdit(decode_dit, txt3, yv3, **kw)
+    n_cond = cond_latents.shape[2]
+    return _decode_generated(bundle, cond_latents, full[:, :, n_cond:], nf, mark)

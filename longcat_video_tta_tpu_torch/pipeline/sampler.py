@@ -1,6 +1,8 @@
-"""Flow-match Euler CFG sampling loop, LongCat branch (counterpart of
-``longcat_video_tta_tpu/pipeline/sampler.py::sample_latents``,
-``sample_latents_segmented`` and ``_denoise_scan``).
+"""Flow-match Euler CFG sampling loops (counterpart of
+``longcat_video_tta_tpu/pipeline/sampler.py``): the LongCat branch
+(``sample_latents``, ``sample_latents_segmented``, the reference's
+``_denoise_scan``) and the Open-Sora v2 MMDiT branch
+(``sample_latents_mmdit``, ``sample_latents_mmdit_segmented``).
 
 CFG runs the unconditional and conditional branches as one 2B batch in
 the order [uncond; cond]. The conditioning latents are either encoded
@@ -18,6 +20,14 @@ runs and ``v_uncond = v_cond - delta`` with the delta of the last full
 step; under PAB the conditional half of the attention cache is still
 refreshed), gen-horizon bucketing (``num_valid_gen_latents``) and
 segmented dispatch (``sample_latents_segmented``).
+
+The MMDiT branch re-denoises the whole [cond | gen] latent volume every
+step with triple CFG over one 3B batch [cond, uncond, uncond2] (prompt,
+negative with the conditioning, negative without it), combined as
+``u2 + g_img (u - u2) + g (c - u)``, on the Flux resolution-shifted
+schedule; PAB and CFG reuse as in the reference (a reuse step runs the
+conditional third alone and rebuilds u and u2 from the two deltas of the
+last full step).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch
 from ..config import BSAConfig, CFGReuseConfig, PABConfig, SchedulerConfig
 from ..models import scheduler as sched
 from ..models.dit import AdapterDict, LongCatDiT, pab_init_cache
+from ..models.mmdit import MMDiT, pab_init_cache_mmdit
 
 
 def _pab_reuse_flags(num_steps: int, pab_cfg) -> List[bool]:
@@ -198,3 +209,134 @@ def sample_latents_segmented(dit: LongCatDiT, sched_cfg: SchedulerConfig, text_e
     arithmetic is the same loop, so the result is identical."""
     return _sample(dit, sched_cfg, text_emb, text_mask, neg_text_emb, neg_text_mask,
                    guidance_scale, segment_steps=segment_steps, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# MMDiT (Open-Sora v2) sampling
+# ---------------------------------------------------------------------------
+
+
+def flux_time_shift(ts: torch.Tensor, image_seq_len: int) -> torch.Tensor:
+    """The Flux / Open-Sora resolution-shifted schedule: mu linear in the
+    image token count between (256, 0.5) and (4096, 1.15); each t > 0
+    maps to exp(mu) / (exp(mu) + (1/t - 1)), t = 0 stays 0."""
+    import math
+
+    m = (1.15 - 0.5) / (4096 - 256)
+    e = math.exp(m * image_seq_len + (0.5 - m * 256))
+    safe = torch.where(ts > 0, ts, torch.ones_like(ts))
+    return torch.where(ts > 0, e / (e + (1.0 / safe - 1.0)), torch.zeros_like(ts))
+
+
+def _mmdit_setup(cfg, txt3, num_gen_latents, num_steps, lat_h, lat_w, cond_latents,
+                 shift, init_x=None, generator=None):
+    """(x, cond3, t_pairs) of both MMDiT samplers: the initial volume
+    [B, C, T_cond + num_gen, H, W] (``init_x`` when given, else drawn from
+    ``generator``), the triple-CFG conditioning [cond_in, cond_in, 0] and
+    the (t_curr, t_prev) pairs of the schedule."""
+    from ..tta.losses import mmdit_cond_input
+
+    B = txt3.shape[0] // 3
+    device = txt3.device
+    t_cond = 0 if cond_latents is None else cond_latents.shape[2]
+    T = t_cond + num_gen_latents
+    shape = (B, cfg.in_channels, T, lat_h, lat_w)
+    if init_x is not None:
+        if tuple(init_x.shape) != shape:
+            raise ValueError(f"init_x {tuple(init_x.shape)} != {shape}")
+        x = init_x.to(device=device, dtype=torch.float32)
+    else:
+        x = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    cond3 = None
+    if cond_latents is not None:
+        cond_in = mmdit_cond_input(cond_latents, T)
+        cond3 = torch.cat([cond_in, cond_in, torch.zeros_like(cond_in)], dim=0)
+    ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=device)
+    if shift:
+        ts = flux_time_shift(ts, T * (lat_h // cfg.patch_size) * (lat_w // cfg.patch_size))
+    return x, cond3, torch.stack([ts[:-1], ts[1:]], dim=1)
+
+
+def _sample_mmdit(dit: MMDiT, txt3, y_vec3, *, num_gen_latents: int, num_steps: int,
+                  lat_h: int, lat_w: int, cond_latents=None, adapters: AdapterDict = None,
+                  guidance: float = 7.5, guidance_img: float = 3.0, shift: bool = True,
+                  pab_cfg: Optional[PABConfig] = None,
+                  cfgr_cfg: Optional[CFGReuseConfig] = None, init_x=None, generator=None,
+                  segment_steps: int = 0,
+                  on_phase: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+    mark = on_phase or (lambda name: None)
+    cfg = dit.cfg
+    B = txt3.shape[0] // 3
+    x, cond3, t_pairs = _mmdit_setup(cfg, txt3, num_gen_latents, num_steps, lat_h,
+                                     lat_w, cond_latents, shift, init_x, generator)
+    g_vec = torch.full((3 * B,), guidance, dtype=torch.float32, device=x.device)
+    t_cond = 0 if cond_latents is None else cond_latents.shape[2]
+    cache, pab_flags = None, [False] * num_steps
+    if pab_cfg is not None:
+        cache = pab_init_cache_mmdit(cfg, 3 * B, t_cond + num_gen_latents, lat_h, lat_w,
+                                     txt3.shape[1], device=x.device)
+        pab_flags = _pab_reuse_flags(num_steps, pab_cfg)
+    deltas, cfg_flags = None, [False] * num_steps
+    if cfgr_cfg is not None:
+        deltas = (torch.zeros_like(x), torch.zeros_like(x))
+        cfg_flags = _cfg_reuse_flags(num_steps, cfgr_cfg)
+
+    def forward(x, t_curr, p_reuse, cond_only):
+        nb = B if cond_only else 3 * B
+        xb = x if cond_only else torch.cat([x, x, x], dim=0)
+        rows = slice(0, nb)
+        return dit(xb, t_curr.expand(nb), txt3[rows], y_vec3[rows],
+                   cond=None if cond3 is None else cond3[rows], guidance=g_vec[rows],
+                   adapters=adapters, pab_reuse=p_reuse, pab_cache=cache,
+                   cache_cond_first=cond_only)
+
+    seg = max(1, int(segment_steps)) if segment_steps else num_steps
+    for i in range(num_steps):
+        mark("step")
+        t_curr, t_prev = t_pairs[i, 0], t_pairs[i, 1]
+        if cfg_flags[i]:
+            cp = forward(x, t_curr, pab_flags[i], cond_only=True)
+            up = cp - deltas[0].to(cp.dtype)
+            u2p = up - deltas[1].to(cp.dtype)
+        else:
+            pred = forward(x, t_curr, pab_flags[i], cond_only=False)
+            cp, up, u2p = pred[:B], pred[B:2 * B], pred[2 * B:]
+            if deltas is not None:
+                deltas = (cp - up, up - u2p)
+        combined = u2p + guidance_img * (up - u2p) + guidance * (cp - up)
+        x = x + (t_prev - t_curr) * combined
+        if (i + 1) % seg == 0 and i + 1 < num_steps and x.is_cuda:
+            torch.cuda.synchronize(x.device)  # bound the work in flight
+    return x
+
+
+def sample_latents_mmdit(dit: MMDiT, txt3: torch.Tensor, y_vec3: torch.Tensor, *,
+                         num_gen_latents: int, num_steps: int, lat_h: int, lat_w: int,
+                         cond_latents: Optional[torch.Tensor] = None,
+                         adapters: AdapterDict = None, guidance: float = 7.5,
+                         guidance_img: float = 3.0, shift: bool = True,
+                         pab_cfg: Optional[PABConfig] = None,
+                         cfgr_cfg: Optional[CFGReuseConfig] = None,
+                         init_x: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None,
+                         on_phase: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+    """The Open-Sora v2 v2v/i2v denoise loop. txt3 [3B, L, C_t5] and
+    y_vec3 [3B, C_clip] in the order [prompt, neg, neg]; Euler steps on
+    the shifted schedule. Returns the whole latent volume [B, C, T_cond +
+    num_gen, H, W] fp32, the cond region included. ``init_x``: the initial
+    volume (tests inject the reference's draw), else drawn from
+    ``generator``. ``on_phase(name)`` is called as each "step" begins."""
+    return _sample_mmdit(dit, txt3, y_vec3, num_gen_latents=num_gen_latents,
+                         num_steps=num_steps, lat_h=lat_h, lat_w=lat_w,
+                         cond_latents=cond_latents, adapters=adapters, guidance=guidance,
+                         guidance_img=guidance_img, shift=shift, pab_cfg=pab_cfg,
+                         cfgr_cfg=cfgr_cfg, init_x=init_x, generator=generator,
+                         on_phase=on_phase)
+
+
+def sample_latents_mmdit_segmented(dit: MMDiT, txt3, y_vec3, *, segment_steps: int,
+                                   **kwargs) -> torch.Tensor:
+    """``sample_latents_mmdit`` with the device synchronized every
+    ``segment_steps`` steps; the same loop, so the same result. PAB caches
+    and CFG-reuse deltas carry across segments."""
+    return _sample_mmdit(dit, txt3, y_vec3, segment_steps=segment_steps, **kwargs)

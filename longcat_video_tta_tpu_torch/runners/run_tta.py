@@ -30,6 +30,12 @@ and ``--fvd-enabled`` / ``--inception-model-path`` stream FVD and FID
 (``eval/i3d.py``, ``eval/inception.py``, ``eval/frechet.py``) into
 ``online_eval``, their moments saved in ``fvd_state.npz`` for a resume.
 
+``--preset opensora_v2`` (or ``opensora_v2_tiny``) runs the Open-Sora v2
+MMDiT backbone (``models/mmdit.py``) with the methods the reference ports
+to it (none, delta_a, lora, full), its conditioned losses and its
+triple-CFG sampler; the flags the reference refuses for that backbone
+are refused at start-up with its messages.
+
 CLI:
   python -m longcat_video_tta_tpu_torch.runners.run_tta \\
       --method delta_a --preset longcat_tiny --synthetic 2 \\
@@ -60,17 +66,18 @@ METHODS = ["none", "full", "lora", "delta_a", "delta_b", "delta_c",
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
-    from ..config import MODEL_PRESETS
+    from ..config import ALL_PRESET_NAMES
 
     p = argparse.ArgumentParser(description="LongCat video TTA (PyTorch port)")
     p.add_argument("--method", default="delta_a", choices=METHODS)
     p.add_argument("--checkpoint-dir", default=None,
-                   help="LongCat checkpoint folder in the upstream torch layout "
-                        "(<dir>/{dit,vae,text_encoder} .safetensors or .bin shards, "
-                        "optional <dir>/tokenizer); random-init weights if unset")
+                   help="checkpoint folder in the upstream torch layout "
+                        "(<dir>/{dit,vae,text_encoder} .safetensors or .bin shards, and "
+                        "<dir>/clip for an Open-Sora v2 preset; optional <dir>/tokenizer); "
+                        "random-init weights if unset")
     p.add_argument("--data-dir", default=None)
     p.add_argument("--output-dir", required=True)
-    p.add_argument("--preset", default="longcat_13b", choices=sorted(MODEL_PRESETS))
+    p.add_argument("--preset", default="longcat_13b", choices=sorted(ALL_PRESET_NAMES))
     p.add_argument("--remat-policy", default=None, choices=list(REMAT_POLICIES),
                    help="override the preset's per-block gradient-checkpoint policy "
                         "(ops/layers.py::remat_wrap): 'full' keeps only block inputs; "
@@ -271,9 +278,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_composition(args) -> None:
+def check_composition(args, arch: str = "longcat") -> None:
     """Refuse at start-up the flag combinations the reference refuses
     (its runner :825-836 and :1011-1022), before any weight is loaded."""
+    if args.method == "dno" and arch != "longcat":
+        raise SystemExit("--method dno is wired for the LongCat backbone only "
+                         "(carried init_noise rides the cond-KV/noise-split sampler)")
     if args.method == "dno":
         bad = [name for on, name in ((args.aug_enabled, "augmentation"),
                                      (args.batch_videos > 1, "--batch-videos"),
@@ -368,9 +378,13 @@ def apply_fast_decode_defaults(args) -> None:
         args.gen_segment_steps = 5
 
 
-def check_decode_levers(args) -> None:
+def check_decode_levers(args, arch: str = "longcat") -> None:
     """Refuse at start-up the lever combinations that generation would
-    reject, before any training budget is spent."""
+    reject, before any training budget is spent; on another backbone than
+    LongCat also --bucket-shapes and the levers its joint-volume sampler
+    does not take (the reference runner's :678 and :698-712)."""
+    if arch != "longcat" and args.bucket_shapes:
+        raise SystemExit("--bucket-shapes is only wired for the LongCat backbone")
     if args.fast_decode_verify > 0:
         if args.skip_generation:
             raise SystemExit("--fast-decode-verify needs generation "
@@ -380,6 +394,15 @@ def check_decode_levers(args) -> None:
             raise SystemExit("--fast-decode-verify: no decode lever is active, "
                              "nothing to verify (enable --fast-decode or "
                              "individual levers)")
+    if not args.skip_generation and arch != "longcat":
+        bad = [name for on, name in (
+            (args.bsa_keep_ratio > 0, "--bsa-keep-ratio"),
+            (args.bucket_gen, "--bucket-gen"),
+            (args.quantize_decode == "int8qk", "--quantize-decode int8qk")) if on]
+        if bad:
+            raise SystemExit(f"{', '.join(bad)}: not supported on the {arch} decode "
+                             "path (LongCat only — no cond-KV/noise split in the "
+                             "joint-volume sampler)")
     if not args.skip_generation and args.no_kv_cache:
         bad = [name for on, name in (
             (args.pab_every > 0, "--pab-every"),
@@ -621,8 +644,12 @@ def main(argv: Optional[List[str]] = None,
          on_phase: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
     args = build_arg_parser().parse_args(argv)
     apply_fast_decode_defaults(args)
-    check_decode_levers(args)
-    check_composition(args)
+    from ..archs import get_arch
+    from ..config import get_model_config
+
+    arch = get_model_config(args.preset).arch
+    check_decode_levers(args, arch)
+    check_composition(args, arch)
     mark = on_phase or (lambda name: None)
 
     from ..config import (
@@ -715,7 +742,8 @@ def main(argv: Optional[List[str]] = None,
             optimizer=args.optimizer, lr=args.lr, steps=args.steps,
             warmup_steps=args.warmup_steps, weight_decay=args.weight_decay,
             grad_clip_norm=args.max_grad_norm))
-        stopper = build_early_stopper(escfg, scheme, dit_cfg)
+        stopper = build_early_stopper(escfg, scheme, dit_cfg,
+                                      anchor_fn=get_arch(arch).anchor)
     gate_scorer = make_gate_scorer(args, gatecfg, device)
     pool = None
     if args.batch_videos > 1:
@@ -925,9 +953,15 @@ class TrainInputs:
 
     def __init__(self, args, bundle, escfg, augcfg, pool, n_ctx_lat: int,
                  encode_window: Callable):
+        from ..archs import get_arch
+
         self.args, self.bundle, self.escfg = args, bundle, escfg
         self.augcfg, self.pool, self.n_ctx_lat = augcfg, pool, n_ctx_lat
         self.encode_window = encode_window
+        # the backbone's (train loss, anchor loss): the reference runner's
+        # per-arch loss dispatch
+        arch = get_arch(bundle.cfg.arch)
+        self.losses = (arch.loss, arch.anchor)
 
     def build(self, window_px, cond_l, train_l, emb, mask, entry, idx: int):
         from ..data.augment import build_augmented_latent_variants
@@ -1020,7 +1054,8 @@ def _adapt(args, res, bundle, scheme, opt, stopper, escfg, inputs: TrainInputs,
             val_latents=val_l if do_anchor else None,
             fixed_noises=stopper.fixed_noises if do_anchor else None,
             anchor_sigmas=escfg.anchor_sigmas, on_phase=on_phase,
-            variants=stacks, select=select[s:s + k])
+            variants=stacks, select=select[s:s + k], loss_fn=inputs.losses[0],
+            anchor_fn=inputs.losses[1])
         end = _clock(device)
         s += k
         losses.extend(float(x) for x in loss_vec.tolist())  # the chunk's host sync

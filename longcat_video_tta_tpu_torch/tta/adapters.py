@@ -1,5 +1,5 @@
 """The seven TTA methods as adapter schemes (counterpart of
-``longcat_video_tta_tpu/tta/adapters.py``, LongCat branch). A scheme
+``longcat_video_tta_tpu/tta/adapters.py``, LongCat and MMDiT branches). A scheme
 gives the trainable tensors (``init``) and maps them onto what every loss
 and the sampler consume (``to_forward`` -> (dit, adapters dict or None)).
 
@@ -22,6 +22,11 @@ written. The port keeps one tensor per block where the reference stacks
 a depth axis: a weight's key names its block ("blocks.3.pre_crs_norm.weight").
 LoRA's a and b keep the reference's [depth, in, r] / [depth, r, out]
 layout (keys "<site>.a", "<site>.b").
+
+The Open-Sora v2 MMDiT takes the three methods the reference ports to it
+(``MMDIT_SCHEMES``): delta_a on the hidden-sized vec, LoRA on the
+double-stream img/txt attention (and optionally mlp) linears and the
+single-stream linear1/linear2 (keys "double.<site>.a" ...), full.
 """
 
 from __future__ import annotations
@@ -389,7 +394,94 @@ SCHEMES = {
 }
 
 
-def build_scheme(dit_cfg: DiTConfig, acfg: AdapterConfig) -> AdapterScheme:
-    if acfg.method not in SCHEMES:
-        raise ValueError(f"unknown TTA method {acfg.method!r} (one of {sorted(SCHEMES)})")
-    return SCHEMES[acfg.method](dit_cfg, acfg)
+# ---------------------------------------------------------------------------
+# MMDiT (Open-Sora v2) backbone
+# ---------------------------------------------------------------------------
+
+_MMDIT_DOUBLE_SITES = {
+    "img_qkv": lambda c: (c.hidden_size, 3 * c.hidden_size),
+    "img_proj": lambda c: (c.hidden_size, c.hidden_size),
+    "txt_qkv": lambda c: (c.hidden_size, 3 * c.hidden_size),
+    "txt_proj": lambda c: (c.hidden_size, c.hidden_size),
+    "img_mlp_in": lambda c: (c.hidden_size, c.mlp_dim),
+    "img_mlp_out": lambda c: (c.mlp_dim, c.hidden_size),
+    "txt_mlp_in": lambda c: (c.hidden_size, c.mlp_dim),
+    "txt_mlp_out": lambda c: (c.mlp_dim, c.hidden_size),
+}
+_MMDIT_SINGLE_SITES = {
+    "lin1": lambda c: (c.hidden_size, 3 * c.hidden_size + c.mlp_dim),
+    "lin2": lambda c: (c.hidden_size + c.mlp_dim, c.hidden_size),
+}
+
+
+class MMDiTLoRAScheme(AdapterScheme):
+    """LoRA over the MMDiT's two stacks: ``target_blocks`` "all" | "double"
+    | "single"; ``lora_target_modules`` qkv / proj on the double blocks'
+    img and txt attention, ``lora_target_ffn`` adds their mlps; the single
+    blocks' linear1 / linear2 always (their attention and mlp are fused).
+    a [depth, in, r] U(+-1/sqrt(in)), b zero, scale alpha / rank.
+    ``lora_builtin`` does not apply here (as in the reference)."""
+
+    method = "lora"
+
+    def __init__(self, dit_cfg, acfg):
+        super().__init__(dit_cfg, acfg)
+        if acfg.target_blocks not in ("all", "double", "single"):
+            raise ValueError("MMDiT lora target_blocks must be all|double|single")
+        dsites: List[str] = []
+        if "qkv" in acfg.lora_target_modules:
+            dsites += ["img_qkv", "txt_qkv"]
+        if "proj" in acfg.lora_target_modules:
+            dsites += ["img_proj", "txt_proj"]
+        if acfg.lora_target_ffn:
+            dsites += ["img_mlp_in", "img_mlp_out", "txt_mlp_in", "txt_mlp_out"]
+        self.groups = {
+            "double": (dsites if acfg.target_blocks != "single" else [],
+                       _MMDIT_DOUBLE_SITES, dit_cfg.depth_double),
+            "single": (list(_MMDIT_SINGLE_SITES) if acfg.target_blocks != "double"
+                       else [], _MMDIT_SINGLE_SITES, dit_cfg.depth_single)}
+        self.rank = acfg.lora_rank
+        self.scale = acfg.lora_alpha / acfg.lora_rank
+
+    def init(self, device="cpu", *, dit=None, generator=None):
+        p = {}
+        for group, (sites, table, depth) in self.groups.items():
+            for site in sites:
+                din, dout = table[site](self.cfg)
+                bound = 1.0 / math.sqrt(din)
+                u = torch.rand((depth, din, self.rank), generator=generator,
+                               dtype=torch.float32, device=device)
+                p[f"{group}.{site}.a"] = u * (2 * bound) - bound
+                p[f"{group}.{site}.b"] = _zeros(depth, self.rank, dout, device=device)
+        return p
+
+    def to_forward(self, train_params, dit):
+        ad = {"lora_scale": self.scale}
+        for group, (sites, _, _) in self.groups.items():
+            if sites:
+                ad[f"lora_{group}"] = {site: {"a": train_params[f"{group}.{site}.a"],
+                                              "b": train_params[f"{group}.{site}.b"]}
+                                       for site in sites}
+        return dit, ad
+
+
+MMDIT_SCHEMES = {
+    "delta_a": DeltaAScheme,
+    "lora": MMDiTLoRAScheme,
+    "full": FullScheme,
+}
+
+
+def build_scheme(dit_cfg, acfg: AdapterConfig) -> AdapterScheme:
+    """The LongCat DiT takes all seven methods; the MMDiT the three the
+    reference ports to it (delta_a, lora, full): the backbone's record in
+    ``archs.py``."""
+    from ..archs import get_arch
+
+    schemes = get_arch(dit_cfg.arch).schemes
+    if acfg.method in schemes:
+        return schemes[acfg.method](dit_cfg, acfg)
+    if dit_cfg.arch == "mmdit":
+        raise ValueError(f"method {acfg.method} is not ported to the MMDiT backbone "
+                         "(reference ports delta_a/lora/full — SURVEY.md §2.7)")
+    raise ValueError(f"unknown TTA method {acfg.method!r} (one of {sorted(schemes)})")

@@ -24,13 +24,14 @@ made beside the old ones.
 from __future__ import annotations
 
 import hashlib
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..config import DiTConfig, EarlyStoppingConfig
 from .adapters import AdapterScheme
 from .engine import anchor_loss
+from .losses import flow_matching_loss_conditioned_fixed
 
 
 def fixed_noise_seed(video_id: str) -> int:
@@ -50,11 +51,16 @@ def draw_fixed_noises(val_latents: torch.Tensor, seed: int,
 
 
 class AnchoredEarlyStopper:
+    """``anchor_fn``: the backbone's anchor loss
+    (``archs.get_arch(arch).anchor``)."""
+
     def __init__(self, escfg: EarlyStoppingConfig, scheme: AdapterScheme,
-                 dit_cfg: DiTConfig):
+                 dit_cfg: DiTConfig,
+                 anchor_fn: Callable = flow_matching_loss_conditioned_fixed):
         self.cfg = escfg
         self.scheme = scheme
         self.dit_cfg = dit_cfg
+        self.anchor_fn = anchor_fn
         self._reset()
 
     def _reset(self):
@@ -97,7 +103,7 @@ class AnchoredEarlyStopper:
         return float(anchor_loss(
             self.scheme, self.dit, train_params, self.cond_latents,
             self.val_latents, self.text_emb, self.text_mask, self.fixed_noises,
-            self.cfg.anchor_sigmas))
+            self.cfg.anchor_sigmas, anchor_fn=self.anchor_fn))
 
     # ------------------------------------------------------------------
     def step(self, current_step: int, train_params) -> Tuple[bool, Dict[str, Any]]:
@@ -160,7 +166,9 @@ class AnchoredEarlyStopper:
 
 
 def build_early_stopper(escfg: EarlyStoppingConfig, scheme: AdapterScheme,
-                        dit_cfg: DiTConfig) -> Optional[AnchoredEarlyStopper]:
+                        dit_cfg: DiTConfig,
+                        anchor_fn: Callable = flow_matching_loss_conditioned_fixed
+                        ) -> Optional[AnchoredEarlyStopper]:
     if not escfg.enabled:
         return None
-    return AnchoredEarlyStopper(escfg, scheme, dit_cfg)
+    return AnchoredEarlyStopper(escfg, scheme, dit_cfg, anchor_fn)

@@ -110,14 +110,17 @@ def train_step(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
                sigma: Optional[torch.Tensor] = None,
                noise: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
-               num_valid_target: Optional[int] = None):
+               num_valid_target: Optional[int] = None,
+               loss_fn: Callable = flow_matching_loss_conditioned):
     """One conditioned-loss step -> (train_params, opt_state, loss as a
     0-d tensor on the device). ``num_valid_target``: the target's valid
-    latent frames when it is padded to a bucket."""
+    latent frames when it is padded to a bucket. ``loss_fn``: the
+    backbone's conditioned loss (``archs.get_arch(arch).loss``; the MMDiT's
+    takes (txt, y_vec) in the (text_emb, text_mask) slots)."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in train_params.items()}
     with torch.enable_grad():
         fwd_dit, adapters = scheme.to_forward(leaves, dit)
-        loss = flow_matching_loss_conditioned(
+        loss = loss_fn(
             fwd_dit, cond_latents, target_latents, text_emb, text_mask,
             adapters=adapters, sigma=sigma, noise=noise, generator=generator,
             num_valid_target=num_valid_target)
@@ -132,12 +135,14 @@ def train_step(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
 
 def anchor_loss(scheme: AdapterScheme, dit: LongCatDiT, train_params: TrainParams,
                 cond_latents, val_latents, text_emb, text_mask, fixed_noises,
-                anchor_sigmas: Sequence[float]) -> torch.Tensor:
+                anchor_sigmas: Sequence[float],
+                anchor_fn: Callable = flow_matching_loss_conditioned_fixed
+                ) -> torch.Tensor:
     """The early stopper's fixed-sigma anchor loss on the adapted model
     (a 0-d tensor on the device; no gradient is recorded)."""
     with torch.no_grad():
         fwd_dit, adapters = scheme.to_forward(train_params, dit)
-        return flow_matching_loss_conditioned_fixed(
+        return anchor_fn(
             fwd_dit, cond_latents, val_latents, text_emb, text_mask, fixed_noises,
             fixed_sigmas=tuple(anchor_sigmas), adapters=adapters)
 
@@ -151,7 +156,9 @@ def train_chunk(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
                 anchor_sigmas: Sequence[float] = (),
                 on_phase: Optional[Callable[[str], None]] = None,
                 variants: Optional[Sequence[Dict]] = None,
-                select: Optional[Sequence[int]] = None):
+                select: Optional[Sequence[int]] = None,
+                loss_fn: Callable = flow_matching_loss_conditioned,
+                anchor_fn: Callable = flow_matching_loss_conditioned_fixed):
     """``steps`` optimizer steps, then (when ``val_latents`` is given) the
     anchor eval on the final params: the reference's ``make_train_chunk``
     as a plain loop. Nothing syncs with the host; the caller fetches
@@ -166,7 +173,8 @@ def train_chunk(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
     given (tests inject the reference's draws) and from ``generator``
     otherwise, drawn at the step's (padded) target shape.
     ``on_phase(name)`` is called as "train_chunk" and "anchor_check"
-    begin. Returns (train_params, opt_state, losses [steps] on the
+    begin. ``loss_fn`` / ``anchor_fn``: the backbone's losses
+    (``archs.py``). Returns (train_params, opt_state, losses [steps] on the
     device, anchor 0-d tensor or None)."""
     mark = on_phase or (lambda name: None)
     mark("train_chunk")
@@ -183,13 +191,14 @@ def train_chunk(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
             sigma, noise = draw_sigma_noise(batch[1], generator)
         train_params, opt_state, loss = train_step(
             scheme, dit, opt, train_params, opt_state, *batch[:4], sigma=sigma,
-            noise=noise, num_valid_target=batch[4])
+            noise=noise, num_valid_target=batch[4], loss_fn=loss_fn)
         losses.append(loss)
     anchor = None
     if val_latents is not None:
         mark("anchor_check")
         anchor = anchor_loss(scheme, dit, train_params, cond_latents, val_latents,
-                             text_emb, text_mask, fixed_noises, anchor_sigmas)
+                             text_emb, text_mask, fixed_noises, anchor_sigmas,
+                             anchor_fn=anchor_fn)
     return train_params, opt_state, torch.stack(losses), anchor
 
 

@@ -1,10 +1,16 @@
 """Conditioned flow-matching TTA losses (counterpart of
-``longcat_video_tta_tpu/tta/losses.py``, LongCat branch).
+``longcat_video_tta_tpu/tta/losses.py``, LongCat and MMDiT branches).
 
 Conventions (identical to the reference): x_t = (1-σ)x₀ + σε, target
 v = ε - x₀, σ ~ U[sigma_min, sigma_max], per-latent-frame timesteps
 [0 for the clean conditioning frames, σ·1000 for the target frames],
 MSE in fp32 on the target slice only.
+
+The MMDiT losses (Open-Sora v2) condition through the cond_embed channel
+input ([masks | masked_ref], ``mmdit_cond_input``) with one per-row σ
+over the whole [cond | noisy target] volume, MSE on the target slice;
+their (emb, mask) slots carry (txt, y_vec). Each backbone's (train
+loss, anchor loss) pair is in its record in ``archs.py``.
 
 Random draws: σ and ε are arguments; when they are not given they are
 drawn from ``generator`` (an explicit ``torch.Generator``). Tests pass the
@@ -132,3 +138,90 @@ def flow_matching_loss_conditioned_fixed(
     pred = dit(hidden, timestep, emb_g, mask_g, num_cond_latents=t_cond,
                adapters=adapters)
     return ((pred[:, :, t_cond:] - (noi - tgt_g)) ** 2).mean()
+
+
+# ---------------------------------------------------------------------------
+# MMDiT (Open-Sora v2) backbone
+# ---------------------------------------------------------------------------
+
+
+def mmdit_cond_input(cond_latents: torch.Tensor, t_total: int) -> torch.Tensor:
+    """[B, 1+C, t_total, H, W] fp32: masks (1 on the conditioning frames)
+    and masked_ref (the clean cond latents, zeros after them)."""
+    B, C, t_cond, H, W = cond_latents.shape
+    out = torch.zeros((B, 1 + C, t_total, H, W), dtype=torch.float32,
+                      device=cond_latents.device)
+    out[:, :1, :t_cond] = 1.0
+    out[:, 1:, :t_cond] = cond_latents.float()
+    return out
+
+
+def mmdit_flow_matching_loss_conditioned(
+    dit,
+    cond_latents: torch.Tensor,     # [B, C, T_cond, H, W] clean context
+    target_latents: torch.Tensor,   # [B, C, T_target, H, W]
+    txt: torch.Tensor,              # [B, L, context_in_dim] (T5)
+    y_vec: torch.Tensor,            # [B, vec_in_dim] (CLIP pooled)
+    *,
+    adapters: Optional[Dict[str, torch.Tensor]] = None,
+    sigma: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    sigma_min: float = 0.001,
+    sigma_max: float = 1.0,
+    guidance: float = 7.5,
+    num_valid_target: Optional[int] = None,
+) -> torch.Tensor:
+    """The MMDiT's conditioned loss: noise on the target frames only, the
+    conditioning through ``cond``, the vec's timestep the row's sigma; fp32
+    MSE on the target slice. ``sigma`` [B] and ``noise`` are drawn from
+    ``generator`` when not given."""
+    if num_valid_target is not None:
+        raise NotImplementedError("CP / shape bucketing are not wired for the MMDiT "
+                                  "backbone")
+    if sigma is None or noise is None:
+        s, n = draw_sigma_noise(target_latents, generator, sigma_min=sigma_min,
+                                sigma_max=sigma_max)
+        sigma = s if sigma is None else sigma
+        noise = n if noise is None else noise
+    B, _, t_cond = cond_latents.shape[:3]
+    t_tgt = target_latents.shape[2]
+    sig = sigma.float().reshape(B, 1, 1, 1, 1)
+    tgt32, noise = target_latents.float(), noise.float()
+    noisy = (1.0 - sig) * tgt32 + sig * noise
+    full = torch.cat([cond_latents.float(), noisy], dim=2)
+    pred = dit(full, sigma.float(), txt, y_vec,
+               cond=mmdit_cond_input(cond_latents, t_cond + t_tgt),
+               guidance=torch.full((B,), guidance, device=full.device), adapters=adapters)
+    return ((pred[:, :, t_cond:] - (noise - tgt32)) ** 2).mean()
+
+
+def mmdit_flow_matching_loss_conditioned_fixed(
+    dit,
+    cond_latents: torch.Tensor,
+    target_latents: torch.Tensor,
+    txt: torch.Tensor,
+    y_vec: torch.Tensor,
+    fixed_noises: torch.Tensor,     # [n_draws, B, C, T_target, H, W]
+    *,
+    fixed_sigmas: Sequence[float],
+    adapters: Optional[Dict[str, torch.Tensor]] = None,
+    guidance: float = 7.5,
+) -> torch.Tensor:
+    """The MMDiT anchor loss: one B-row forward per (sigma, draw), sigma
+    major, draw minor (the reference's scan), the mean of their MSEs."""
+    B, _, t_cond = cond_latents.shape[:3]
+    tgt32, cond32 = target_latents.float(), cond_latents.float()
+    cond_in = mmdit_cond_input(cond_latents, t_cond + target_latents.shape[2])
+    g = torch.full((B,), guidance, device=tgt32.device)
+    total, n = torch.zeros((), device=tgt32.device), 0
+    for s in fixed_sigmas:
+        for noise in fixed_noises.float():
+            sigma = torch.full((B,), float(s), device=tgt32.device)
+            noisy = (1.0 - sigma[0]) * tgt32 + sigma[0] * noise
+            pred = dit(torch.cat([cond32, noisy], dim=2), sigma, txt, y_vec,
+                       cond=cond_in, guidance=g, adapters=adapters)
+            total = total + ((pred[:, :, t_cond:] - (noise - tgt32)) ** 2).mean()
+            n += 1
+    return total / n
+

@@ -129,6 +129,9 @@ class ShardIndex:
     def __contains__(self, key: str) -> bool:
         return key in self._where
 
+    def keys(self):
+        return list(self._where)
+
     def _bin_shard(self, path: str) -> dict:
         if self._open_bin[0] != path:  # one .bin shard mapped at a time
             self._open_bin = (path, torch.load(path, map_location="cpu",

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where one request's time goes in the PyTorch port, on one NVIDIA GPU.
 
-    python3 scripts/torch_profile_request.py [--method none|METHOD] [--depth 48]
-        [--steps N --cond-frames N --gen-frames N] [run_tta flags]
+    python3 scripts/torch_profile_request.py [--preset longcat_13b|opensora_v2]
+        [--method none|METHOD] [--depth 48] [--steps N --cond-frames N
+        --gen-frames N] [run_tta flags]
 
-LongCat-13.6B width (random bf16 weights drawn on the card), 480x832
-synthetic clips. Phase times come from the serving code's own
+LongCat-13.6B width, or with ``--preset opensora_v2`` the Open-Sora v2
+MMDiT at its published width and depth (random bf16 weights drawn on the
+card), 480x832 synthetic clips. Phase times come from the serving code's own
 ``on_phase`` hooks: each records a CUDA event on the stream as a phase
 begins, and a phase's time is the stream time between its event and the
 next.
@@ -20,7 +22,8 @@ one of run_tta's decode levers (for example ``--bsa-keep-ratio 0.5`` or
 ``--method METHOD`` (delta_a or any other TTA method, or dno): the runner
 (``run_tta.main``) on 3 videos with the chip_smoke TTA geometry (29-frame
 window, 6 AdamW steps, anchor check every 3, 4 denoising steps; ``full``
-on longcat_bench_3b, as chip_smoke runs it); any other flag goes to the
+on longcat_bench_3b, or on opensora_v2 at chip_smoke's depth cut, as
+chip_smoke runs it); any other flag goes to the
 runner (a method's flags, for example ``--film-mode shift_scale``, or
 ``--lr``). Video 0 warms up, video 1 gives the phase times (window
 encode, stopper setup anchor, each train chunk and anchor check,
@@ -162,7 +165,9 @@ def profile_tta(args, runner_flags) -> int:
             state["wall"] = time.perf_counter() - state["t0"]
             prof.stop()
 
-    preset = "longcat_bench_3b" if args.method == "full" else "longcat_13b"
+    preset = args.preset
+    if args.method == "full" and preset == "longcat_13b":
+        preset = "longcat_bench_3b"
     argv = ["--method", args.method, "--preset", preset, "--synthetic", "3",
             "--output-dir", out_dir, "--device", "cuda",
             "--height", str(T["height"]), "--width", str(T["width"]),
@@ -177,7 +182,11 @@ def profile_tta(args, runner_flags) -> int:
     steps = run_tta.build_arg_parser().parse_args(argv).steps
     if args.depth != 48:
         raise SystemExit(f"--method {args.method} profiles the full preset")
-    summary = run_tta.main(argv, on_phase=on_phase)
+    if args.method == "full" and preset == "opensora_v2":
+        with cs.preset_depth(cs.OPENSORA["full_depth"]):
+            summary = run_tta.main(argv, on_phase=on_phase)
+    else:
+        summary = run_tta.main(argv, on_phase=on_phase)
     if summary["num_success"] != 3:
         raise SystemExit(f"{summary['num_success']}/3 videos succeeded")
     for i, r in enumerate(summary["results"]):
@@ -204,13 +213,14 @@ def lever_kwargs(args, runner_flags):
     (``--bsa-keep-ratio``, ``--quantize-decode``, ``--fast-decode``,
     ``--pab-*``, ``--cfg-reuse-*``, ``--gen-segment-steps``,
     ``--bucket-gen``), parsed and defaulted by the runner's code."""
+    from longcat_video_tta_tpu_torch.config import get_model_config
     from longcat_video_tta_tpu_torch.runners import run_tta
 
     ra = run_tta.build_arg_parser().parse_args(
         ["--output-dir", "-", "--num-frames", str(args.gen_frames),
          "--num-inference-steps", str(args.steps), *runner_flags])
     run_tta.apply_fast_decode_defaults(ra)
-    run_tta.check_decode_levers(ra)
+    run_tta.check_decode_levers(ra, get_model_config(args.preset).arch)
     return dict(run_tta.decode_levers(ra), gen_segment_steps=ra.gen_segment_steps)
 
 
@@ -219,7 +229,8 @@ def main() -> int:
     ap.add_argument("--method", default="none",
                     choices=["none", "delta_a", "delta_b", "delta_c", "film", "lora",
                              "norm_tune", "full", "dno"])
-    ap.add_argument("--depth", type=int, default=48)
+    ap.add_argument("--preset", default="longcat_13b", choices=["longcat_13b", "opensora_v2"])
+    ap.add_argument("--depth", type=int, default=48, help="LongCat only")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--cond-frames", type=int, default=5)
     ap.add_argument("--gen-frames", type=int, default=8)
@@ -239,12 +250,13 @@ def main() -> int:
                          text=True).stdout.strip())
     if args.method != "none":
         return profile_tta(args, runner_flags)
-    from longcat_video_tta_tpu_torch.config import longcat_13b
+    from longcat_video_tta_tpu_torch.config import get_model_config
     from longcat_video_tta_tpu_torch.ops import flash_attention as fa
     from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle, generate_vc
 
-    cfg = longcat_13b()
-    cfg = dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, depth=args.depth))
+    cfg = get_model_config(args.preset)
+    if cfg.arch == "longcat":
+        cfg = dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, depth=args.depth))
     fa.build_libraries()
     bundle, t_init = _sync_time(lambda: ModelBundle.init_random(cfg, seed=0))
     print(f"[init] {t_init:.2f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB")

@@ -390,3 +390,70 @@ def test_int8_linear_on_the_card(card, M):
     torch.cuda.synchronize()
     assert out.shape == ref.shape
     assert float((out.cpu() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+# The Open-Sora v2 MMDiT's joint [txt | img] self-attention: no prefix, no
+# key mask, Sq == Sk with ragged tails (8312 = 64 * 128 + 120, 11 432 = 89
+# * 128 + 40), 24 heads of 128; serving runs the 3-row triple-CFG batch,
+# the anchor eval 1 row of 8312, the train step 1 row of 11 432.
+OPENSORA_CASES = {"serve": (3, 8312), "anchor": (1, 8312), "train": (1, 11432)}
+
+
+def _chunked(fn, q, k, v, *rest, heads=4):
+    """A plain version over head chunks (its fp32 S x S of 24 heads at
+    these lengths would not fit beside the inputs)."""
+    outs = [fn(q[:, :, h:h + heads], k[:, :, h:h + heads], v[:, :, h:h + heads],
+               *(x[:, :, h:h + heads] for x in rest)) for h in range(0, q.shape[2], heads)]
+    return [torch.cat(parts, dim=2) for parts in zip(*outs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(OPENSORA_CASES))
+def test_opensora_joint_attention_shapes(card, case):
+    B, S = OPENSORA_CASES[case]
+    q, k, v = _inputs(B, 24, S, S, 128, torch.bfloat16, card, seed=41)
+    do = _inputs(B, 24, S, S, 128, torch.bfloat16, card, seed=42)[0]
+    o, lse = fa.flash_attention(q, k, v)
+    o_r, lse_r = _chunked(fa.attention_reference, q, k, v)
+    _assert_close(o, lse, o_r, lse_r)
+    del o_r, lse_r
+    if case == "train":
+        delta = (do.float() * o.float()).sum(-1)
+        got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+               *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+        ref = _chunked(fa.attention_backward_reference, q, k, v, o, lse, do)
+        for name, d, d_r in zip(("dq", "dk", "dv"), got, ref):
+            _assert_grad_close(name, d, d_r)
+
+
+# (B, H, S, mlp): a small ragged case, and the serving and train shapes
+# at the published widths (3 H D + mlp = 21 504); backward where the path
+# runs it
+STRIDED_V_CASES = {"small": (2, 2, 300, 1024), "serve": (3, 24, 8312, 12288),
+                   "train": (1, 24, 11432, 12288)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STRIDED_V_CASES))
+def test_opensora_single_block_strided_v(card, case):
+    """The single block's v is a view of linear1's fused output (token
+    stride 3 H D + mlp); q and k are rope's contiguous tensors: forward and
+    both backward kernels take it without a copy."""
+    B, H, S, mlp = STRIDED_V_CASES[case]
+    D = 128
+    g = torch.Generator(device=card).manual_seed(43)
+    h = torch.randn((B, S, 3 * H * D + mlp), generator=g, device=card).bfloat16()
+    v = h[..., :3 * H * D].reshape(B, S, 3, H, D)[:, :, 2]
+    assert v.stride(1) == 3 * H * D + mlp
+    q, k, do = (torch.randn((B, S, H, D), generator=g, device=card).bfloat16()
+                for _ in range(3))
+    o, lse = fa.flash_attention(q, k, v)
+    _assert_close(o, lse, *_chunked(fa.attention_reference, q, k, v))
+    if case == "serve":
+        return
+    delta = (do.float() * o.float()).sum(-1)
+    got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+           *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    ref = _chunked(fa.attention_backward_reference, q, k, v, o, lse, do)
+    for name, d, d_r in zip(("dq", "dk", "dv"), got, ref):
+        _assert_grad_close(name, d, d_r)
