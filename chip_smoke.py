@@ -140,13 +140,28 @@ Phases (each one fails the run when it fails):
      steps), lora (3 steps) and full at a depth cut of 4 double + 8
      single blocks (3 steps; at 11.8B its AdamW state would exceed the
      card): finite metrics and losses, a moving anchor, the trainable
-     count, peak memory and launches equal to ``opensora_run_launches``;
+     count, peak memory and launches equal to ``joint_run_launches``;
      (d) a checkpoint folder (dit/ and clip/ in Open-Sora v2's layout,
      vae/, and text_encoder/ in the UMT5 per-block layout the JAX
      converter reads, not T5 v1.1's; bf16 shards, full width at the depth
      cut) loaded through
      --checkpoint-dir, sampled tensors equal to their shard values after
      the RoPE row permutation, and one request on it.
+ 14. cogvideox (``--only cogvideox``): CogVideoX-5B-I2V (5.57B: hidden
+     3072, 42 blocks of 48 heads of 64; T5-XXL-sized encoder, 226 tokens;
+     WAN VAE at base 128). (a) B1 at its serving shape (2 CFG rows of 8026
+     joint tokens, no mask), its anchor eval's (1 x 8026) and its train
+     step's (1 x 11 146), B2 and B3 at the train step's, head_dim 64,
+     under the gates above with plain and SDPA times; (b) a small
+     CogVideoX with head_dim 64 (hidden 256, rope_dims (16, 24, 24)) on
+     the card against the CPU: generate_vc >= 30 dB, one delta_a, LoRA
+     and full train step within the step agreement's gates; (c) the
+     runner at full width: --method none (2 requests at [main]'s
+     geometry), the lever request as in 13, delta_a on the TTA window (6
+     steps), lora (3 steps) and full at a depth cut of 16 of 42 blocks (3
+     steps; at 5.57B its AdamW state would not fit beside the encoder):
+     finite metrics and losses, a moving anchor, the trainable count,
+     peak memory and launches equal to ``joint_run_launches``.
 
 The counts of every kernel are set to 0 just before each main path and
 read just after; a kernel's ``launches`` in the kernels line is its sum
@@ -2617,32 +2632,36 @@ def phase_eval(fa, depth: int, smi: str, card: str = "cuda", preset: str = "long
 # card-vs-CPU check at a small head-128 MMDiT, and its checkpoint layout
 # ---------------------------------------------------------------------------
 
-OPENSORA = dict(preset="opensora_v2", lr={"delta_a": 1e-3, "lora": 1e-3, "full": 1e-4},
+OPENSORA = dict(name="opensora", preset="opensora_v2",
+                lr={"delta_a": 1e-3, "lora": 1e-3, "full": 1e-4},
                 # full's weights, gradients and AdamW moments at 11.8B are about
                 # 142 GB: full runs at full width with this depth cut
                 full_depth=(4, 8), ckpt_seed=13, small_seed=17)
-# the lever request: W8A8, PAB and CFG reuse every 2, 2-step segments and one
+# the lever request of both joint-attention backbones (Open-Sora v2,
+# CogVideoX): W8A8, PAB and CFG reuse every 2, 2-step segments and one
 # dense generation for the fidelity record
-OPENSORA_LEVERS = ["--quantize-decode", "int8", "--pab-every", "2", "--cfg-reuse-every",
-                   "2", "--gen-segment-steps", "2", "--fast-decode-verify", "1"]
+JOINT_LEVERS = ["--quantize-decode", "int8", "--pab-every", "2", "--cfg-reuse-every",
+                "2", "--gen-segment-steps", "2", "--fast-decode-verify", "1"]
 
 
-def opensora_step_launches(n_attn: int):
-    """Launches per kernel of one MMDiT train step with full remat. For
-    each of the three methods every attention's q, k and v depend on the
-    trainable tensors (delta_a's vec reaches every block's modulation;
-    LoRA patches the double blocks' qkv and the single blocks' linear1;
-    full trains every weight): each attention runs forward twice (the
-    step and the recompute), the dQ kernel once and the dK/dV kernel
-    once."""
+def joint_step_launches(n_attn: int):
+    """Launches per kernel of one train step of a joint-attention backbone
+    (the MMDiT, CogVideoX) with full remat. For each of the three methods
+    every attention's q, k and v depend on the trainable tensors (delta_a's
+    vec or time embedding reaches every block's modulation; LoRA patches
+    the MMDiT's double blocks' qkv and single blocks' linear1, and
+    CogVideoX's to_q / to_k / to_v; full trains every weight): each
+    attention runs forward twice (the step and the recompute), the dQ
+    kernel once and the dK/dV kernel once."""
     return {"flash_fwd": 2 * n_attn, "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn}
 
 
-def opensora_gen_launches(n_attn: int, *, steps: int, pab_every: int = 0) -> int:
-    """Forward launches of one MMDiT generation: every joint attention per
-    denoising step (one launch for the 3-row CFG batch, one for the
-    conditional row alone on a CFG-reuse step), none on the steps PAB
-    reuses (``sampler._pab_reuse_flags`` over [0.1, 0.9) of the steps)."""
+def joint_gen_launches(n_attn: int, *, steps: int, pab_every: int = 0) -> int:
+    """Forward launches of one joint-volume generation: every joint
+    attention per denoising step (one launch for the CFG batch, the
+    MMDiT's 3 rows or CogVideoX's 2, one for the conditional row alone on
+    a CFG-reuse step), none on the steps PAB reuses
+    (``sampler._pab_reuse_flags`` over [0.1, 0.9) of the steps)."""
     from longcat_video_tta_tpu_torch.config import PABConfig
     from longcat_video_tta_tpu_torch.pipeline.sampler import _pab_reuse_flags
 
@@ -2652,14 +2671,14 @@ def opensora_gen_launches(n_attn: int, *, steps: int, pab_every: int = 0) -> int
     return n_attn * (steps - reused)
 
 
-def opensora_run_launches(n_attn: int, *, steps: int, anchors: int, anchor_draws: int,
+def joint_run_launches(n_attn: int, *, steps: int, anchors: int, anchor_draws: int,
                           inference_steps: int):
     """Launches per kernel of one video of a TTA run: ``steps`` train
     steps, ``anchors`` anchor evals of ``anchor_draws`` B-row forwards
     each (sigmas x noise draws), then one generation."""
-    out = {k: steps * n for k, n in opensora_step_launches(n_attn).items()}
+    out = {k: steps * n for k, n in joint_step_launches(n_attn).items()}
     out["flash_fwd"] += (anchors * anchor_draws * n_attn
-                         + opensora_gen_launches(n_attn, steps=inference_steps))
+                         + joint_gen_launches(n_attn, steps=inference_steps))
     return out
 
 
@@ -2679,14 +2698,25 @@ def opensora_small_config():
         param_dtype="bfloat16", compute_dtype="bfloat16"))
 
 
-def opensora_cut_config(depth_double: int, depth_single: int, preset: str = "opensora_v2"):
+def depth_cut_config(depth, preset: str):
+    """``preset`` with its DiT cut to ``depth``: a block count (CogVideoX)
+    or (double, single) block counts (the MMDiT)."""
     import dataclasses
 
     from longcat_video_tta_tpu_torch.config import get_model_config
 
     base = get_model_config(preset)
-    return dataclasses.replace(base, dit=dataclasses.replace(
-        base.dit, depth_double=depth_double, depth_single=depth_single))
+    cut = (dict(depth=depth) if isinstance(depth, int)
+           else dict(depth_double=depth[0], depth_single=depth[1]))
+    return dataclasses.replace(base, dit=dataclasses.replace(base.dit, **cut))
+
+
+def n_joint_attn(dit_cfg) -> int:
+    """Joint attentions per forward: CogVideoX's blocks, the MMDiT's double
+    and single blocks."""
+    if dit_cfg.arch == "cogvideox":
+        return dit_cfg.depth
+    return dit_cfg.depth_double + dit_cfg.depth_single
 
 
 class preset_depth:
@@ -2702,7 +2732,7 @@ class preset_depth:
         from longcat_video_tta_tpu_torch import config
 
         self._orig = config.get_model_config
-        cut = opensora_cut_config(*self.depth, preset=self.preset)
+        cut = depth_cut_config(self.depth, self.preset)
         config.get_model_config = (lambda preset: cut if preset == self.preset
                                    else self._orig(preset))
         return self
@@ -2836,29 +2866,32 @@ def phase_opensora_agreement(fa):
                *step(cpu.dit, on("cpu"), "cpu"))
 
 
-def opensora_run(fa, tag: str, method: str, argv_extra, *, depth=None):
-    """One runner call on the opensora_v2 preset (``depth``: the cut of
-    ``preset_depth``); returns (summary, launches, wall s, peak GiB)."""
+def joint_run(fa, spec, tag: str, method: str, argv_extra, *, depth=None):
+    """One runner call on ``spec``'s preset (OPENSORA or COGVIDEOX;
+    ``depth``: the cut of ``preset_depth``); returns (summary, launches,
+    wall s, peak GiB)."""
     import gc
 
     import torch
 
     from longcat_video_tta_tpu_torch.runners import run_tta
 
-    out_dir = os.path.join(RUN_DIR, f"opensora_{tag}")
+    name = spec["name"]
+    out_dir = os.path.join(RUN_DIR, f"{name}_{tag}")
     shutil.rmtree(out_dir, ignore_errors=True)
-    argv = ["--method", method, "--preset", OPENSORA["preset"], "--output-dir", out_dir,
+    argv = ["--method", method, "--preset", spec["preset"], "--output-dir", out_dir,
             "--device", "cuda", "--height", str(MAIN["height"]),
             "--width", str(MAIN["width"]), "--no-save-videos", *argv_extra]
-    print(f"[opensora {tag}] run_tta " + " ".join(argv)
-          + (f" (depth cut: {depth[0]} double + {depth[1]} single blocks)" if depth else ""))
+    cut = ("" if not depth else f" (depth cut: {depth} blocks)" if isinstance(depth, int)
+           else f" (depth cut: {depth[0]} double + {depth[1]} single blocks)")
+    print(f"[{name} {tag}] run_tta " + " ".join(argv) + cut)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     t0 = time.time()
     if depth:
-        with preset_depth(depth):
+        with preset_depth(depth, spec["preset"]):
             summary = run_tta.main(argv)
     else:
         summary = run_tta.main(argv)
@@ -2869,7 +2902,7 @@ def opensora_run(fa, tag: str, method: str, argv_extra, *, depth=None):
     shutil.rmtree(out_dir, ignore_errors=True)
     for i, r in enumerate(summary["results"]):
         es = r.get("early_stopping_info") or {}
-        print(f"[opensora {tag}] video {i}: success={r['success']} "
+        print(f"[{name} {tag}] video {i}: success={r['success']} "
               f"train_time={r.get('train_time')} s es_check_time={r.get('es_check_time')} s "
               f"gen_time={r.get('gen_time')} s total_time={r.get('total_time')} s "
               f"losses={r.get('losses')} anchors={[x for _, x in es.get('loss_history', [])]}"
@@ -2879,23 +2912,24 @@ def opensora_run(fa, tag: str, method: str, argv_extra, *, depth=None):
               + (f" fast_decode_verify={json.dumps(r['fast_decode_verify'])}"
                  if "fast_decode_verify" in r else "")
               + (f" error={r['error']}" if "error" in r else ""))
-    print(f"[opensora {tag}] wall {wall:.1f} s; max_memory_allocated {peak:.2f} GiB; "
+    print(f"[{name} {tag}] wall {wall:.1f} s; max_memory_allocated {peak:.2f} GiB; "
           f"launches {got}")
     return summary, got, wall, peak
 
 
 def _check_run(tag, summary, got, expected, n_videos):
+    """``tag``: "<backbone> <run>"."""
     import numpy as np
 
     if summary["num_success"] != n_videos:
-        raise AssertionError(f"opensora {tag}: {summary['num_success']}/{n_videos} "
+        raise AssertionError(f"{tag}: {summary['num_success']}/{n_videos} "
                              f"succeeded: {[r.get('error') for r in summary['results']]}")
     for r in summary["results"]:
         if not np.isfinite([r["psnr"], r["ssim"]]).all():
-            raise AssertionError(f"opensora {tag}: non-finite metrics: {r}")
-    print(f"[opensora {tag}] launches expected {expected}")
+            raise AssertionError(f"{tag}: non-finite metrics: {r}")
+    print(f"[{tag}] launches expected {expected}")
     if got != expected:
-        raise AssertionError(f"opensora {tag}: launches {got}, expected {expected}")
+        raise AssertionError(f"{tag}: launches {got}, expected {expected}")
 
 
 def opensora_trainable(method: str, dit_cfg) -> int:
@@ -2915,17 +2949,19 @@ def opensora_trainable(method: str, dit_cfg) -> int:
         return count_params(MMDiT(dit_cfg))
 
 
-def phase_opensora_runs(fa):
-    """The runner on opensora_v2: serving (2 requests), delta_a (1 video on
-    the TTA window), lora (3 steps), full at the depth cut (3 steps) and
-    the lever request. Returns the launches summed over them and the
-    serving request times."""
+def phase_joint_runs(fa, spec):
+    """The runner on ``spec``'s preset (OPENSORA or COGVIDEOX) at full width:
+    serving (2 requests), the lever request, delta_a (1 video on the TTA
+    window), lora (3 steps) and full at the depth cut (3 steps). Returns the
+    launches summed over them and the serving request times."""
     import numpy as np
 
-    from longcat_video_tta_tpu_torch.models.backbones import opensora_v2
+    from longcat_video_tta_tpu_torch.config import get_model_config
 
-    dit_cfg = opensora_v2().dit
-    n_attn = dit_cfg.depth_double + dit_cfg.depth_single
+    name = spec["name"]
+    dit_cfg = get_model_config(spec["preset"]).dit
+    n_attn = n_joint_attn(dit_cfg)
+    trainable = opensora_trainable if dit_cfg.arch == "mmdit" else cogvideox_trainable
     serve = ["--num-cond-frames", str(MAIN["cond_frames"]),
              "--num-frames", str(MAIN["gen_frames"]),
              "--num-inference-steps", str(MAIN["steps"]),
@@ -2936,25 +2972,26 @@ def phase_opensora_runs(fa):
         for k in total:
             total[k] += got[k]
 
-    summary, got, _, _ = opensora_run(fa, "serve", "none",
-                                      ["--synthetic", str(MAIN["requests"]), *serve])
-    expected = {"flash_fwd": MAIN["requests"] * opensora_gen_launches(
+    summary, got, _, _ = joint_run(fa, spec, "serve", "none",
+                                   ["--synthetic", str(MAIN["requests"]), *serve])
+    expected = {"flash_fwd": MAIN["requests"] * joint_gen_launches(
         n_attn, steps=MAIN["steps"]), "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    _check_run("serve", summary, got, expected, MAIN["requests"])
+    _check_run(f"{name} serve", summary, got, expected, MAIN["requests"])
     add(got)
     serve_times = [r["gen_time"] for r in summary["results"]]
 
-    summary, got, _, _ = opensora_run(fa, "levers", "none",
-                                      ["--synthetic", "1", "--caption-guard-mode", "off",
-                                       *serve, *OPENSORA_LEVERS])
-    expected = {"flash_fwd": opensora_gen_launches(n_attn, steps=MAIN["steps"],
-                                                   pab_every=2)
-                + opensora_gen_launches(n_attn, steps=MAIN["steps"]),
+    summary, got, _, _ = joint_run(fa, spec, "levers", "none",
+                                   ["--synthetic", "1", "--caption-guard-mode", "off",
+                                    *serve, *JOINT_LEVERS])
+    expected = {"flash_fwd": joint_gen_launches(n_attn, steps=MAIN["steps"], pab_every=2)
+                + joint_gen_launches(n_attn, steps=MAIN["steps"]),
                 "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    _check_run("levers", summary, got, expected, 1)
+    _check_run(f"{name} levers", summary, got, expected, 1)
     fdv = summary["fast_decode_verify"]
     if not (fdv and np.isfinite(fdv.get("psnr_fast_vs_dense_mean", np.nan))):
-        raise AssertionError(f"opensora levers: no finite fast_decode_verify: {fdv}")
+        raise AssertionError(f"{name} levers: no finite fast_decode_verify: {fdv}")
+    print(f"[{name} levers] gen_time {summary['results'][0]['gen_time']} s, "
+          f"psnr_fast_vs_dense_mean {fdv['psnr_fast_vs_dense_mean']}")
     add(got)
 
     window = ["--num-cond-frames", str(TTA["cond_frames"]),
@@ -2967,29 +3004,31 @@ def phase_opensora_runs(fa):
             "lora": dict(steps=METHOD["steps"], check=METHOD["check_every"],
                          inference=METHOD["inference_steps"]),
             "full": dict(steps=METHOD["steps"], check=METHOD["check_every"],
-                         inference=METHOD["inference_steps"], depth=OPENSORA["full_depth"])}
-    for method, spec in runs.items():
-        depth = spec.get("depth")
-        cfg = opensora_cut_config(*depth).dit if depth else dit_cfg
-        n = cfg.depth_double + cfg.depth_single
-        argv = [*window, "--steps", str(spec["steps"]), "--lr", str(OPENSORA["lr"][method]),
-                "--es-check-every", str(spec["check"]), "--es-patience", str(TTA["patience"]),
-                "--num-inference-steps", str(spec["inference"])]
-        summary, got, wall, peak = opensora_run(fa, method, method, argv, depth=depth)
-        anchors = 1 + spec["steps"] // spec["check"]
-        expected = opensora_run_launches(n, steps=spec["steps"], anchors=anchors,
-                                         anchor_draws=6, inference_steps=spec["inference"])
-        _check_run(method, summary, got, expected, 1)
+                         inference=METHOD["inference_steps"], depth=spec["full_depth"])}
+    for method, run in runs.items():
+        depth = run.get("depth")
+        cfg = depth_cut_config(depth, spec["preset"]).dit if depth else dit_cfg
+        argv = [*window, "--steps", str(run["steps"]), "--lr", str(spec["lr"][method]),
+                "--es-check-every", str(run["check"]), "--es-patience", str(TTA["patience"]),
+                "--num-inference-steps", str(run["inference"])]
+        summary, got, wall, peak = joint_run(fa, spec, method, method, argv, depth=depth)
+        anchors = 1 + run["steps"] // run["check"]
+        expected = joint_run_launches(n_joint_attn(cfg), steps=run["steps"],
+                                      anchors=anchors, anchor_draws=6,
+                                      inference_steps=run["inference"])
+        _check_run(f"{name} {method}", summary, got, expected, 1)
         r = summary["results"][0]
         history = [x for _, x in r["early_stopping_info"]["loss_history"]]
-        want = opensora_trainable(method, cfg)
+        want = trainable(method, cfg)
         if not (np.isfinite(r["losses"] + history).all()
-                and len(r["losses"]) == spec["steps"] and len(history) == anchors
+                and len(r["losses"]) == run["steps"] and len(history) == anchors
                 and history[-1] != history[0] and r["trainable_params"] == want):
-            raise AssertionError(f"opensora {method}: did not train, non-finite values or "
+            raise AssertionError(f"{name} {method}: did not train, non-finite values or "
                                  f"trainable {r['trainable_params']} != {want}: {r}")
-        print(f"[opensora {method}] trainable {want}, peak {peak:.2f} GiB, "
-              f"wall {wall:.1f} s")
+        print(f"[{name} {method}] trainable {want}, train step "
+              f"{r['train_time'] / run['steps']:.3f} s, anchor eval (es_check_time / "
+              f"{anchors}) {r['es_check_time'] / anchors:.3f} s, gen_time {r['gen_time']} s, "
+              f"peak {peak:.2f} GiB, wall {wall:.1f} s")
         add(got)
     return total, serve_times
 
@@ -3085,7 +3124,7 @@ def phase_opensora_checkpoint(fa):
     from longcat_video_tta_tpu_torch.runners import run_tta
 
     depth = OPENSORA["full_depth"]
-    cfg = opensora_cut_config(*depth)
+    cfg = depth_cut_config(depth, OPENSORA["preset"])
     folder = tempfile.mkdtemp(prefix="ckpt-os-", dir=RUN_DIR)
     try:
         t0 = time.time()
@@ -3099,7 +3138,7 @@ def phase_opensora_checkpoint(fa):
                 folder]
         args = run_tta.build_arg_parser().parse_args(
             base + ["--output-dir", os.path.join(RUN_DIR, "os_ckpt_run")])
-        with preset_depth(depth):
+        with preset_depth(depth, OPENSORA["preset"]):
             torch.cuda.synchronize()
             t0 = time.time()
             bundle = run_tta.load_bundle(args)
@@ -3126,10 +3165,11 @@ def phase_opensora_checkpoint(fa):
                  "--num-frames", str(MAIN["gen_frames"]),
                  "--num-inference-steps", str(MAIN["steps"]),
                  "--guidance-scale", str(MAIN["guidance"]), "--caption-guard-mode", "off"]
-        summary, got, _, _ = opensora_run(fa, "ckpt_serve", "none", serve, depth=depth)
+        summary, got, _, _ = joint_run(fa, OPENSORA, "ckpt_serve", "none", serve,
+                                       depth=depth)
         n = cfg.dit.depth_double + cfg.dit.depth_single
-        _check_run("ckpt_serve", summary, got, {
-            "flash_fwd": opensora_gen_launches(n, steps=MAIN["steps"]),
+        _check_run("opensora ckpt_serve", summary, got, {
+            "flash_fwd": joint_gen_launches(n, steps=MAIN["steps"]),
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}, 1)
         if not np.isfinite(summary["results"][0]["psnr"]):
             raise AssertionError("opensora checkpoint request: non-finite psnr")
@@ -3149,12 +3189,182 @@ def phase_opensora(fa):
     torch.cuda.empty_cache()
     phase_opensora_agreement(fa)
     torch.cuda.empty_cache()
-    launches, serve_times = phase_opensora_runs(fa)
+    launches, serve_times = phase_joint_runs(fa, OPENSORA)
     print(f"[opensora] serving gen_time per request {serve_times} s")
     got = phase_opensora_checkpoint(fa)
     for k in launches:
         launches[k] += got[k]
     print(f"[opensora] launches over the runs {launches}")
+    return fwd, bwd, launches
+
+
+# ---------------------------------------------------------------------------
+# CogVideoX path: the cogvideox_5b preset (5.57B DiT, 42 blocks of 48 heads
+# of 64; T5-XXL-sized encoder, 226 tokens; the WAN VAE at base 128) through
+# the runner, B1-B3 at head_dim 64, and a card-vs-CPU check at a small
+# head-64 CogVideoX
+# ---------------------------------------------------------------------------
+
+COGVIDEOX = dict(name="cogvideox", preset="cogvideox_5b",
+                 lr={"delta_a": 1e-3, "lora": 1e-3, "full": 1e-4},
+                 # full's weights, gradients and AdamW moments at 5.57B are about
+                 # 67 GB, beside the 9.5 GB encoder and the best snapshot: full
+                 # runs at full width with this depth cut (2.11B)
+                 full_depth=16, small_seed=19)
+
+
+def cogvideox_shapes():
+    """(serving S, train S, anchor S) of the CogVideoX runs at chip_smoke's
+    geometries: 226 text tokens plus 1560 per latent frame at 480 x 832;
+    serving 5 cond + 8 generated frames = 2 + 3 latents, the TTA window's
+    cond + train latents, and cond + val for the anchor."""
+    from longcat_video_tta_tpu_torch.models.backbones import cogvideox_5b
+
+    L = cogvideox_5b().text.max_length
+    per = (MAIN["height"] // 16) * (MAIN["width"] // 16)
+    n_cond_lat = 1 + (MAIN["cond_frames"] - 1) // 4
+    n_gen_lat = (((MAIN["gen_frames"] - 1 + 3) // 4) * 4) // 4 + 1
+    c, t, v = tta_split()
+    return L + (n_cond_lat + n_gen_lat) * per, L + (c + t) * per, L + (c + v) * per
+
+
+def phase_cogvideox_kernels(fa):
+    """B1 at the serving shape (2 CFG rows of 8026 joint tokens, 48 heads of
+    64, no mask, a ragged tail of 90), the anchor eval's (1 row of 8026) and
+    the train step's (11 146, tail 10); B2 and B3 at the train step's."""
+    from longcat_video_tta_tpu_torch.models.backbones import cogvideox_5b
+
+    dit = cogvideox_5b().dit
+    H, D = dit.num_heads, dit.head_dim
+    s_serve, s_train, s_anchor = cogvideox_shapes()
+    fwd = [check_kernel_case(fa, "cvx_serve_joint_d64", 2, H, s_serve, s_serve, D,
+                             timed=True, seed=61),
+           check_kernel_case(fa, "cvx_anchor_joint_d64", 1, H, s_anchor, s_anchor, D,
+                             timed=True, seed=62),
+           check_kernel_case(fa, "cvx_train_joint_d64", 1, H, s_train, s_train, D,
+                             timed=True, seed=63)]
+    bwd = check_bwd_case(fa, "cvx_train_joint_d64", 1, H, s_train, s_train, D, timed=True,
+                         seed=64)
+    for c in fwd:
+        print("[cogvideox kernel] " + json.dumps(c))
+    for c in bwd:
+        print("[cogvideox bwd-kernel] " + json.dumps(c))
+    return fwd, bwd
+
+
+def cogvideox_small_config():
+    """A small CogVideoX whose head_dim is 64, for the card-vs-CPU checks:
+    hidden 256, 4 heads of 64 with the published rope_dims (16, 24, 24), 2
+    blocks, bf16; the tiny preset's VAE and T5 widths (16 text tokens;
+    cogvideox_tiny runs head_dim 16, which the kernels do not take)."""
+    import dataclasses
+
+    from longcat_video_tta_tpu_torch.models.backbones import cogvideox_tiny
+
+    base = cogvideox_tiny()
+    return dataclasses.replace(base, dit=dataclasses.replace(
+        base.dit, hidden_size=256, num_heads=4, rope_dims=(16, 24, 24), time_embed_dim=128,
+        param_dtype="bfloat16", compute_dtype="bfloat16"))
+
+
+def phase_cogvideox_agreement(fa):
+    """The small head-64 CogVideoX (``cogvideox_small_config``): generate_vc
+    on the card against the CPU plain path on the same weights and initial
+    volume, and one delta_a, LoRA and full train step's loss and gradient,
+    same injected sigma and noise."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import AdapterConfig
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle, generate_vc
+    from longcat_video_tta_tpu_torch.tta.adapters import build_scheme
+    from longcat_video_tta_tpu_torch.tta.losses import (
+        cogvideox_flow_matching_loss_conditioned,
+    )
+
+    cfg = cogvideox_small_config()
+    cpu = ModelBundle.init_random(cfg, seed=COGVIDEOX["small_seed"], device="cpu")
+    gpu = dataclasses.replace(
+        cpu, dit=copy.deepcopy(cpu.dit).cuda(), vae=copy.deepcopy(cpu.vae).cuda(),
+        text=copy.deepcopy(cpu.text).cuda(), device=torch.device("cuda"))
+    rng = np.random.default_rng(9)
+    cond = rng.uniform(-1, 1, (1, 3, 5, 64, 128)).astype(np.float32)
+    # 5 cond + 9 generated frames: 2 + 3 latents of 8 x 16 (32 tokens each)
+    x0 = torch.from_numpy(rng.standard_normal((1, 16, 5, 8, 16)).astype(np.float32))
+    kw = dict(num_frames=9, num_inference_steps=3, init_x=x0)
+    a = generate_vc(cpu, cond, "a ball moving across the scene", **kw)
+    fa.reset_launches()
+    b = generate_vc(gpu, cond, "a ball moving across the scene", **kw)
+    launches = fa.launches
+    n_attn = cfg.dit.depth
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    psnr = float("inf") if mse == 0 else -10 * math.log10(mse)
+    print(f"[cogvideox agree] small CogVideoX (hidden 256, 4 heads of 64) generate_vc card "
+          f"vs cpu: shape {b.shape}, max|diff| {float(np.abs(a - b).max()):.4g}, psnr "
+          f"{psnr:.2f} dB (min {E2E_PSNR_MIN}); flash_fwd launches {launches} "
+          f"(expected {3 * n_attn})")
+    if not (np.isfinite(b).all() and psnr >= E2E_PSNR_MIN and launches == 3 * n_attn):
+        raise AssertionError("card and CPU CogVideoX generate_vc disagree")
+
+    arrays = dict(cond=rng.standard_normal((1, 16, 2, 8, 16)),
+                  target=rng.standard_normal((1, 16, 1, 8, 16)),
+                  txt=rng.standard_normal((1, 16, cfg.dit.text_dim)),
+                  sigma=np.array([0.6]), noise=rng.standard_normal((1, 16, 3, 8, 16)))
+    on = lambda dev: {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+                      for k, v in arrays.items()}
+    for method in ("delta_a", "lora", "full"):
+        scheme = build_scheme(cfg.dit, AdapterConfig(method=method))
+        tp = scheme.init("cpu", dit=cpu.dit, generator=torch.Generator().manual_seed(5))
+        if method != "full":  # off zero: every tensor gets a gradient
+            tp = {k: v + 0.01 for k, v in tp.items()}
+
+        def step(dit, d, dev):
+            leaves = {k: v.to(dev).clone().requires_grad_(True) for k, v in tp.items()}
+            fwd_dit, ad = scheme.to_forward(leaves, dit)
+            loss = cogvideox_flow_matching_loss_conditioned(
+                fwd_dit, d["cond"], d["target"], d["txt"], None, adapters=ad,
+                sigma=d["sigma"], noise=d["noise"])
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            return float(loss.detach()), torch.cat([g.double().flatten().cpu()
+                                                    for g in grads])
+
+        _agree(f"small CogVideoX {method} step card vs cpu",
+               *step(gpu.dit, on("cuda"), "cuda"), *step(cpu.dit, on("cpu"), "cpu"))
+
+
+def cogvideox_trainable(method: str, dit_cfg) -> int:
+    """The trainable count each CogVideoX TTA run must report, from the
+    widths: delta_a the time embedding's width; lora (rank 8) on to_q, to_k,
+    to_v and to_out of every block; full every parameter."""
+    import torch
+
+    from longcat_video_tta_tpu_torch.models.cogvideox import CogVideoX, count_params
+
+    D, r = dit_cfg.hidden_size, 8
+    if method == "delta_a":
+        return dit_cfg.time_embed_dim
+    if method == "lora":
+        return dit_cfg.depth * 4 * (D * r + r * D)
+    with torch.device("meta"):
+        return count_params(CogVideoX(dit_cfg))
+
+
+def phase_cogvideox(fa):
+    """(a) B1-B3 at the CogVideoX shapes (head_dim 64), (b) card vs CPU at
+    the small head-64 CogVideoX, (c) the runner at full width. Returns
+    (forward cases, backward cases, launches summed over the runs)."""
+    import torch
+
+    fwd, bwd = phase_cogvideox_kernels(fa)
+    torch.cuda.empty_cache()
+    phase_cogvideox_agreement(fa)
+    torch.cuda.empty_cache()
+    launches, serve_times = phase_joint_runs(fa, COGVIDEOX)
+    print(f"[cogvideox] serving gen_time per request {serve_times} s")
+    print(f"[cogvideox] launches over the runs {launches}")
     return fwd, bwd, launches
 
 
@@ -3181,8 +3391,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive the port on one NVIDIA GPU")
     ap.add_argument("--only", default="",
                     help="development: run the build and these comma-separated phases "
-                         "(checkpoint, remat, bucket, eval, kernel, bwd, opensora) and print "
-                         "no result")
+                         "(checkpoint, remat, bucket, eval, kernel, bwd, opensora, cogvideox) "
+                         "and print no result")
     only = [x for x in ap.parse_args(argv).only.split(",") if x]
     try:
         import torch
@@ -3231,7 +3441,7 @@ def main(argv=None) -> int:
                   "bucket": (phase_bucket_path, fa), "eval": (phase_eval, fa, cfg.dit.depth, smi),
                   "kernel": (phase_kernel_checks, fa, cfg.dit, tokens_per_frame),
                   "bwd": (phase_bwd_kernel_checks, fa, cfg.dit, tokens_per_frame),
-                  "opensora": (phase_opensora, fa)}
+                  "opensora": (phase_opensora, fa), "cogvideox": (phase_cogvideox, fa)}
         for name in only:
             timed_phase(name, *phases[name])
         print(f"[time] all phases {time.time() - t_start:.1f} s")
@@ -3260,8 +3470,9 @@ def main(argv=None) -> int:
     bucket_run = timed_phase("bucket path", phase_bucket_path, fa)
     _, eval_run = timed_phase("eval", phase_eval, fa, cfg.dit.depth, smi)
     os_fwd, os_bwd, os_run = timed_phase("opensora", phase_opensora, fa)
-    cases += os_fwd
-    bwd_cases += os_bwd
+    cv_fwd, cv_bwd, cv_run = timed_phase("cogvideox", phase_cogvideox, fa)
+    cases += os_fwd + cv_fwd
+    bwd_cases += os_bwd + cv_bwd
     print(f"[time] all phases {time.time() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, all_cases):
@@ -3279,7 +3490,7 @@ def main(argv=None) -> int:
     lever_sum = lambda name: sum(levers[run][name] for run in levers)
     train_sum = lambda name: (tta[name] + sum(m[name] for m in methods.values())
                               + remat_run[name] + bucket_run[name] + eval_run[name]
-                              + os_run[name])
+                              + os_run[name] + cv_run[name])
     kernels = [
         entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:133",
               serving_launches + ckpt_launches + train_sum("flash_fwd")

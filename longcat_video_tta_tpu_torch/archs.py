@@ -28,6 +28,7 @@ class Arch:
 def _archs() -> Dict[str, Arch]:
     # built on first use: the modules below import one another
     from .models import convert, weights
+    from .models.cogvideox import CogVideoX
     from .models.dit import LongCatDiT
     from .models.mmdit import MMDiT
     from .ops import quant
@@ -43,6 +44,13 @@ def _archs() -> Dict[str, Arch]:
                       losses.mmdit_flow_matching_loss_conditioned,
                       losses.mmdit_flow_matching_loss_conditioned_fixed,
                       adapters.MMDIT_SCHEMES),
+        "cogvideox": Arch(CogVideoX, weights._fill_cogvideox,
+                          weights.load_cogvideox_from_numpy,
+                          convert.load_cogvideox_checkpoint,
+                          quant.quantize_cogvideox_blocks_int8,
+                          losses.cogvideox_flow_matching_loss_conditioned,
+                          losses.cogvideox_flow_matching_loss_conditioned_fixed,
+                          adapters.COGVIDEOX_SCHEMES),
     }
 
 

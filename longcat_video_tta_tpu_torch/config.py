@@ -1,7 +1,7 @@
 """Typed configuration for the PyTorch port (its own copy of the
 reference's ``config.py``: the model dataclasses, the frame and
-generation configs, and the LongCat presets; the Open-Sora v2 presets
-live in ``models/backbones.py``).
+generation configs, and the LongCat presets; the Open-Sora v2 and
+CogVideoX presets live in ``models/backbones.py``).
 
 Dtypes are stored by name so the dataclasses stay JSON-serializable;
 ``resolve_dtype`` maps a name to the ``torch.dtype``.
@@ -134,6 +134,60 @@ class MMDiTConfig:
 
 
 @dataclass(frozen=True)
+class CogVideoXConfig:
+    """CogVideoX-5B(-I2V) transformer (``models/cogvideox.py``, the
+    diffusers ``CogVideoXTransformer3DModel`` layout): joint [text | video]
+    attention blocks with CogVideoXLayerNormZero (6-chunk modulation of
+    both streams from the time embedding), q/k LayerNorm, 3D RoPE on the
+    video tokens only, I2V through channel-concatenated image latents
+    (in_channels 32 = 16 noisy + 16 image). Defaults are the 5B geometry:
+    42 blocks, 48 heads of 64, hidden 3072."""
+
+    arch: ClassVar[str] = "cogvideox"
+    hidden_size: int = 3072
+    depth: int = 42
+    num_heads: int = 48
+    in_channels: int = 32          # I2V: 16 latent + 16 image-conditioning
+    latent_channels: int = 16
+    out_channels: int = 16
+    patch_size: int = 2            # spatial; the temporal patch is 1
+    text_dim: int = 4096           # T5-XXL
+    time_embed_dim: int = 512      # the delta_a site
+    ffn_mult: float = 4.0
+    rope_dims: Tuple[int, int, int] = (16, 24, 24)
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    # > 0: a learned joint-sequence positional table [len, hidden]
+    # (diffusers use_learned_positional_embeddings, the I2V checkpoints'
+    # patch_embed.pos_embedding) added to the [text | video] tokens
+    learned_pos_embed_len: int = 0
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "full"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def ffn_dim(self) -> int:
+        return int(self.hidden_size * self.ffn_mult)
+
+    @property
+    def adaln_tembed_dim(self) -> int:
+        """The delta_a site's width: the time embedding's output."""
+        return self.time_embed_dim
+
+    def __post_init__(self):
+        if self.hidden_size % self.num_heads != 0:
+            raise ValueError("hidden_size must be divisible by num_heads")
+        if sum(self.rope_dims) != self.head_dim:
+            raise ValueError(f"rope_dims {self.rope_dims} must sum to "
+                             f"head_dim {self.head_dim}")
+
+
+@dataclass(frozen=True)
 class VAEConfig:
     """Causal WAN-style 3D VAE: 4x temporal / 8x spatial factors,
     z_dim-channel latents with per-channel latents_mean/latents_std."""
@@ -262,8 +316,8 @@ class SchedulerConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """``arch`` names the backbone, from the type of ``dit``: "longcat"
-    (a DiTConfig) or "mmdit" (an MMDiTConfig, with the CLIP text tower
-    ``clip`` for the pooled y_vec)."""
+    (a DiTConfig), "mmdit" (an MMDiTConfig, with the CLIP text tower
+    ``clip`` for the pooled y_vec) or "cogvideox" (a CogVideoXConfig)."""
 
     dit: DiTConfig = field(default_factory=DiTConfig)
     vae: VAEConfig = field(default_factory=VAEConfig)
@@ -408,7 +462,8 @@ MODEL_PRESETS = {
 
 # the other backbones' presets are in models/backbones.py; this is every
 # name the runner's --preset takes
-BACKBONE_PRESET_NAMES = ("opensora_v2", "opensora_v2_tiny")
+BACKBONE_PRESET_NAMES = ("cogvideox_5b", "cogvideox_tiny", "opensora_v2",
+                         "opensora_v2_tiny")
 ALL_PRESET_NAMES = tuple(MODEL_PRESETS) + BACKBONE_PRESET_NAMES
 
 

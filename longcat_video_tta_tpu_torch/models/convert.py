@@ -1,8 +1,9 @@
 """Checkpoints in the upstream torch layout -> the port's modules
 (counterpart of ``longcat_video_tta_tpu/models/convert.py``'s
 ``convert_torch_dit_state`` :175, ``convert_torch_umt5_state`` :347,
-``convert_torch_vae_state`` :462 and ``convert_torch_mmdit_state`` :624,
-with the same key mapping, transposes and RoPE row permutations).
+``convert_torch_vae_state`` :462, ``convert_torch_mmdit_state`` :624 and
+``convert_torch_cogvideox_state`` :1031, with the same key mapping,
+transposes and RoPE row permutations).
 
 Where the reference converts a whole state dict into a numpy tree, this
 module converts one tensor at a time: each converter builds a tree of the
@@ -13,9 +14,9 @@ transposes or flattens it there; ``weights._set`` then casts it to the
 parameter's dtype. So a 13.6B checkpoint never stands whole on the host,
 in fp32 or otherwise. Every converter refuses a layout it does not
 understand: a missing key raises ``KeyError``, a key left unread raises
-``ValueError`` (the reference's ``_TrackedStateDict`` rule, :139-165, here
-for the DiT, the MMDiT and UMT5 too; the reference's MMDiT converter
-does not track its reads).
+``ValueError`` (the reference's ``_TrackedStateDict`` rule, :139-165, which
+its CogVideoX converter applies, here for the DiT, the MMDiT and UMT5
+too; the reference's MMDiT converter does not track its reads).
 
 The CLIP part (the reference's :761-1023) maps Hugging Face ``CLIPModel``,
 ``CLIPTextModel`` and ``XCLIPModel`` state dicts onto the port's towers
@@ -29,13 +30,29 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ..config import CLIPTextConfig, DiTConfig, MMDiTConfig, TextEncoderConfig, VAEConfig
+from ..config import (
+    CLIPTextConfig,
+    CogVideoXConfig,
+    DiTConfig,
+    MMDiTConfig,
+    TextEncoderConfig,
+    VAEConfig,
+)
 from ..utils.safetensors import ShardIndex
+from .cogvideox import CogVideoX
 from .dit import LongCatDiT
 from .mmdit import MMDiT
 from .umt5 import UMT5Encoder
 from .vae import WanVAE, decoder_channel_plan
-from .weights import Getter, _empty, _fill_dit, _fill_mmdit, _fill_umt5, _fill_vae
+from .weights import (
+    Getter,
+    _empty,
+    _fill_cogvideox,
+    _fill_dit,
+    _fill_mmdit,
+    _fill_umt5,
+    _fill_vae,
+)
 
 Leaf = Callable[[Optional[int]], torch.Tensor]
 
@@ -215,6 +232,73 @@ def mmdit_tree(src: _Source, cfg: MMDiTConfig) -> Dict:
     return tree
 
 
+def cogvideox_tree(src: _Source, cfg: CogVideoXConfig) -> Dict:
+    """The reference's CogVideoX tree (``convert_torch_cogvideox_state``)
+    over a diffusers ``CogVideoXTransformer3DModel`` state dict: Linear
+    weights transposed; the Conv2d patch kernel [D, C, p, p] as the dense
+    [(c, ph, pw), D] of ``pack_latents``' channel order; the rows of each
+    head of to_q / to_k, their biases and the q/k LayerNorm affines
+    permuted from interleaved RoPE pairs to the half-split rotation
+    (``rope_perm``); ``patch_embed.pos_embedding`` [1, len, D] as
+    ``pos_embed`` [len, D] when the config has a learned table."""
+    nH, dh = cfg.num_heads, cfg.head_dim
+    perm = lambda w: w[rope_perm(dh).to(w.device)]
+
+    def head_rows(w):  # [H dh, ...]: each head's rows by rope_perm
+        rows = torch.arange(w.shape[0], device=w.device).view(nH, dh)
+        return w[rows[:, rope_perm(dh).to(w.device)].reshape(-1)]
+
+    lin = lambda fmt: {"kernel": src.stack(fmt + ".weight", _t),
+                       "bias": src.stack(fmt + ".bias")}
+    top = lambda name: {"kernel": src.one(name + ".weight", _t),
+                        "bias": src.one(name + ".bias")}
+    norm = lambda fmt, fn=lambda w: w: {"weight": src.stack(fmt + ".weight", fn),
+                                        "bias": src.stack(fmt + ".bias", fn)}
+    b = "transformer_blocks.{}."
+    a = b + "attn1."
+
+    def qk(name):
+        return {"kernel": src.stack(a + name + ".weight", lambda w: head_rows(w).t()),
+                "bias": src.stack(a + name + ".bias", head_rows)}
+
+    def norm_zero(n):
+        return {"lin": lin(b + n + ".linear"), "ln": norm(b + n + ".norm")}
+
+    def patch_kernel(w):  # Conv2d [D, C, p, p] -> [(c, ph, pw), D]
+        return w.permute(1, 2, 3, 0).reshape(-1, w.shape[0])
+
+    tree = {
+        "patch_embed": {"kernel": src.one("patch_embed.proj.weight", patch_kernel),
+                        "bias": src.one("patch_embed.proj.bias")},
+        "text_proj": top("patch_embed.text_proj"),
+        "time_embed": {"w1": src.one("time_embedding.linear_1.weight", _t),
+                       "b1": src.one("time_embedding.linear_1.bias"),
+                       "w2": src.one("time_embedding.linear_2.weight", _t),
+                       "b2": src.one("time_embedding.linear_2.bias")},
+        "blocks": {
+            "norm1": norm_zero("norm1"),
+            "attn": {"to_q": qk("to_q"), "to_k": qk("to_k"), "to_v": lin(a + "to_v"),
+                     "to_out": lin(a + "to_out.0"),
+                     "norm_q": norm(a + "norm_q", perm), "norm_k": norm(a + "norm_k", perm)},
+            "norm2": norm_zero("norm2"),
+            "ff": {"w_in": lin(b + "ff.net.0.proj"), "w_out": lin(b + "ff.net.2")},
+        },
+        "norm_final": {"weight": src.one("norm_final.weight"),
+                       "bias": src.one("norm_final.bias")},
+        "norm_out": {"lin": top("norm_out.linear"),
+                     "ln": {"weight": src.one("norm_out.norm.weight"),
+                            "bias": src.one("norm_out.norm.bias")}},
+        "proj_out": top("proj_out"),
+    }
+    if cfg.learned_pos_embed_len > 0:
+        if "patch_embed.pos_embedding" not in src.sd:
+            raise ValueError("cfg.learned_pos_embed_len > 0 but the checkpoint has no "
+                             "patch_embed.pos_embedding key")
+        tree["pos_embed"] = src.one("patch_embed.pos_embedding",
+                                    lambda w: w.reshape(-1, w.shape[-1]))
+    return tree
+
+
 def umt5_tree(src: _Source, cfg: TextEncoderConfig) -> Dict:
     """The reference's UMT5 tree (``convert_torch_umt5_state``) over a HF
     ``UMT5EncoderModel`` state dict: one relative-attention-bias table per
@@ -342,6 +426,22 @@ def load_dit_checkpoint(folder: str, cfg: DiTConfig, device="cuda",
 def load_mmdit_checkpoint(folder: str, cfg: MMDiTConfig, device="cuda") -> MMDiT:
     """The Open-Sora v2 MMDiT of a checkpoint's ``dit/`` shard folder."""
     return _load(folder, MMDiT, cfg, _fill_mmdit, mmdit_tree, "Open-Sora MMDiT", device)
+
+
+def load_cogvideox_checkpoint(folder: str, cfg: CogVideoXConfig,
+                              device="cuda") -> CogVideoX:
+    """The CogVideoX of a checkpoint's ``dit/`` shard folder (a diffusers
+    ``CogVideoXTransformer3DModel`` state dict). A ``pos_embedding`` in the
+    folder is applied, as the reference's converter applies it: the module
+    gets a learned table of its length when the config has none."""
+    import dataclasses
+
+    sd = ShardIndex(folder)
+    key = "patch_embed.pos_embedding"
+    if cfg.learned_pos_embed_len == 0 and key in sd:
+        cfg = dataclasses.replace(cfg, learned_pos_embed_len=sd[key].shape[-2])
+    return _load(folder, CogVideoX, cfg, _fill_cogvideox, cogvideox_tree, "CogVideoX",
+                 device)
 
 
 def load_clip_text_checkpoint(folder: str, cfg: CLIPTextConfig, device="cuda"):

@@ -12,9 +12,9 @@ reference's layout:
   - depth-stacked leaves (DiT blocks, UMT5 layers) are asked for per
     block with ``index`` set.
 The numpy getter reads the tree; the random getter draws from the
-distributions of ``init_dit`` / ``init_mmdit`` (with ``zero_init=False``,
-as ``ModelBundle.init_random`` uses), ``init_vae``, ``init_umt5`` and
-``init_clip_text``. At full width the DiT alone is 27 GB in bf16, so the
+distributions of ``init_dit`` / ``init_mmdit`` / ``init_cogvideox`` (with
+``zero_init=False``, as ``ModelBundle.init_random`` uses), ``init_vae``,
+``init_umt5`` and ``init_clip_text``. At full width the DiT alone is 27 GB in bf16, so the
 draws happen on the device, one leaf at a time.
 """
 
@@ -28,6 +28,7 @@ from torch import nn
 
 from ..config import (
     CLIPTextConfig,
+    CogVideoXConfig,
     DiTConfig,
     MMDiTConfig,
     ModelConfig,
@@ -35,6 +36,7 @@ from ..config import (
     VAEConfig,
 )
 from .clip_text import CLIPTextTower
+from .cogvideox import CogVideoX
 from .dit import LongCatDiT
 from .mmdit import MMDiT
 from .umt5 import UMT5Encoder
@@ -186,6 +188,34 @@ def _fill_mmdit(m: MMDiT, get: Getter) -> None:
     _dense(m.final["proj"], get, ("final", "proj"))
 
 
+def _fill_cogvideox(m: CogVideoX, get: Getter) -> None:
+    """The reference's ``init_cogvideox`` / converter tree: the time
+    embedding {w1, b1, w2, b2} in fp32, per-block stacks under "blocks",
+    ``pos_embed`` [len, hidden] when the config has a learned table."""
+    if m.cfg.learned_pos_embed_len > 0:
+        _vec(m.pos_embed, get, ("pos_embed",), None, ("normal", 0.02))
+    _dense(m.patch_embed, get, ("patch_embed",))
+    _dense(m.text_proj, get, ("text_proj",))
+    for w, b in (("w1", "b1"), ("w2", "b2")):
+        _kernel(m.time_embed[w].weight, get, ("time_embed", w))
+        _vec(m.time_embed[w].bias, get, ("time_embed", b))
+    bp = ("blocks",)
+    for i, blk in enumerate(m.blocks):
+        for n in ("norm1", "norm2"):
+            _dense(getattr(blk, n).lin, get, bp + (n, "lin"), i)
+            _fill_norm_at(getattr(blk, n).ln, get, bp + (n, "ln"), i)
+        for n in ("to_q", "to_k", "to_v", "to_out"):
+            _dense(getattr(blk.attn, n), get, bp + ("attn", n), i)
+        for n in ("norm_q", "norm_k"):
+            _fill_norm_at(getattr(blk.attn, n), get, bp + ("attn", n), i)
+        _dense(blk.ff.w_in, get, bp + ("ff", "w_in"), i)
+        _dense(blk.ff.w_out, get, bp + ("ff", "w_out"), i)
+    _fill_norm(m.norm_final, get, ("norm_final",))
+    _dense(m.norm_out["lin"], get, ("norm_out", "lin"))
+    _fill_norm(m.norm_out["ln"], get, ("norm_out", "ln"))
+    _dense(m.proj_out, get, ("proj_out",))
+
+
 def _fill_clip_text(m: CLIPTextTower, get: Getter) -> None:
     """The reference's ``init_clip_text`` tree (layers stacked on a depth
     axis)."""
@@ -304,6 +334,13 @@ def load_mmdit_from_numpy(tree, cfg: MMDiTConfig, device="cuda") -> MMDiT:
     return m
 
 
+def load_cogvideox_from_numpy(tree, cfg: CogVideoXConfig, device="cuda") -> CogVideoX:
+    """The CogVideoX of the reference's ``init_cogvideox`` / converter tree."""
+    m = _empty(CogVideoX, cfg, device)
+    _fill_cogvideox(m, numpy_getter(tree))
+    return m
+
+
 def load_clip_text_from_numpy(tree, cfg: CLIPTextConfig, device="cuda") -> CLIPTextTower:
     """The CLIP text tower of the reference's ``init_clip_text`` tree."""
     m = _empty(CLIPTextTower, cfg, device)
@@ -356,8 +393,8 @@ def train_params_from_numpy(scheme, tree: Dict[str, Any],
       - lora {site: {'a': [depth, in, r], 'b': [depth, r, out]}} ->
         "<site>.a" / "<site>.b" in the same layout (builtin mode
         transposes the merged update into ``nn.Linear``'s [out, in] at
-        ``to_forward``); the MMDiT's {"double"|"single": {site: ...}} ->
-        "<group>.<site>.a" / ".b";
+        ``to_forward``; the CogVideoX sites likewise); the MMDiT's
+        {"double"|"single": {site: ...}} -> "<group>.<site>.a" / ".b";
       - norm_tune {"blocks/<path>": [depth, ...]} (under "norms" with a
         "delta_t" when also_tune_delta) -> "blocks.<i>.<path>" per block;
       - full: the whole parameter tree, through the backbone's

@@ -3,8 +3,9 @@
 
 The heavy per-block linears (LongCat: fused qkv and proj, cross-attention
 q, kv and proj, SwiGLU w1/w2/w3; MMDiT: the double blocks' img/txt qkv,
-proj and mlp, the single blocks' linear1 and linear2) get int8 weights with per-output-channel
-scales; activations are quantized per token at run time, and the
+proj and mlp, the single blocks' linear1 and linear2; CogVideoX: to_q,
+to_k, to_v, to_out and the feed-forward) get int8 weights with
+per-output-channel scales; activations are quantized per token at run time, and the
 product runs int8 x int8 -> int32. Embedders, adaLN, norms and the final
 layer stay in the compute dtype. Decode only: training stays 16-bit.
 
@@ -142,3 +143,12 @@ def quantize_mmdit_blocks_int8(dit: nn.Module) -> nn.Module:
     new._modules["single_blocks"] = _quantize_stack(dit.single_blocks, {"": ("linear1", "linear2")})
     return new
 
+
+def quantize_cogvideox_blocks_int8(dit: nn.Module) -> nn.Module:
+    """A CogVideoX whose blocks' to_q / to_k / to_v / to_out and ff w_in /
+    w_out are ``Int8Linear``; the LayerNormZero linears, the embedders and
+    the output layers stay 16-bit and shared."""
+    new = shallow_module(dit)
+    new._modules["blocks"] = _quantize_stack(
+        dit.blocks, {"attn": ("to_q", "to_k", "to_v", "to_out"), "ff": ("w_in", "w_out")})
+    return new

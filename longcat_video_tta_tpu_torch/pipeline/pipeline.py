@@ -1,8 +1,8 @@
 """High-level video pipeline (counterpart of
-``longcat_video_tta_tpu/pipeline/pipeline.py``, LongCat and MMDiT
-branches): ``ModelBundle`` holds the DiT (LongCat) or MMDiT (Open-Sora
-v2, with its CLIP text tower), the VAE and the UMT5/T5 encoder on one
-device, and ``generate_vc`` runs video continuation: VAE-encode the
+``longcat_video_tta_tpu/pipeline/pipeline.py``, LongCat, MMDiT and
+CogVideoX branches): ``ModelBundle`` holds the DiT (LongCat, the MMDiT of
+Open-Sora v2 with its CLIP text tower, or CogVideoX), the VAE and the
+UMT5/T5 encoder on one device, and ``generate_vc`` runs video continuation: VAE-encode the
 conditioning clip, encode the prompt and the negative prompt, sample the
 generated latents with CFG, decode [cond | gen] and slice the generated
 frames.
@@ -35,6 +35,8 @@ from ..tta.bucket import bucket_len
 from ..utils.device import resolve_device
 from .sampler import (
     sample_latents,
+    sample_latents_cogvideox,
+    sample_latents_cogvideox_segmented,
     sample_latents_mmdit,
     sample_latents_mmdit_segmented,
     sample_latents_segmented,
@@ -116,10 +118,10 @@ def load_tokenizer(ckpt_dir: str, cfg: ModelConfig):
 @dataclass
 class ModelBundle:
     """All model state for one backbone, on one device. ``cfg.arch``
-    "longcat": ``dit`` a LongCatDiT; "mmdit": ``dit`` an MMDiT, with the
-    CLIP text tower ``clip`` for the pooled y_vec and ``clip_tokenize``
-    (a checkpoint's CLIP BPE tokenizer; None = hash ids capped into the
-    CLIP vocab, for random weights only)."""
+    "longcat": ``dit`` a LongCatDiT; "cogvideox": a CogVideoX; "mmdit": an
+    MMDiT, with the CLIP text tower ``clip`` for the pooled y_vec and
+    ``clip_tokenize`` (a checkpoint's CLIP BPE tokenizer; None = hash ids
+    capped into the CLIP vocab, for random weights only)."""
 
     cfg: ModelConfig
     dit: nn.Module
@@ -214,7 +216,7 @@ class ModelBundle:
                    tokenize, device, clip=clip, clip_tokenize=clip_tokenize)
 
     def encode_prompt(self, prompt: str) -> Tuple[torch.Tensor, torch.Tensor]:
-        """longcat -> (embeds [1, L, C], mask [1, L]); mmdit -> (txt
+        """longcat, cogvideox -> (embeds [1, L, C], mask [1, L]); mmdit -> (txt
         [1, L, C_t5], y_vec [1, C_clip]): the T5 tokens and the CLIP pooled
         vector. Without a CLIP tokenizer the CLIP ids are the T5 (hash)
         ids capped at the CLIP vocab's last id and cut to its
@@ -298,12 +300,15 @@ def generate_vc(
     [0, 1] (N = num_frames rounded up to 4k+1).
 
     On an MMDiT bundle (``cfg.arch == "mmdit"``) the triple-CFG sampler
-    (``sample_latents_mmdit``) denoises the whole [cond | gen] volume from
-    ``init_x`` (the initial volume [1, C, T_cond + T_gen, lat_h, lat_w];
-    tests inject the reference's draw) or from a draw on the device from
-    ``seed``, and the cond region is set back to the exact cond latents
-    before decoding. BSA, ``bucket_gen``, ``init_noise`` and int8qk are
-    refused there, as in the reference; ``use_kv_cache`` does not apply.
+    (``sample_latents_mmdit``), on a CogVideoX bundle the 2-row CFG DDIM
+    sampler (``sample_latents_cogvideox``, rows [neg, pos], the image
+    latents of the first cond latent), denoises the whole [cond | gen]
+    volume from ``init_x`` (the initial volume [1, C, T_cond + T_gen,
+    lat_h, lat_w]; tests inject the reference's draw) or from a draw on the
+    device from ``seed``, and the cond region is set back to the exact cond
+    latents before decoding. BSA, ``bucket_gen``, ``init_noise`` and int8qk
+    are refused there, as in the reference; ``use_kv_cache`` does not
+    apply.
 
     The initial noise is drawn on the bundle's device from ``seed``.
     ``init_noise`` ([1, C, L*, lat_h, lat_w], unit variance) overwrites
@@ -345,11 +350,11 @@ def generate_vc(
     lat_h, lat_w = cond_latents.shape[3], cond_latents.shape[4]
 
     decode_dit = bundle.dit if dit is None else dit
-    if init_x is not None and cfg.arch != "mmdit":
-        raise ValueError("init_x is the MMDiT sampler's initial volume; the LongCat "
-                         "sampler takes init_noise")
-    if cfg.arch == "mmdit":
-        return _generate_vc_mmdit(
+    if init_x is not None and cfg.arch == "longcat":
+        raise ValueError("init_x is the joint-volume samplers' initial volume; the "
+                         "LongCat sampler takes init_noise")
+    if cfg.arch != "longcat":
+        return _generate_vc_joint(
             bundle, decode_dit, dit is not None, cond_latents, emb, mask, nemb, nmask,
             nf=nf, n_gen_latents=n_gen_latents, num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, seed=seed, init_noise=init_noise,
@@ -412,14 +417,16 @@ def _decode_generated(bundle: ModelBundle, cond_latents, gen_latents, nf: int, m
     return out
 
 
-def _generate_vc_mmdit(bundle: ModelBundle, decode_dit, adapted: bool, cond_latents,
-                       emb, y_vec, nemb, ny_vec, *, nf, n_gen_latents,
+def _generate_vc_joint(bundle: ModelBundle, decode_dit, adapted: bool, cond_latents,
+                       emb, aux, nemb, naux, *, nf, n_gen_latents,
                        num_inference_steps, guidance_scale, seed, init_noise, init_x,
                        adapters, bsa_cfg, quantize_decode, bucket_gen, gen_segment_steps,
                        pab_cfg, cfgr_cfg, mark, on_phase) -> np.ndarray:
-    """``generate_vc``'s Open-Sora v2 branch: the triple-CFG batch
-    [prompt, neg, neg], the sampler's whole volume with its cond region
-    swapped back to the exact latents, then the decode."""
+    """``generate_vc``'s Open-Sora v2 and CogVideoX branches: the MMDiT's
+    triple-CFG batch [prompt, neg, neg] (``aux`` its CLIP y_vec) or
+    CogVideoX's [neg, pos] (``aux`` the mask, unread), the sampler's whole
+    volume with its cond region swapped back to the exact latents, then
+    the decode."""
     cfg = bundle.cfg
     for flag, name in ((bsa_cfg, "bsa_cfg"), (bucket_gen, "bucket_gen"),
                        (init_noise is not None, "init_noise")):
@@ -443,12 +450,14 @@ def _generate_vc_mmdit(bundle: ModelBundle, decode_dit, adapted: bool, cond_late
               lat_h=lat_h, lat_w=lat_w, cond_latents=cond_latents, adapters=adapters,
               guidance=float(guidance_scale), pab_cfg=pab_cfg, cfgr_cfg=cfgr_cfg,
               init_x=init_x, generator=gen, on_phase=on_phase)
-    txt3 = torch.cat([emb, nemb, nemb], dim=0)
-    yv3 = torch.cat([y_vec, ny_vec, ny_vec], dim=0)
-    if gen_segment_steps > 0:
-        full = sample_latents_mmdit_segmented(decode_dit, txt3, yv3,
-                                              segment_steps=gen_segment_steps, **kw)
+    seg = dict(segment_steps=gen_segment_steps) if gen_segment_steps > 0 else {}
+    if cfg.arch == "mmdit":
+        txt3 = torch.cat([emb, nemb, nemb], dim=0)
+        yv3 = torch.cat([aux, naux, naux], dim=0)
+        fn = sample_latents_mmdit_segmented if seg else sample_latents_mmdit
+        full = fn(decode_dit, txt3, yv3, **seg, **kw)
     else:
-        full = sample_latents_mmdit(decode_dit, txt3, yv3, **kw)
+        fn = sample_latents_cogvideox_segmented if seg else sample_latents_cogvideox
+        full = fn(decode_dit, torch.cat([nemb, emb], dim=0), **seg, **kw)
     n_cond = cond_latents.shape[2]
     return _decode_generated(bundle, cond_latents, full[:, :, n_cond:], nf, mark)

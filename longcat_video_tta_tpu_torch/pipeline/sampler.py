@@ -28,6 +28,14 @@ negative with the conditioning, negative without it), combined as
 schedule; PAB and CFG reuse as in the reference (a reuse step runs the
 conditional third alone and rebuilds u and u2 from the two deltas of the
 last full step).
+
+The CogVideoX branch (``sample_latents_cogvideox``,
+``sample_latents_cogvideox_segmented``) is DDIM (eta 0) on v-prediction
+over the zero-terminal-SNR schedule, also over the whole volume, with
+2-row CFG [neg, pos] (uncond first) and the I2V image latents on the
+channels; PAB caches each block's attention module output, and a
+CFG-reuse step runs the conditional rows alone against the cache's
+second half and rebuilds uncond = cond - delta.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch
 
 from ..config import BSAConfig, CFGReuseConfig, PABConfig, SchedulerConfig
 from ..models import scheduler as sched
+from ..models.cogvideox import CogVideoX, pab_init_cache_cogvideox
 from ..models.dit import AdapterDict, LongCatDiT, pab_init_cache
 from ..models.mmdit import MMDiT, pab_init_cache_mmdit
 
@@ -340,3 +349,158 @@ def sample_latents_mmdit_segmented(dit: MMDiT, txt3, y_vec3, *, segment_steps: i
     ``segment_steps`` steps; the same loop, so the same result. PAB caches
     and CFG-reuse deltas carry across segments."""
     return _sample_mmdit(dit, txt3, y_vec3, segment_steps=segment_steps, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# CogVideoX sampling (DDIM, v-prediction, zero terminal SNR)
+# ---------------------------------------------------------------------------
+
+
+def _linspace_f32(start: float, stop: float, num: int) -> torch.Tensor:
+    """``jnp.linspace`` in fp32, in the order of operations XLA compiles it
+    to: start * (1 - s) + stop * s with s = i * fp32(1 / (num - 1)) (the
+    division becomes a product with the reciprocal), the last element
+    ``stop`` itself."""
+    start_t = torch.tensor(start, dtype=torch.float32)
+    stop_t = torch.tensor(stop, dtype=torch.float32)
+    if num == 1:
+        return start_t.reshape(1)
+    div = num - 1
+    step = torch.arange(div, dtype=torch.float32) * (torch.tensor(1.0) / div)
+    out = start_t * (1 - step) + stop_t * step
+    return torch.cat([out, stop_t.reshape(1)])
+
+
+def cogvideox_alphas_cumprod(num_train_timesteps: int = 1000, beta_start: float = 0.00085,
+                             beta_end: float = 0.012) -> torch.Tensor:
+    """The CogVideoXDDIMScheduler's alpha_bar [num_train_timesteps] fp32 on
+    the host: scaled-linear betas, their cumulative product, then sqrt
+    alpha_bar rescaled so the last is exactly 0 (zero terminal SNR), in the
+    reference's fp32 order of operations."""
+    betas = _linspace_f32(beta_start ** 0.5, beta_end ** 0.5, num_train_timesteps) ** 2
+    alphas_bar = torch.cumprod(1.0 - betas, dim=0)
+    sqrt_ab = torch.sqrt(alphas_bar)
+    sqrt_ab = (sqrt_ab - sqrt_ab[-1]) * (sqrt_ab[0] / (sqrt_ab[0] - sqrt_ab[-1]))
+    return sqrt_ab ** 2
+
+
+def cogvideox_schedule(num_steps: int, device=None):
+    """(step indices, alpha_bar at each, alpha_bar at the next) of the DDIM
+    loop: indices round(linspace(999, 0, num_steps)) (half to even, as
+    ``jnp.round``), alpha_bar_prev 1 after the last step."""
+    ab = cogvideox_alphas_cumprod()
+    idx = torch.round(_linspace_f32(ab.shape[0] - 1, 0, num_steps)).long()
+    ab_t = ab[idx]
+    ab_prev = torch.cat([ab[idx[1:]], torch.ones(1)])
+    return idx.float().to(device), ab_t.to(device), ab_prev.to(device)
+
+
+def _cogvideox_setup(cfg, text_emb2, num_gen_latents, lat_h, lat_w, cond_latents,
+                     init_x=None, generator=None):
+    """(x, img_lat2) of both CogVideoX samplers: the initial volume [B,
+    latent_channels, T_cond + num_gen, H, W] (``init_x`` when given, else
+    drawn from ``generator``) and the image latents of both CFG rows."""
+    from ..tta.losses import cogvideox_image_latents
+
+    B = text_emb2.shape[0] // 2
+    device = text_emb2.device
+    t_cond = 0 if cond_latents is None else cond_latents.shape[2]
+    T = t_cond + num_gen_latents
+    shape = (B, cfg.latent_channels, T, lat_h, lat_w)
+    if init_x is not None:
+        if tuple(init_x.shape) != shape:
+            raise ValueError(f"init_x {tuple(init_x.shape)} != {shape}")
+        x = init_x.to(device=device, dtype=torch.float32)
+    else:
+        x = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    img2 = None
+    if cond_latents is not None:
+        img = cogvideox_image_latents(cond_latents, T)
+        img2 = torch.cat([img, img], dim=0)
+    return x, img2
+
+
+def _sample_cogvideox(dit: CogVideoX, text_emb2, *, num_gen_latents: int, num_steps: int,
+                      lat_h: int, lat_w: int, cond_latents=None,
+                      adapters: AdapterDict = None, guidance: float = 6.0,
+                      pab_cfg: Optional[PABConfig] = None,
+                      cfgr_cfg: Optional[CFGReuseConfig] = None, init_x=None,
+                      generator=None, segment_steps: int = 0,
+                      on_phase: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+    mark = on_phase or (lambda name: None)
+    cfg = dit.cfg
+    B = text_emb2.shape[0] // 2
+    x, img2 = _cogvideox_setup(cfg, text_emb2, num_gen_latents, lat_h, lat_w,
+                               cond_latents, init_x, generator)
+    t_idx, ab_t, ab_prev = cogvideox_schedule(num_steps, device=x.device)
+    cache, pab_flags = None, [False] * num_steps
+    if pab_cfg is not None:
+        cache = pab_init_cache_cogvideox(cfg, 2 * B, x.shape[2], lat_h, lat_w,
+                                         text_emb2.shape[1], device=x.device)
+        pab_flags = _pab_reuse_flags(num_steps, pab_cfg)
+    delta, cfg_flags = None, [False] * num_steps
+    if cfgr_cfg is not None:
+        delta = torch.zeros_like(x)
+        cfg_flags = _cfg_reuse_flags(num_steps, cfgr_cfg)
+
+    def forward(x, t, p_reuse, cond_only):
+        """The [uncond, cond] pair as one 2B batch, or with ``cond_only``
+        the conditional rows alone (the cache's second half)."""
+        nb = B if cond_only else 2 * B
+        xb = x if cond_only else torch.cat([x, x], dim=0)
+        rows = slice(B, 2 * B) if cond_only else slice(0, 2 * B)
+        return dit(xb, t.expand(nb), text_emb2[rows], None if img2 is None else img2[rows],
+                   adapters=adapters, pab_reuse=p_reuse, pab_cache=cache,
+                   cache_cond_half=cond_only)
+
+    seg = max(1, int(segment_steps)) if segment_steps else num_steps
+    for i in range(num_steps):
+        mark("step")
+        if cfg_flags[i]:
+            cond = forward(x, t_idx[i], pab_flags[i], cond_only=True)
+            uncond = cond - delta.to(cond.dtype)
+        else:
+            pred = forward(x, t_idx[i], pab_flags[i], cond_only=False)
+            uncond, cond = pred[:B], pred[B:]
+            if delta is not None:
+                delta = cond - uncond
+        v = uncond + guidance * (cond - uncond)
+        sq_a, sq_1a = torch.sqrt(ab_t[i]), torch.sqrt(1.0 - ab_t[i])
+        x0 = sq_a * x - sq_1a * v
+        eps = sq_1a * x + sq_a * v
+        x = torch.sqrt(ab_prev[i]) * x0 + torch.sqrt(1.0 - ab_prev[i]) * eps
+        if (i + 1) % seg == 0 and i + 1 < num_steps and x.is_cuda:
+            torch.cuda.synchronize(x.device)  # bound the work in flight
+    return x
+
+
+def sample_latents_cogvideox(dit: CogVideoX, text_emb2: torch.Tensor, *,
+                             num_gen_latents: int, num_steps: int, lat_h: int, lat_w: int,
+                             cond_latents: Optional[torch.Tensor] = None,
+                             adapters: AdapterDict = None, guidance: float = 6.0,
+                             pab_cfg: Optional[PABConfig] = None,
+                             cfgr_cfg: Optional[CFGReuseConfig] = None,
+                             init_x: Optional[torch.Tensor] = None,
+                             generator: Optional[torch.Generator] = None,
+                             on_phase: Optional[Callable[[str], None]] = None
+                             ) -> torch.Tensor:
+    """The CogVideoX-I2V DDIM (eta 0) v-prediction loop. text_emb2 [2B, L,
+    text_dim] in the order [neg, pos]; the image latents come from the
+    first of ``cond_latents`` [B, C, T_cond, H, W]. Returns the whole
+    latent volume [B, C, T_cond + num_gen, H, W] fp32, the cond region
+    included. ``init_x``: the initial volume (tests inject the reference's
+    draw), else drawn from ``generator``. ``on_phase(name)`` is called as
+    each "step" begins."""
+    return _sample_cogvideox(dit, text_emb2, num_gen_latents=num_gen_latents,
+                             num_steps=num_steps, lat_h=lat_h, lat_w=lat_w,
+                             cond_latents=cond_latents, adapters=adapters,
+                             guidance=guidance, pab_cfg=pab_cfg, cfgr_cfg=cfgr_cfg,
+                             init_x=init_x, generator=generator, on_phase=on_phase)
+
+
+def sample_latents_cogvideox_segmented(dit: CogVideoX, text_emb2, *, segment_steps: int,
+                                       **kwargs) -> torch.Tensor:
+    """``sample_latents_cogvideox`` with the device synchronized every
+    ``segment_steps`` steps; the same setup and step body, so the same
+    result. The PAB cache and the CFG-reuse delta carry across segments."""
+    return _sample_cogvideox(dit, text_emb2, segment_steps=segment_steps, **kwargs)

@@ -31,10 +31,12 @@ and ``--fvd-enabled`` / ``--inception-model-path`` stream FVD and FID
 ``online_eval``, their moments saved in ``fvd_state.npz`` for a resume.
 
 ``--preset opensora_v2`` (or ``opensora_v2_tiny``) runs the Open-Sora v2
-MMDiT backbone (``models/mmdit.py``) with the methods the reference ports
-to it (none, delta_a, lora, full), its conditioned losses and its
-triple-CFG sampler; the flags the reference refuses for that backbone
-are refused at start-up with its messages.
+MMDiT backbone (``models/mmdit.py``), ``--preset cogvideox_5b`` (or
+``cogvideox_tiny``) CogVideoX-5B-I2V (``models/cogvideox.py``), each with
+the methods the reference ports to it (none, delta_a, lora, full), its
+conditioned losses and its sampler (triple-CFG Euler; 2-row CFG DDIM);
+the flags the reference refuses for these backbones are refused at
+start-up with its messages.
 
 CLI:
   python -m longcat_video_tta_tpu_torch.runners.run_tta \\

@@ -26,7 +26,10 @@ layout (keys "<site>.a", "<site>.b").
 The Open-Sora v2 MMDiT takes the three methods the reference ports to it
 (``MMDIT_SCHEMES``): delta_a on the hidden-sized vec, LoRA on the
 double-stream img/txt attention (and optionally mlp) linears and the
-single-stream linear1/linear2 (keys "double.<site>.a" ...), full.
+single-stream linear1/linear2 (keys "double.<site>.a" ...), full. So
+does CogVideoX (``COGVIDEOX_SCHEMES``): delta_a on the 512-d time
+embedding, LoRA on to_q / to_k / to_v / to_out (and optionally the
+feed-forward), full.
 """
 
 from __future__ import annotations
@@ -290,6 +293,7 @@ class LoRAScheme(AdapterScheme):
     branch."""
 
     method = "lora"
+    table = LORA_SITES  # site -> (its (in, out) from the config, module path)
 
     def __init__(self, dit_cfg, acfg):
         super().__init__(dit_cfg, acfg)
@@ -303,7 +307,7 @@ class LoRAScheme(AdapterScheme):
         L, r = self.cfg.depth, self.rank
         p = {}
         for site in self.sites:
-            din, dout = LORA_SITES[site][0](self.cfg)
+            din, dout = self.table[site][0](self.cfg)
             bound = 1.0 / math.sqrt(din)
             u = torch.rand((L, din, r), generator=generator, dtype=torch.float32,
                            device=device)
@@ -327,7 +331,7 @@ class LoRAScheme(AdapterScheme):
                          "lora_scale": self.scale}
         merged = {}
         for site, (a, b) in ab.items():
-            path = LORA_SITES[site][1]
+            path = self.table[site][1]
             for i, blk in enumerate(dit.blocks):
                 w = blk.get_submodule(path).weight  # [out, in]
                 delta = (a[i] @ b[i]) * self.scale  # [in, out]
@@ -339,7 +343,7 @@ class LoRAScheme(AdapterScheme):
         n_active = self.cfg.depth if self.targets is None else len(self.targets)
         total = 0
         for site in self.sites:
-            din, dout = LORA_SITES[site][0](self.cfg)
+            din, dout = self.table[site][0](self.cfg)
             total += (din * self.rank + self.rank * dout) * n_active
         return total
 
@@ -472,16 +476,63 @@ MMDIT_SCHEMES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# CogVideoX backbone
+# ---------------------------------------------------------------------------
+
+_COGVIDEOX_LORA_SITES = {
+    "to_q": (lambda c: (c.hidden_size, c.hidden_size), "attn.to_q"),
+    "to_k": (lambda c: (c.hidden_size, c.hidden_size), "attn.to_k"),
+    "to_v": (lambda c: (c.hidden_size, c.hidden_size), "attn.to_v"),
+    "to_out": (lambda c: (c.hidden_size, c.hidden_size), "attn.to_out"),
+    "ff_in": (lambda c: (c.hidden_size, c.ffn_dim), "ff.w_in"),
+    "ff_out": (lambda c: (c.ffn_dim, c.hidden_size), "ff.w_out"),
+}
+
+
+class CogVideoXLoRAScheme(LoRAScheme):
+    """LoRA over the CogVideoX blocks, the LongCat scheme's draws and block
+    scoping on CogVideoX's sites: ``lora_target_modules`` qkv -> to_q /
+    to_k / to_v, proj -> to_out, ``lora_target_ffn`` adds ff_in / ff_out.
+    Every block's tensors count as trainable, as the reference counts
+    them; ``lora_builtin`` does not apply (as in the reference)."""
+
+    table = _COGVIDEOX_LORA_SITES
+    num_params = AdapterScheme.num_params
+
+    def __init__(self, dit_cfg, acfg):
+        super().__init__(dit_cfg, acfg)
+        sites: List[str] = []
+        if "qkv" in acfg.lora_target_modules:
+            sites += ["to_q", "to_k", "to_v"]
+        if "proj" in acfg.lora_target_modules:
+            sites += ["to_out"]
+        if acfg.lora_target_ffn:
+            sites += ["ff_in", "ff_out"]
+        self.sites = sites
+        self.builtin = False
+
+
+COGVIDEOX_SCHEMES = {
+    "delta_a": DeltaAScheme,
+    "lora": CogVideoXLoRAScheme,
+    "full": FullScheme,
+}
+
+_BACKBONE_NAMES = {"mmdit": "MMDiT", "cogvideox": "CogVideoX"}
+
+
 def build_scheme(dit_cfg, acfg: AdapterConfig) -> AdapterScheme:
-    """The LongCat DiT takes all seven methods; the MMDiT the three the
-    reference ports to it (delta_a, lora, full): the backbone's record in
-    ``archs.py``."""
+    """The LongCat DiT takes all seven methods; the MMDiT and CogVideoX
+    the three the reference ports to them (delta_a, lora, full): the
+    backbone's record in ``archs.py``."""
     from ..archs import get_arch
 
     schemes = get_arch(dit_cfg.arch).schemes
     if acfg.method in schemes:
         return schemes[acfg.method](dit_cfg, acfg)
-    if dit_cfg.arch == "mmdit":
-        raise ValueError(f"method {acfg.method} is not ported to the MMDiT backbone "
+    if dit_cfg.arch in _BACKBONE_NAMES:
+        raise ValueError(f"method {acfg.method} is not ported to the "
+                         f"{_BACKBONE_NAMES[dit_cfg.arch]} backbone "
                          "(reference ports delta_a/lora/full — SURVEY.md §2.7)")
     raise ValueError(f"unknown TTA method {acfg.method!r} (one of {sorted(schemes)})")

@@ -31,7 +31,6 @@ from ..config import OptimConfig
 from ..models.dit import LongCatDiT
 from .adapters import AdapterScheme, TrainParams
 from .losses import (
-    draw_sigma_noise,
     flow_matching_loss_conditioned,
     flow_matching_loss_conditioned_fixed,
 )
@@ -116,7 +115,8 @@ def train_step(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
     0-d tensor on the device). ``num_valid_target``: the target's valid
     latent frames when it is padded to a bucket. ``loss_fn``: the
     backbone's conditioned loss (``archs.get_arch(arch).loss``; the MMDiT's
-    takes (txt, y_vec) in the (text_emb, text_mask) slots)."""
+    takes (txt, y_vec) in the (text_emb, text_mask) slots, CogVideoX's
+    leaves text_mask unread)."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in train_params.items()}
     with torch.enable_grad():
         fwd_dit, adapters = scheme.to_forward(leaves, dit)
@@ -170,8 +170,9 @@ def train_chunk(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
     its neighbours), else on the positional latents; the anchor always runs on the positional
     ``cond_latents``, ``text_emb`` and ``text_mask`` (the reference's
     stack entry 0). Per step, (sigma, noise) come from ``draws`` when
-    given (tests inject the reference's draws) and from ``generator``
-    otherwise, drawn at the step's (padded) target shape.
+    given (tests inject the reference's draws), else the loss draws them
+    from ``generator`` at the shape it noises (the step's padded target;
+    CogVideoX's whole window).
     ``on_phase(name)`` is called as "train_chunk" and "anchor_check"
     begin. ``loss_fn`` / ``anchor_fn``: the backbone's losses
     (``archs.py``). Returns (train_params, opt_state, losses [steps] on the
@@ -185,13 +186,11 @@ def train_chunk(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
             batch = (v["cond"], v["train"], v["emb"], v["mask"], v.get("valid"))
         else:
             batch = (cond_latents, target_latents, text_emb, text_mask, None)
-        if draws is not None:
-            sigma, noise = draws[i]
-        else:
-            sigma, noise = draw_sigma_noise(batch[1], generator)
+        sigma, noise = draws[i] if draws is not None else (None, None)
         train_params, opt_state, loss = train_step(
             scheme, dit, opt, train_params, opt_state, *batch[:4], sigma=sigma,
-            noise=noise, num_valid_target=batch[4], loss_fn=loss_fn)
+            noise=noise, generator=generator, num_valid_target=batch[4],
+            loss_fn=loss_fn)
         losses.append(loss)
     anchor = None
     if val_latents is not None:

@@ -9,11 +9,16 @@ MSE in fp32 on the target slice only.
 The MMDiT losses (Open-Sora v2) condition through the cond_embed channel
 input ([masks | masked_ref], ``mmdit_cond_input``) with one per-row σ
 over the whole [cond | noisy target] volume, MSE on the target slice;
-their (emb, mask) slots carry (txt, y_vec). Each backbone's (train
-loss, anchor loss) pair is in its record in ``archs.py``.
+their (emb, mask) slots carry (txt, y_vec). The CogVideoX losses
+condition through the I2V image latents (the first conditioning latent,
+zeros after it) and, as the reference does, noise and score the whole
+[cond | target] window with one per-row σ (timestep σ·1000); its anchor
+noises the target slice only. Each backbone's (train loss, anchor loss)
+pair is in its record in ``archs.py``.
 
 Random draws: σ and ε are arguments; when they are not given they are
-drawn from ``generator`` (an explicit ``torch.Generator``). Tests pass the
+drawn from ``generator`` (an explicit ``torch.Generator``), ε at the
+shape the loss noises (the target, or CogVideoX's whole window). Tests pass the
 reference's own draws so both packages see the same numbers.
 """
 
@@ -225,3 +230,95 @@ def mmdit_flow_matching_loss_conditioned_fixed(
             n += 1
     return total / n
 
+
+# ---------------------------------------------------------------------------
+# CogVideoX backbone
+# ---------------------------------------------------------------------------
+
+
+def cogvideox_image_latents(cond_latents: torch.Tensor, t_total: int) -> torch.Tensor:
+    """[B, C, t_total, H, W] fp32: the first conditioning latent (the
+    encoded conditioning image), zeros after it (the CogVideoX-I2V
+    channel-concat convention)."""
+    B, C, _, H, W = cond_latents.shape
+    out = torch.zeros((B, C, t_total, H, W), dtype=torch.float32,
+                      device=cond_latents.device)
+    out[:, :, :1] = cond_latents[:, :, :1].float()
+    return out
+
+
+def _cogvideox_image_input(dit, cond_latents, t_total):
+    cfg = dit.cfg
+    if cfg.in_channels == cfg.latent_channels:
+        return None
+    return cogvideox_image_latents(cond_latents, t_total)
+
+
+def cogvideox_flow_matching_loss_conditioned(
+    dit,
+    cond_latents: torch.Tensor,     # [B, C, T_cond, H, W]
+    target_latents: torch.Tensor,   # [B, C, T_target, H, W]
+    text_emb: torch.Tensor,         # [B, L, text_dim]
+    text_mask=None,                 # unused (the engine's slot)
+    *,
+    adapters: Optional[Dict[str, torch.Tensor]] = None,
+    sigma: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    sigma_min: float = 0.001,
+    sigma_max: float = 1.0,
+    num_valid_target: Optional[int] = None,
+) -> torch.Tensor:
+    """The reference's rectified-flow TTA loss for CogVideoX: the whole
+    [cond | target] window noised with one sigma per row, x_t = (1-σ)x +
+    σε, timestep σ·1000, the image latents built from the first
+    conditioning latent, fp32 MSE against ε - x over the whole window.
+    (CogVideoX is a v-prediction model; the reference trains it with this
+    rectified-flow objective all the same, and the port reproduces it.)
+    ``sigma`` [B] and ``noise`` (like the window) are drawn from
+    ``generator`` when not given."""
+    if num_valid_target is not None:
+        raise NotImplementedError(
+            "CP / shape bucketing are not wired for the CogVideoX backbone")
+    B = cond_latents.shape[0]
+    full = torch.cat([cond_latents.float(), target_latents.float()], dim=2)
+    if sigma is None or noise is None:
+        s, n = draw_sigma_noise(full, generator, sigma_min=sigma_min, sigma_max=sigma_max)
+        sigma = s if sigma is None else sigma
+        noise = n if noise is None else noise
+    sig = sigma.float().reshape(B, 1, 1, 1, 1)
+    noise = noise.float()
+    noisy = (1.0 - sig) * full + sig * noise
+    pred = dit(noisy, sigma.float() * NUM_TRAIN_TIMESTEPS, text_emb,
+               _cogvideox_image_input(dit, cond_latents, full.shape[2]), adapters=adapters)
+    return ((pred - (noise - full)) ** 2).mean()
+
+
+def cogvideox_flow_matching_loss_conditioned_fixed(
+    dit,
+    cond_latents: torch.Tensor,
+    target_latents: torch.Tensor,
+    text_emb: torch.Tensor,
+    text_mask,
+    fixed_noises: torch.Tensor,     # [n_draws, B, C, T_target, H, W]
+    *,
+    fixed_sigmas: Sequence[float],
+    adapters: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """The CogVideoX anchor loss: fixed noise on the target slice, the
+    conditioning latents clean; one B-row forward per (sigma, draw), sigma
+    major, draw minor (the reference's scan), the mean of their MSEs on
+    the target slice."""
+    B, _, t_cond = cond_latents.shape[:3]
+    tgt32, cond32 = target_latents.float(), cond_latents.float()
+    img = _cogvideox_image_input(dit, cond_latents, t_cond + target_latents.shape[2])
+    total, n = torch.zeros((), device=tgt32.device), 0
+    for s in fixed_sigmas:
+        for noise in fixed_noises.float():
+            sigma = torch.full((B,), float(s), device=tgt32.device)
+            noisy = (1.0 - sigma[0]) * tgt32 + sigma[0] * noise
+            pred = dit(torch.cat([cond32, noisy], dim=2), sigma * NUM_TRAIN_TIMESTEPS,
+                       text_emb, img, adapters=adapters)
+            total = total + ((pred[:, :, t_cond:] - (noise - tgt32)) ** 2).mean()
+            n += 1
+    return total / n

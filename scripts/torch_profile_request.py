@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where one request's time goes in the PyTorch port, on one NVIDIA GPU.
 
-    python3 scripts/torch_profile_request.py [--preset longcat_13b|opensora_v2]
+    python3 scripts/torch_profile_request.py [--preset longcat_13b|opensora_v2|cogvideox_5b]
         [--method none|METHOD] [--depth 48] [--steps N --cond-frames N
         --gen-frames N] [run_tta flags]
 
 LongCat-13.6B width, or with ``--preset opensora_v2`` the Open-Sora v2
-MMDiT at its published width and depth (random bf16 weights drawn on the
-card), 480x832 synthetic clips. Phase times come from the serving code's own
+MMDiT, or with ``--preset cogvideox_5b`` CogVideoX-5B-I2V, at its published
+width and depth (random bf16 weights drawn on the card), 480x832
+synthetic clips. Phase times come from the serving code's own
 ``on_phase`` hooks: each records a CUDA event on the stream as a phase
 begins, and a phase's time is the stream time between its event and the
 next.
@@ -22,8 +23,8 @@ one of run_tta's decode levers (for example ``--bsa-keep-ratio 0.5`` or
 ``--method METHOD`` (delta_a or any other TTA method, or dno): the runner
 (``run_tta.main``) on 3 videos with the chip_smoke TTA geometry (29-frame
 window, 6 AdamW steps, anchor check every 3, 4 denoising steps; ``full``
-on longcat_bench_3b, or on opensora_v2 at chip_smoke's depth cut, as
-chip_smoke runs it); any other flag goes to the
+on longcat_bench_3b, or on opensora_v2 and cogvideox_5b at chip_smoke's
+depth cuts, as chip_smoke runs it); any other flag goes to the
 runner (a method's flags, for example ``--film-mode shift_scale``, or
 ``--lr``). Video 0 warms up, video 1 gives the phase times (window
 encode, stopper setup anchor, each train chunk and anchor check,
@@ -182,8 +183,9 @@ def profile_tta(args, runner_flags) -> int:
     steps = run_tta.build_arg_parser().parse_args(argv).steps
     if args.depth != 48:
         raise SystemExit(f"--method {args.method} profiles the full preset")
-    if args.method == "full" and preset == "opensora_v2":
-        with cs.preset_depth(cs.OPENSORA["full_depth"]):
+    cut = {"opensora_v2": cs.OPENSORA, "cogvideox_5b": cs.COGVIDEOX}.get(preset)
+    if args.method == "full" and cut is not None:
+        with cs.preset_depth(cut["full_depth"], preset):
             summary = run_tta.main(argv, on_phase=on_phase)
     else:
         summary = run_tta.main(argv, on_phase=on_phase)
@@ -229,7 +231,8 @@ def main() -> int:
     ap.add_argument("--method", default="none",
                     choices=["none", "delta_a", "delta_b", "delta_c", "film", "lora",
                              "norm_tune", "full", "dno"])
-    ap.add_argument("--preset", default="longcat_13b", choices=["longcat_13b", "opensora_v2"])
+    ap.add_argument("--preset", default="longcat_13b",
+                    choices=["longcat_13b", "opensora_v2", "cogvideox_5b"])
     ap.add_argument("--depth", type=int, default=48, help="LongCat only")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--cond-frames", type=int, default=5)

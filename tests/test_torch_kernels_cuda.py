@@ -407,23 +407,43 @@ def _chunked(fn, q, k, v, *rest, heads=4):
     return [torch.cat(parts, dim=2) for parts in zip(*outs)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", list(OPENSORA_CASES))
-def test_opensora_joint_attention_shapes(card, case):
-    B, S = OPENSORA_CASES[case]
-    q, k, v = _inputs(B, 24, S, S, 128, torch.bfloat16, card, seed=41)
-    do = _inputs(B, 24, S, S, 128, torch.bfloat16, card, seed=42)[0]
+def _check_joint(card, B, H, S, D, backward: bool):
+    """Unmasked joint self-attention at S x S: the forward kernel, and with
+    ``backward`` the dQ and dK/dV kernels, against the plain versions."""
+    q, k, v = _inputs(B, H, S, S, D, torch.bfloat16, card, seed=41)
+    do = _inputs(B, H, S, S, D, torch.bfloat16, card, seed=42)[0]
     o, lse = fa.flash_attention(q, k, v)
     o_r, lse_r = _chunked(fa.attention_reference, q, k, v)
     _assert_close(o, lse, o_r, lse_r)
     del o_r, lse_r
-    if case == "train":
+    if backward:
         delta = (do.float() * o.float()).sum(-1)
         got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
                *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
         ref = _chunked(fa.attention_backward_reference, q, k, v, o, lse, do)
         for name, d, d_r in zip(("dq", "dk", "dv"), got, ref):
             _assert_grad_close(name, d, d_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(OPENSORA_CASES))
+def test_opensora_joint_attention_shapes(card, case):
+    B, S = OPENSORA_CASES[case]
+    _check_joint(card, B, 24, S, 128, backward=case == "train")
+
+
+# CogVideoX-5B's joint [text | video] self-attention: 48 heads of 64, no
+# mask, ragged tails (8026 = 62 * 128 + 90, 11 146 = 87 * 128 + 10): the
+# 2-row CFG serving batch (226 text + 5 latents of 1560 tokens), the anchor
+# eval's row of 8026 and the train step's 226 + 7 x 1560
+COGVIDEOX_CASES = {"serve": (2, 8026), "anchor": (1, 8026), "train": (1, 11146)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(COGVIDEOX_CASES))
+def test_cogvideox_joint_attention_head_dim_64(card, case):
+    B, S = COGVIDEOX_CASES[case]
+    _check_joint(card, B, 48, S, 64, backward=case == "train")
 
 
 # (B, H, S, mlp): a small ragged case, and the serving and train shapes

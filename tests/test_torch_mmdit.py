@@ -461,7 +461,7 @@ def test_checkpoint_dir_with_clip_matches_jax_converters(tmp_path):
 def test_attention_calls_per_train_step(bundles, data, monkeypatch, name):
     """The attention forwards, dQ and dK/dV backwards of one MMDiT train
     step with full remat, counted on the CPU path, against chip_smoke's
-    ``opensora_step_launches``; and one anchor eval's and one sampler
+    ``joint_step_launches``; and one anchor eval's and one sampler
     step's forwards."""
     _, tb = bundles
     calls = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -486,7 +486,7 @@ def test_attention_calls_per_train_step(bundles, data, monkeypatch, name):
     train_step(scheme, tb.dit, opt, tp, opt.init(tp), *args,
                generator=torch.Generator().manual_seed(1),
                loss_fn=losses.mmdit_flow_matching_loss_conditioned)
-    assert calls == chip_smoke.opensora_step_launches(NATTN)
+    assert calls == chip_smoke.joint_step_launches(NATTN)
     for k in calls:
         calls[k] = 0
     with torch.no_grad():
@@ -494,7 +494,7 @@ def test_attention_calls_per_train_step(bundles, data, monkeypatch, name):
             tb.dit, *_t(data["cond"], data["val"], data["txt"], data["yv"],
                         np.zeros((2, 1, 16, 1, 4, 6))), fixed_sigmas=(0.25, 0.5, 0.75))
     assert calls == {"flash_fwd": 6 * NATTN, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    got = chip_smoke.opensora_gen_launches(NATTN, steps=4, pab_every=2)
+    got = chip_smoke.joint_gen_launches(NATTN, steps=4, pab_every=2)
     for k in calls:
         calls[k] = 0
     txt3, yv3 = torch.zeros(3, 16, 32), torch.zeros(3, 16)
