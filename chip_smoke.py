@@ -51,7 +51,8 @@ Phases (each one fails the run when it fails):
      weights and injected sigma and noise, longcat_demo widths; the same
      for one train step of each other method (and one DNO step), and LoRA
      merged into the weights against its side branch on the card;
-  5. main path, serving: the port's runner (``--method none``) answers 2
+  5. main path, serving: the port's ``run_baseline`` (the runner's
+     ``--method none`` plus per_video_metrics.csv) answers 2
      requests at LongCat-13.6B width (DiT 4096 / 32x128 heads / ffn 11008
      / 48 blocks, UMT5-XXL, WAN VAE base 96; bf16, random weights drawn
      on the card from a seed) at 480x832 with 5 conditioning frames, 8
@@ -162,6 +163,26 @@ Phases (each one fails the run when it fails):
      steps; at 5.57B its AdamW state would not fit beside the encoder):
      finite metrics and losses, a moving anchor, the trainable count,
      peak memory and launches equal to ``joint_run_launches``.
+ 15. t2v (``--only t2v``): B1 at the text-to-video shapes (self-attention
+     over 2 x 12 480 tokens with no mask, cross-attention against 512
+     text tokens) against the plain version and SDPA, then ``run_t2v`` at
+     LongCat-13.6B width and depth: 2 requests of 29 frames at 4 denoising
+     steps (a --data-dir of 2 captions), then 1 with --pab-every 2
+     --cfg-reuse-every 2; frames finite in [0, 1], gen_time per request,
+     launches equal to ``t2v_launches``.
+ 16. vbench (``--only vbench``): (a) the VBench towers at their published
+     geometry (DINO ViT-S/16, CLIP-L/14 with the LAION aesthetic head,
+     MUSIQ-SPAQ) drawn on the card, written under .chip_smoke/ (removed at
+     the end), each on the card against the CPU under [eval]'s gates with
+     its time per call; (b) a configs/-style YAML row through
+     ``sweep.run_sweep``: delta_a at 13.6B on 1 synthetic video (3 steps,
+     check every 3, 4 denoising steps) with --save-adapters and
+     --compute-vbench (online_eval.vbench: backend torch-native, five
+     finite dimensions in [0, 1], no error), compile_cache_dir dropped
+     with its note, launches as ``method_launches``; then
+     ``run_eval_adapters --mode adapted --bsa-keep-ratio 0.5`` on the row
+     (launches as ``sweep_eval_launches``), ``run_eval``'s best_configs
+     and vbench modes and ``export_results``.
 
 The counts of every kernel are set to 0 just before each main path and
 read just after; a kernel's ``launches`` in the kernels line is its sum
@@ -1094,13 +1115,17 @@ def phase_scheme_step_agreement():
 
 
 def phase_main_path(fa, depth):
+    """Serving through ``runners/run_baseline.main`` (the runner's --method
+    none plus per_video_metrics.csv)."""
+    import csv
+
     import numpy as np
 
-    from longcat_video_tta_tpu_torch.runners import run_tta
+    from longcat_video_tta_tpu_torch.runners import run_baseline
 
     out_dir = os.path.join(RUN_DIR, "run")
     shutil.rmtree(out_dir, ignore_errors=True)
-    argv = ["--method", "none", "--preset", "longcat_13b",
+    argv = ["--preset", "longcat_13b",
             "--synthetic", str(MAIN["requests"]), "--output-dir", out_dir,
             "--device", "cuda", "--height", str(MAIN["height"]),
             "--width", str(MAIN["width"]),
@@ -1108,13 +1133,15 @@ def phase_main_path(fa, depth):
             "--num-frames", str(MAIN["gen_frames"]),
             "--num-inference-steps", str(MAIN["steps"]),
             "--guidance-scale", str(MAIN["guidance"]), "--no-save-videos"]
-    print("[main] run_tta " + " ".join(argv))
+    print("[main] run_baseline " + " ".join(argv))
     print(f"[main] geometry: {MAIN}; cuts: none (full depth {depth}, full widths)")
     fa.reset_launches()
     t0 = time.time()
-    summary = run_tta.main(argv)
+    summary = run_baseline.main(argv)
     wall = time.time() - t0
     launches = fa.launches
+    with open(os.path.join(out_dir, "per_video_metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
     shutil.rmtree(os.path.join(out_dir, "synthetic_data"), ignore_errors=True)
 
     per_request = [(r.get("gen_time"), r.get("total_time")) for r in summary["results"]]
@@ -1131,6 +1158,11 @@ def phase_main_path(fa, depth):
     for r in summary["results"]:
         if not (np.isfinite(r["psnr"]) and np.isfinite(r["ssim"])):
             raise AssertionError(f"non-finite metrics: {r}")
+    if (summary["method"] != "none" or len(rows) != MAIN["requests"]
+            or list(rows[0]) != run_baseline.CSV_COLUMNS
+            or not all(np.isfinite(float(x["psnr"])) for x in rows)):
+        raise AssertionError(f"per_video_metrics.csv: {rows}")
+    print(f"[main] per_video_metrics.csv: {len(rows)} rows, columns {list(rows[0])}")
     if launches <= 0 or launches != expected:
         raise AssertionError(f"flash_fwd launched {launches} times on the main path, "
                              f"expected {expected}")
@@ -1236,6 +1268,22 @@ def phase_lever_path(fa, bsa, run: str, depth: int):
         raise AssertionError(f"kernel launches on lever run {run} {got}, "
                              f"expected {expected}")
     return got, [r.get("gen_time") for r in summary["results"]]
+
+
+def t2v_launches(depth: int, steps: int, pab_every: int = 0,
+                 cfg_reuse_every: int = 0) -> int:
+    """Forward-kernel launches of one text-to-video request: no
+    conditioning latents, so no cond cache; every denoising step runs each
+    block's cross-attention, and its self-attention unless PAB reuses it:
+    with ``pab_every`` k, inside [round(0.1 * steps), round(0.9 * steps))
+    (PABConfig's range) the steps whose offset from the range start is
+    not a multiple of k reuse. CFG reuse halves a step's batch (the
+    conditional row alone), not its launches."""
+    del cfg_reuse_every  # the batch, not the count
+    start, end = round(0.1 * steps), round(0.9 * steps)
+    reused = sum(1 for i in range(steps)
+                 if pab_every > 0 and start <= i < end and (i - start) % pab_every)
+    return depth * (2 * steps - reused)
 
 
 def tta_split(holdout: float = 0.25):
@@ -2403,6 +2451,98 @@ def write_tower_files(folder: str, seed: int, device="cuda", clip_geometry=None)
     return paths
 
 
+# the VBench towers at their published geometry: DINO ViT-S/16, CLIP
+# ViT-L/14 with the LAION aesthetic head, MUSIQ-SPAQ
+CLIP_L14_GEOMETRY = dict(vocab=49408, max_len=77, text_width=768, text_layers=12,
+                         text_heads=12, vision_width=1024, vision_layers=24,
+                         vision_heads=16, patch=14, image=224, proj=768)
+# the predictor's widths after the 768-d CLIP-L/14 embed; its nn.Sequential
+# holds the Linears at 0, 2, 4, 6, 7 (Dropouts between)
+AESTHETIC_DIMS = (1024, 128, 64, 16, 1)
+AESTHETIC_LAYERS = (0, 2, 4, 6, 7)
+
+
+def _vit_block_shapes(prefix: str, W: int) -> dict:
+    sh = {}
+    for name, shape in (("norm1", (W,)), ("norm2", (W,))):
+        sh.update({f"{prefix}.{name}.weight": shape, f"{prefix}.{name}.bias": shape})
+    for name, o, i in (("attn.qkv", 3 * W, W), ("attn.proj", W, W),
+                       ("mlp.fc1", 4 * W, W), ("mlp.fc2", W, 4 * W)):
+        sh.update({f"{prefix}.{name}.weight": (o, i), f"{prefix}.{name}.bias": (o,)})
+    return sh
+
+
+def dino_state_shapes(d: dict) -> dict:
+    """key -> shape of the facebookresearch/dino ``dino_vits16`` state dict
+    at geometry ``d`` (width, num_layers, num_heads, patch_size, image_size)."""
+    W, p = d["width"], d["patch_size"]
+    sh = {"cls_token": (1, 1, W), "pos_embed": (1, (d["image_size"] // p) ** 2 + 1, W),
+          "patch_embed.proj.weight": (W, 3, p, p), "patch_embed.proj.bias": (W,),
+          "norm.weight": (W,), "norm.bias": (W,)}
+    for i in range(d["num_layers"]):
+        sh.update(_vit_block_shapes(f"blocks.{i}", W))
+    return sh
+
+
+def musiq_state_shapes(m: dict) -> dict:
+    """key -> shape of a MUSIQ state dict in the reference's layout at
+    geometry ``m`` (MUSIQConfig.as_dict())."""
+    W, G, p = m["width"], m["grid_size"], m["patch_size"]
+    sh = {"patch_embedding.weight": (W, 3 * p * p), "patch_embedding.bias": (W,),
+          "cls_token": (1, 1, W), "hash_pos_embed": (G, G, W),
+          "scale_embed": (1 + len(m["longer_sides"]), W),
+          "norm.weight": (W,), "norm.bias": (W,), "head.weight": (1, W), "head.bias": (1,)}
+    for i in range(m["num_layers"]):
+        sh.update(_vit_block_shapes(f"blocks.{i}", W))
+    return sh
+
+
+def write_vbench_tower_files(folder: str, seed: int, device="cuda", dino=None, musiq=None,
+                             clip_geometry=None, aesthetic_dims=AESTHETIC_DIMS) -> dict:
+    """The VBench towers' files, drawn from ``seed`` on ``device``:
+    dino_vits16.pth and musiq_spaq.pth (each with its config sidecar),
+    aesthetic_l14.pth (the predictor's Sequential keys) and clip_l14/ (a
+    Hugging Face CLIPModel folder without a tokenizer). ``dino`` /
+    ``musiq`` / ``clip_geometry`` override the published geometries (the
+    CPU tests' tiny towers; ``aesthetic_dims`` the head's widths after
+    the CLIP embed). Returns {tower: path}."""
+    import dataclasses
+
+    import torch
+
+    from longcat_video_tta_tpu_torch.eval.musiq import MUSIQConfig
+    from longcat_video_tta_tpu_torch.eval.vbench_native import DINOViTConfig
+    from longcat_video_tta_tpu_torch.utils.safetensors import save_file
+
+    dino = dino or dataclasses.asdict(DINOViTConfig())
+    musiq = musiq or MUSIQConfig().as_dict()
+    g = clip_geometry or CLIP_L14_GEOMETRY
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draw = lambda shapes: {k: tower_value(k, s, gen, device).cpu() for k, s in shapes.items()}
+    os.makedirs(folder, exist_ok=True)
+    paths = {}
+    for name, file, shapes, side in (("dino", "dino_vits16.pth", dino_state_shapes(dino),
+                                      ("dino_config.json", dino)),
+                                     ("musiq", "musiq_spaq.pth", musiq_state_shapes(musiq),
+                                      ("musiq_config.json", musiq))):
+        paths[name] = os.path.join(folder, file)
+        torch.save(draw(shapes), paths[name])
+        with open(os.path.join(folder, side[0]), "w") as f:
+            json.dump(side[1], f)
+    dims = (g["proj"],) + tuple(aesthetic_dims)
+    paths["aesthetic"] = os.path.join(folder, "aesthetic_l14.pth")
+    torch.save(draw({f"layers.{i}.{n}": ((o, a) if n == "weight" else (o,))
+                     for i, a, o in zip(AESTHETIC_LAYERS, dims[:-1], dims[1:])
+                     for n in ("weight", "bias")}), paths["aesthetic"])
+    paths["clip_l14"] = os.path.join(folder, "clip_l14")
+    os.makedirs(paths["clip_l14"], exist_ok=True)
+    with open(os.path.join(paths["clip_l14"], "config.json"), "w") as f:
+        json.dump(clip_hf_config(g, False), f)
+    save_file(draw(clip_state_shapes(g, False)),
+              os.path.join(paths["clip_l14"], "model.safetensors"))
+    return paths
+
+
 def _agreement(tag: str, card, cpu) -> dict:
     """cosine and relative L2 error of a card result against the CPU's."""
     import torch
@@ -3368,6 +3508,341 @@ def phase_cogvideox(fa):
     return fwd, bwd, launches
 
 
+# ---------------------------------------------------------------------------
+# the thin runners, the sweep runner and the VBench pair (LongCat-13.6B)
+# ---------------------------------------------------------------------------
+
+# text-to-video: 29 frames (8 latents x 1560 tokens = 12 480 per row, 2
+# CFG rows) at 480x832, 4 denoising steps (not 50), guidance 4.0; 2 dense
+# requests, then 1 with PAB and CFG reuse every 2
+T2V = dict(height=480, width=832, frames=29, steps=4, guidance=4.0, requests=2,
+           pab_every=2, cfg_reuse_every=2)
+# the sweep row: delta_a on the demo campaign's 29-frame window, 3 steps
+# with the anchor check every 3, 4 denoising steps, 8 generated frames,
+# 1 synthetic video; then run_eval_adapters with BSA at keep 0.5
+SWEEP = dict(series="chip_smoke_sweep", run_id="DELTA_A", steps=3, check_every=3,
+             patience=3, inference_steps=4, lr=0.005, bsa_keep_ratio=0.5, seed=51)
+VBENCH = dict(seed=61, frames=4, musiq_frames=2)
+
+
+def t2v_kernel_cases(dit_cfg, tokens_per_frame):
+    """B1 at the text-to-video shapes: self-attention over the 12 480
+    tokens of 8 latents, no mask, the 2 CFG rows; cross-attention against
+    the 512 text tokens (k, v fused as the DiT projects them)."""
+    B, H, D = 2, dit_cfg.num_heads, dit_cfg.head_dim
+    s = (1 + (T2V["frames"] - 1) // 4) * tokens_per_frame
+    return [("t2v_self", (B, H, s, s, D), dict(seed=71)),
+            ("t2v_cross", (B, H, s, dit_cfg.text_len, D), dict(fused_kv=True, seed=72))]
+
+
+def phase_t2v(fa, dit_cfg, tokens_per_frame):
+    """B1 at the t2v shapes (timed against the plain version and SDPA),
+    then ``run_t2v.main`` at LongCat-13.6B width and depth: 2 dense
+    requests (--data-dir of 2 captions), then 1 request (--prompt) with
+    --pab-every 2 --cfg-reuse-every 2. Cuts: 4 denoising steps (not 50),
+    29 frames (not 93). Each request's frames must be finite in [0, 1]
+    and the forward kernel's launches must equal ``t2v_launches``."""
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.pipeline import pipeline
+    from longcat_video_tta_tpu_torch.runners import run_t2v
+    from longcat_video_tta_tpu_torch.runners.run_tta import make_synthetic_dataset
+
+    cases = [check_kernel_case(fa, name, *shape, timed=True, **opts)
+             for name, shape, opts in t2v_kernel_cases(dit_cfg, tokens_per_frame)]
+    for c in cases:
+        print("[t2v-kernel] " + json.dumps(c))
+    out_dir = os.path.join(RUN_DIR, "t2v")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    data = make_synthetic_dataset(os.path.join(out_dir, "captions"), T2V["requests"], 16, 32)
+    common = ["--preset", "longcat_13b", "--device", "cuda", "--height", str(T2V["height"]),
+              "--width", str(T2V["width"]), "--num-frames", str(T2V["frames"]),
+              "--num-inference-steps", str(T2V["steps"]),
+              "--guidance-scale", str(T2V["guidance"])]
+    runs = [("dense", ["--data-dir", data, "--max-videos", str(T2V["requests"])],
+             T2V["requests"] * t2v_launches(dit_cfg.depth, T2V["steps"])),
+            ("pab_cfg_reuse", ["--prompt", "a red ball rolling across a wooden floor",
+                               "--pab-every", str(T2V["pab_every"]),
+                               "--cfg-reuse-every", str(T2V["cfg_reuse_every"])],
+             t2v_launches(dit_cfg.depth, T2V["steps"], T2V["pab_every"],
+                          T2V["cfg_reuse_every"]))]
+    frames_seen = []
+    real = pipeline.generate_t2v
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        frames_seen.append((out.shape, bool(np.isfinite(out).all()), float(out.min()),
+                            float(out.max())))
+        return out
+
+    launches, gen_times = 0, []
+    pipeline.generate_t2v = spy
+    try:
+        for tag, flags, expected in runs:
+            argv = ["--output-dir", os.path.join(out_dir, tag)] + common + flags
+            print(f"[t2v] run_t2v {' '.join(argv)}")
+            frames_seen.clear()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            t0 = time.time()
+            results = run_t2v.main(argv)
+            wall = time.time() - t0
+            got = fa.launches
+            gen_times += [r["gen_time"] for r in results]
+            for r, f in zip(results, frames_seen):
+                print(f"[t2v] {tag}: gen_time={r['gen_time']:.3f} s frames {f[0]} "
+                      f"finite={f[1]} range [{f[2]:.4f}, {f[3]:.4f}]")
+            print(f"[t2v] {tag}: wall {wall:.1f} s; max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; flash_fwd launches "
+                  f"{got} (expected {expected})")
+            n_frames = 1 + 4 * ((T2V["frames"] - 1 + 3) // 4)
+            if len(frames_seen) != len(results) or not all(
+                    f[0] == (n_frames, T2V["height"], T2V["width"], 3) and f[1]
+                    and 0.0 <= f[2] and f[3] <= 1.0 for f in frames_seen):
+                raise AssertionError(f"[t2v] {tag}: frames out of bounds: {frames_seen}")
+            if got != expected:
+                raise AssertionError(f"[t2v] {tag}: flash_fwd launched {got} times, "
+                                     f"expected {expected}")
+            launches += got
+    finally:
+        pipeline.generate_t2v = real
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return cases, launches, gen_times
+
+
+def vbench_tower_agreement(paths: dict, smi: str, card: str = "cuda") -> dict:
+    """DINO ViT-S/16 CLS features, CLIP-L/14 image embeds with the
+    aesthetic head's scores, and MUSIQ-SPAQ scores, each on the card and on
+    the CPU from the same file and inputs (4 frames at 480x832; MUSIQ 2),
+    fp32, under [eval]'s gates; the card's ms per call."""
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.eval import musiq, vbench_native as vb
+    from longcat_video_tta_tpu_torch.models import clip
+    from longcat_video_tta_tpu_torch.utils.device import full_fp32
+
+    rng = np.random.default_rng(VBENCH["seed"])
+    frames = rng.random((VBENCH["frames"], 480, 832, 3), dtype=np.float32)
+    devices, out = (card, "cpu"), {}
+    with torch.no_grad(), full_fp32():
+        res = {}
+        for dev in devices:
+            m = vb.load_dino_params(paths["dino"], device=dev)
+            px = vb.preprocess_imagenet(frames, m.cfg.image_size, dev)
+            res[dev] = (m, px, m(px))
+        _agreement("dino preprocess 4x480x832 -> 224", res[card][1], res["cpu"][1])
+        out["dino"] = _agreement("dino_vits16 CLS features", res[card][2], res["cpu"][2])
+        m, px = res[card][:2]
+        out["dino_ms"] = _events_ms(lambda: m(px), 10)
+        res = {}
+        for dev in devices:
+            m, vcfg = vb.load_clip_l14(paths["clip_l14"], dev)
+            head = vb.load_aesthetic_head(paths["aesthetic"], dev)
+            px = clip.preprocess_frames(frames, vcfg.image_size, dev)
+            emb = m.image_embed(px)
+            res[dev] = (m, head, px, emb, head(emb))
+        out["clip_l14"] = _agreement("clip_l14 image embeds", res[card][3], res["cpu"][3])
+        out["aesthetic"] = _agreement("aesthetic head scores", res[card][4], res["cpu"][4])
+        m, head, px = res[card][:3]
+        out["aesthetic_ms"] = _events_ms(lambda: head(m.image_embed(px)),
+                                         5)
+        del res, m, head, px
+        models = {dev: musiq.load_musiq_params(paths["musiq"], device=dev)
+                  for dev in devices}
+        toks = [musiq.build_multiscale_tokens(f, models["cpu"][1])
+                for f in frames[:VBENCH["musiq_frames"]]]
+        args = [np.stack([t[j] for t in toks]) for j in range(4)]
+        n = np.asarray([t[4] for t in toks], np.int32)
+        ms = {dev: (m, musiq.musiq_score(m, *args, n)) for dev, (m, _) in models.items()}
+        out["musiq"] = _agreement("musiq_spaq scores", ms[card][1], ms["cpu"][1])
+        out["musiq_ms"] = _events_ms(lambda: musiq.musiq_score(ms[card][0], *args, n), 10)
+    print(f"[vbench-towers] {smi}: dino_vits16 {out['dino_ms']:.3f} ms per call "
+          f"({VBENCH['frames']} frames at 224), clip_l14 + aesthetic head "
+          f"{out['aesthetic_ms']:.3f} ms ({VBENCH['frames']} frames), musiq_spaq "
+          f"{out['musiq_ms']:.3f} ms ({VBENCH['musiq_frames']} frames of {int(n[0])} "
+          f"tokens + CLS)")
+    return out
+
+
+def sweep_eval_launches(depth: int, steps: int) -> dict:
+    """Launches of one ``run_eval_adapters --bsa-keep-ratio`` generation
+    (lever_launches' rule for a BSA request): the cond cache on the
+    forward kernel (2 x depth), cross-attention on it every step (depth),
+    self-attention through the BSA kernel every step (depth) with two
+    block sums each."""
+    return {"flash_fwd": 2 * depth + depth * steps, "bsa_fwd": depth * steps,
+            "bsa_fwd_qk_int8": 0, "bsa_block_sum": 2 * depth * steps}
+
+
+def phase_sweep(fa, bsa, depth: int, towers: str):
+    """A configs/-style YAML row (campaign_demo_delta_a.yaml's schema:
+    delta_a on longcat_13b, 1 synthetic video, --save-adapters,
+    compute_vbench on the towers under ``towers``, compile_cache_dir set
+    so the drop-with-note path runs) through the port's ``run_sweep``
+    in-process; B1-B3 launches as ``method_launches``; online_eval.vbench
+    from the native towers (five finite dimensions in [0, 1], no error).
+    Then ``run_eval_adapters --mode adapted --bsa-keep-ratio 0.5`` on the
+    row (B1, B4, B5 launches as ``sweep_eval_launches``), ``run_eval``'s
+    best_configs and vbench modes and ``export_results`` over the output.
+    Cuts: 1 video, 3 TTA steps, 4 denoising steps, 8 generated frames."""
+    import gc
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from longcat_video_tta_tpu_torch.eval.vbench import VBENCH_DIMENSIONS
+    from longcat_video_tta_tpu_torch.runners import run_eval_adapters
+    from longcat_video_tta_tpu_torch.sweep import export_results, run_eval, run_sweep
+
+    base = os.path.join(RUN_DIR, "sweep")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    cfg = {"method": "delta_a", "series": SWEEP["series"], "series_name": SWEEP["series"],
+           "description": "chip_smoke: delta_a at LongCat-13.6B width through the sweep",
+           "fixed": {"preset": "longcat_13b", "synthetic": 1, "max_videos": 1,
+                     "caption_guard_mode": "off", "height": TTA["height"],
+                     "width": TTA["width"], "num_cond_frames": TTA["cond_frames"],
+                     "tta_total_frames": TTA["tta_total_frames"],
+                     "num_frames": TTA["gen_frames"], "steps": SWEEP["steps"],
+                     "es_check_every": SWEEP["check_every"],
+                     "es_patience": SWEEP["patience"],
+                     "num_inference_steps": SWEEP["inference_steps"],
+                     "guidance_scale": TTA["guidance"], "seed": SWEEP["seed"],
+                     "save_adapters": True, "compute_vbench": True,
+                     "vbench_towers_dir": towers,
+                     "compile_cache_dir": os.path.join(base, "xla_cache")},
+           "sweep": [{"run_id": SWEEP["run_id"], "lr": SWEEP["lr"]}]}
+    path = os.path.join(base, "chip_smoke_sweep.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    results = os.path.join(base, "results")
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.time()
+    rows = run_sweep.run_sweep(path, results, device="cuda")
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+           "flash_bwd_dkv": fa.bwd_dkv_launches}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(os.path.join(results, f"sweep_{SWEEP['series']}.json")) as f:
+        record = json.load(f)
+    run_dir = os.path.join(results, SWEEP["series"], SWEEP["run_id"])
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    r = summary["results"][0]
+    expected = method_launches("t_embed", depth, steps=SWEEP["steps"],
+                               anchors=1 + SWEEP["steps"] // SWEEP["check_every"],
+                               inference_steps=SWEEP["inference_steps"])
+    vbench = summary["online_eval"].get("vbench", {})
+    print(f"[sweep] rows {[(x['run_id'], x['status']) for x in rows]}; wall {wall:.1f} s; "
+          f"max_memory_allocated {peak:.2f} GiB; "
+          f"record {[(x['run_id'], x['status']) for x in record]}")
+    print(f"[sweep] video: success={r['success']} train_time={r.get('train_time')} s "
+          f"es_check_time={r.get('es_check_time')} s gen_time={r.get('gen_time')} s "
+          f"total_time={r.get('total_time')} s psnr={r.get('psnr')} ssim={r.get('ssim')} "
+          f"adapter_path={r.get('adapter_path')}"
+          + (f" error={r['error']}" if "error" in r else ""))
+    print(f"[sweep] launches {got} (expected {expected}); online_eval.vbench "
+          f"{json.dumps({k: vbench.get(k) for k in ('backend', 'results', 'unavailable', 'error')})}")
+    if [x["status"] for x in rows] != ["ok"] or [x["status"] for x in record] != ["ok"]:
+        raise AssertionError(f"[sweep] row status {rows}")
+    if summary["num_success"] != 1 or not r.get("adapter_path"):
+        raise AssertionError(f"[sweep] the row's video failed or saved no adapter: {r}")
+    if not (np.isfinite(r["losses"] + [r["psnr"], r["ssim"]]).all()
+            and r["adapter_norm"] > 0):
+        raise AssertionError(f"[sweep] row result out of bounds: {r}")
+    if got != expected:
+        raise AssertionError(f"[sweep] launches {got}, expected {expected}")
+    if "error" in vbench or vbench.get("backend") != "torch-native" or vbench.get(
+            "unavailable") or not all(
+            np.isfinite(vbench["results"].get(d, np.nan))
+            and 0.0 <= vbench["results"][d] <= 1.0 for d in VBENCH_DIMENSIONS):
+        raise AssertionError(f"[sweep] online_eval.vbench: {vbench}")
+    launches = dict(got)
+
+    eval_dir = os.path.join(run_dir, "eval_bsa")
+    argv = ["--results-dir", run_dir, "--output-dir", eval_dir, "--mode", "adapted",
+            "--bsa-keep-ratio", str(SWEEP["bsa_keep_ratio"]), "--device", "cuda"]
+    print("[sweep] run_eval_adapters " + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    bsa.reset_launches()
+    t0 = time.time()
+    ev = run_eval_adapters.main(argv)
+    wall = time.time() - t0
+    got = {"flash_fwd": fa.launches, "bsa_fwd": bsa.bsa_launches,
+           "bsa_fwd_qk_int8": bsa.bsa_int8_launches,
+           "bsa_block_sum": bsa.bsa_block_sum_launches}
+    gc.collect()
+    torch.cuda.empty_cache()
+    expected = sweep_eval_launches(depth, SWEEP["inference_steps"])
+    e = ev["results"][0]
+    print(f"[sweep] eval_adapters: success={e['success']} gen_time={e.get('gen_time')} s "
+          f"psnr={e.get('psnr')} ssim={e.get('ssim')} (the run's dense psnr "
+          f"{r['psnr']}); wall {wall:.1f} s; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got} "
+          f"(expected {expected})"
+          + (f" error={e['error']}" if "error" in e else ""))
+    if ev["num_success"] != 1 or not (np.isfinite(e["psnr"]) and np.isfinite(e["ssim"])):
+        raise AssertionError(f"[sweep] run_eval_adapters: {ev}")
+    if got != expected:
+        raise AssertionError(f"[sweep] run_eval_adapters launches {got}, expected {expected}")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+
+    best = os.path.join(base, "best_configs.json")
+    vb_out = os.path.join(base, "vbench_score.json")
+    all_results = os.path.join(base, "all_results.json")
+    t0 = time.time()
+    run_eval.main(["--mode", "best_configs", "--results-roots", results, "--output", best])
+    run_eval.main(["--mode", "vbench", "--gen-dir", os.path.join(run_dir, "videos"),
+                   "--vbench-towers-dir", towers, "--device", "cuda", "--output", vb_out])
+    export_results.main(["--results-roots", results, "--output", all_results])
+    print(f"[sweep] run_eval best_configs + vbench, export_results in "
+          f"{time.time() - t0:.1f} s")
+    with open(best) as f:
+        bc = json.load(f)
+    with open(vb_out) as f:
+        vbo = json.load(f)
+    with open(all_results) as f:
+        runs = json.load(f)["runs"]
+    if bc.get(SWEEP["series"], {}).get("run_id") != SWEEP["run_id"]:
+        raise AssertionError(f"[sweep] best_configs: {bc}")
+    if vbo.get("backend") != "torch-native" or set(vbo["results"]) < set(VBENCH_DIMENSIONS):
+        raise AssertionError(f"[sweep] run_eval vbench: {vbo}")
+    if [(x["run_id"], x["status"]) for x in runs] != [(SWEEP["run_id"], "complete")]:
+        raise AssertionError(f"[sweep] all_results.json runs: {runs}")
+    shutil.rmtree(base, ignore_errors=True)
+    return launches
+
+
+def phase_vbench(fa, bsa, depth: int, smi: str):
+    """The VBench towers at their published geometry drawn on the card and
+    written under .chip_smoke/vbench_towers/ (removed at the end), their
+    card-vs-CPU agreement, then the sweep row that scores with them."""
+    towers = os.path.join(RUN_DIR, "vbench_towers")
+    shutil.rmtree(towers, ignore_errors=True)
+    t0 = time.time()
+    paths = write_vbench_tower_files(towers, VBENCH["seed"], "cuda")
+    print(f"[vbench-towers] tower files written in {time.time() - t0:.1f} s: "
+          f"{sorted(os.path.basename(p) for p in paths.values())}")
+    t0 = time.time()
+    agree = vbench_tower_agreement(paths, smi)
+    print(f"[time] vbench towers {time.time() - t0:.1f} s")
+    try:
+        t0 = time.time()
+        launches = phase_sweep(fa, bsa, depth, towers)
+        print(f"[time] sweep row {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(towers, ignore_errors=True)
+    return agree, launches
+
+
 def print_build(fa):
     spills = []
     for path, log, seconds in fa.build_libraries():
@@ -3391,7 +3866,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive the port on one NVIDIA GPU")
     ap.add_argument("--only", default="",
                     help="development: run the build and these comma-separated phases "
-                         "(checkpoint, remat, bucket, eval, kernel, bwd, opensora, cogvideox) "
+                         "(checkpoint, remat, bucket, eval, kernel, bwd, opensora, cogvideox, "
+                         "t2v, vbench) "
                          "and print no result")
     only = [x for x in ap.parse_args(argv).only.split(",") if x]
     try:
@@ -3441,7 +3917,9 @@ def main(argv=None) -> int:
                   "bucket": (phase_bucket_path, fa), "eval": (phase_eval, fa, cfg.dit.depth, smi),
                   "kernel": (phase_kernel_checks, fa, cfg.dit, tokens_per_frame),
                   "bwd": (phase_bwd_kernel_checks, fa, cfg.dit, tokens_per_frame),
-                  "opensora": (phase_opensora, fa), "cogvideox": (phase_cogvideox, fa)}
+                  "opensora": (phase_opensora, fa), "cogvideox": (phase_cogvideox, fa),
+                  "t2v": (phase_t2v, fa, cfg.dit, tokens_per_frame),
+                  "vbench": (phase_vbench, fa, bsa, cfg.dit.depth, smi)}
         for name in only:
             timed_phase(name, *phases[name])
         print(f"[time] all phases {time.time() - t_start:.1f} s")
@@ -3471,7 +3949,10 @@ def main(argv=None) -> int:
     _, eval_run = timed_phase("eval", phase_eval, fa, cfg.dit.depth, smi)
     os_fwd, os_bwd, os_run = timed_phase("opensora", phase_opensora, fa)
     cv_fwd, cv_bwd, cv_run = timed_phase("cogvideox", phase_cogvideox, fa)
-    cases += os_fwd + cv_fwd
+    t2v_cases, t2v_fwd, t2v_gen = timed_phase("t2v", phase_t2v, fa, cfg.dit, tokens_per_frame)
+    print(f"[t2v] gen_time per request {t2v_gen} s")
+    _, sweep_run = timed_phase("vbench", phase_vbench, fa, bsa, cfg.dit.depth, smi)
+    cases += os_fwd + cv_fwd + t2v_cases
     bwd_cases += os_bwd + cv_bwd
     print(f"[time] all phases {time.time() - t_start:.1f} s")
 
@@ -3487,18 +3968,22 @@ def main(argv=None) -> int:
 
     by_kernel = lambda name: [c for c in bwd_cases if c["kernel"] == name]
     bsa_kernel = lambda name: [c for c in bsa_cases if c["kernel"] == name]
-    lever_sum = lambda name: sum(levers[run][name] for run in levers)
+    # the sweep phase's launches: its row's TTA and its BSA re-evaluation
+    lever_sum = lambda name: (sum(levers[run][name] for run in levers)
+                              + sweep_run.get(name, 0))
     train_sum = lambda name: (tta[name] + sum(m[name] for m in methods.values())
                               + remat_run[name] + bucket_run[name] + eval_run[name]
                               + os_run[name] + cv_run[name])
     kernels = [
         entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:133",
-              serving_launches + ckpt_launches + train_sum("flash_fwd")
+              serving_launches + ckpt_launches + t2v_fwd + train_sum("flash_fwd")
               + lever_sum("flash_fwd"), cases),
         entry("flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:327",
-              train_sum("flash_bwd_dq"), by_kernel("flash_bwd_dq")),
+              train_sum("flash_bwd_dq") + sweep_run["flash_bwd_dq"],
+              by_kernel("flash_bwd_dq")),
         entry("flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:261",
-              train_sum("flash_bwd_dkv"), by_kernel("flash_bwd_dkv")),
+              train_sum("flash_bwd_dkv") + sweep_run["flash_bwd_dkv"],
+              by_kernel("flash_bwd_dkv")),
         entry("bsa_block_sum", "bsa.cu", "bsa.py:120", lever_sum("bsa_block_sum"),
               sum_cases),
         entry("bsa_fwd", "bsa.cu", "bsa.py:159", lever_sum("bsa_fwd"),

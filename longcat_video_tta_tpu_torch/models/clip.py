@@ -98,9 +98,14 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
     return np.where(x >= 2.0, np.float32(0.0), out).astype(np.float32)
 
 
-def cubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """[out_size, in_size] fp32 weights of ``jax.image.resize(...,
-    "cubic")`` along one axis (``compute_weight_mat``: half-pixel centres,
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """The bilinear (triangle) kernel max(0, 1 - |x|) in fp32."""
+    return np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x)).astype(np.float32)
+
+
+def _resize_matrix(in_size: int, out_size: int, kernel) -> np.ndarray:
+    """[out_size, in_size] fp32 weights of ``jax.image.resize`` with
+    ``kernel`` along one axis (``compute_weight_mat``: half-pixel centres,
     support widened by the downscale factor, weights renormalised to sum
     1), computed in fp32 as the reference's compiled resize computes them
     (sample positions and the kernel through fused multiply-adds, the
@@ -114,7 +119,7 @@ def cubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     sample = _fma32(np.arange(out_size, dtype=f) + f(0.5), inv_scale, -0.5)
     x = np.abs(sample[None, :] - np.arange(in_size, dtype=f)[:, None]) \
         * (f(1.0) / max(inv_scale, f(1.0)))
-    w = _keys_cubic(x)
+    w = kernel(x)
     total = w.sum(0, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
                  w / np.where(total != 0, total, f(1.0)), f(0.0))
@@ -122,10 +127,25 @@ def cubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, f(0.0)).T
 
 
-def preprocess_frames(frames, image_size: int, device="cpu") -> torch.Tensor:
-    """[T, H, W, 3] float in [0, 1] -> [T, S, S, 3] CLIP-normalised on
+def cubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """``jax.image.resize(..., "cubic")`` weights along one axis (Keys'
+    cubic, a = -0.5; see ``_resize_matrix``)."""
+    return _resize_matrix(in_size, out_size, _keys_cubic)
+
+
+def linear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """``jax.image.resize(..., "bilinear")`` weights along one axis (the
+    triangle kernel, antialiased when downscaling; see
+    ``_resize_matrix``)."""
+    return _resize_matrix(in_size, out_size, _triangle)
+
+
+def preprocess_frames(frames, image_size: int, device="cpu", mean=CLIP_IMAGE_MEAN,
+                      std=CLIP_IMAGE_STD) -> torch.Tensor:
+    """[T, H, W, 3] float in [0, 1] -> [T, S, S, 3] normalised on
     ``device``: uint8 levels, the shorter side resized to S (Keys cubic,
-    antialiased), center crop, clip to [0, 1], mean/std."""
+    antialiased), center crop, clip to [0, 1], then (x - mean) / std
+    (CLIP's by default; VBench's DINO passes ImageNet's)."""
     x = torch.as_tensor(np.asarray(frames), dtype=torch.float32, device=device)
     _, h, w, _ = x.shape
     scale = image_size / min(h, w)
@@ -141,8 +161,8 @@ def preprocess_frames(frames, image_size: int, device="cpu") -> torch.Tensor:
         x = torch.einsum("oh,thwc->towc", rows, x)
         x = torch.einsum("pw,towc->topc", cols, x)
     x = x.clamp(0.0, 1.0)
-    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=torch.float32, device=device)
-    std = torch.tensor(CLIP_IMAGE_STD, dtype=torch.float32, device=device)
+    mean = torch.tensor(mean, dtype=torch.float32, device=device)
+    std = torch.tensor(std, dtype=torch.float32, device=device)
     return (x - mean) / std
 
 

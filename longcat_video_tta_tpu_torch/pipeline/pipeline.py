@@ -22,7 +22,7 @@ from ..config import BSAConfig, CFGReuseConfig, ModelConfig, PABConfig
 from ..models import vae as vae_mod
 from ..models.clip_text import CLIPTextTower
 from ..models.umt5 import UMT5Encoder, umt5_encode
-from ..models.vae import WanVAE
+from ..models.vae import WanVAE, latent_len
 from ..archs import get_arch
 from ..models.weights import (
     init_random,
@@ -461,3 +461,65 @@ def _generate_vc_joint(bundle: ModelBundle, decode_dit, adapted: bool, cond_late
         full = fn(decode_dit, torch.cat([nemb, emb], dim=0), **seg, **kw)
     n_cond = cond_latents.shape[2]
     return _decode_generated(bundle, cond_latents, full[:, :, n_cond:], nf, mark)
+
+
+@torch.inference_mode()
+def generate_t2v(
+    bundle: ModelBundle,
+    prompt: str,
+    *,
+    num_frames: int = 93,
+    height: int = 480,
+    width: int = 832,
+    num_inference_steps: int = 50,
+    guidance_scale: float = 4.0,
+    seed: int = 42,
+    negative_prompt: str = "",
+    adapters: Optional[Dict[str, torch.Tensor]] = None,
+    pab_cfg: Optional[PABConfig] = None,
+    cfgr_cfg: Optional[CFGReuseConfig] = None,
+    generator: Optional[torch.Generator] = None,
+    init_noise: Optional[torch.Tensor] = None,
+    on_phase: Optional[Callable[[str], None]] = None,
+) -> np.ndarray:
+    """LongCat text-to-video. Returns [N, H, W, 3] in [0, 1], N =
+    ``num_frames`` rounded up to 4k+1.
+
+    The CFG Euler sampler with no conditioning latents (every token is
+    noise, so there is no cond cache), then the VAE decode. The initial
+    noise [1, C, L, height/8, width/8] comes from ``init_noise`` (unit
+    variance; tests inject the reference's draw) or is drawn on the
+    bundle's device from ``generator``, else from a generator seeded with
+    ``seed``. ``pab_cfg`` / ``cfgr_cfg``: PAB and CFG-delta reuse on the
+    dense loop. ``on_phase(name)`` is called as "prompt_encode", each
+    "step", "vae_decode" and "end" begin. LongCat only: the joint-volume
+    backbones raise, as in the reference (its ``sample_latents``)."""
+    cfg = bundle.cfg
+    if cfg.arch != "longcat":
+        raise NotImplementedError(
+            f"generate_t2v runs the LongCat sampler; the {cfg.arch} backbone has no "
+            "text-to-video path")
+    mark = on_phase or (lambda name: None)
+    nf = round_frames_4k1(num_frames)
+    n_lat = latent_len(nf, cfg.vae.temporal_factor)
+    sf = cfg.vae.spatial_factor
+    mark("prompt_encode")
+    emb, mask = bundle.encode_prompt(prompt)
+    nemb, nmask = bundle.encode_prompt(negative_prompt)
+    if init_noise is None:
+        if generator is None:
+            generator = torch.Generator(device=bundle.device).manual_seed(seed)
+        init_noise = torch.randn((1, cfg.dit.in_channels, n_lat, height // sf, width // sf),
+                                 generator=generator, dtype=torch.float32,
+                                 device=bundle.device)
+    latents = sample_latents(bundle.dit, cfg.scheduler, emb, mask, nemb, nmask,
+                             guidance_scale, num_gen_latents=n_lat,
+                             num_steps=num_inference_steps, lat_h=height // sf,
+                             lat_w=width // sf, cond_latents=None,
+                             init_noise=torch.as_tensor(init_noise), adapters=adapters,
+                             pab_cfg=pab_cfg, cfgr_cfg=cfgr_cfg, on_phase=on_phase)
+    mark("vae_decode")
+    pixels = bundle.decode_latents(latents)
+    out = pixels[0].permute(1, 2, 3, 0)[:nf].float().cpu().numpy()
+    mark("end")
+    return out

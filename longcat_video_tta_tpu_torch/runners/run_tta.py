@@ -28,7 +28,10 @@ its caption first, and a video it skips trains nothing and generates on
 the base weights; ``--lpips-model-path`` scores LPIPS (``eval/lpips.py``)
 and ``--fvd-enabled`` / ``--inception-model-path`` stream FVD and FID
 (``eval/i3d.py``, ``eval/inception.py``, ``eval/frechet.py``) into
-``online_eval``, their moments saved in ``fvd_state.npz`` for a resume.
+``online_eval``, their moments saved in ``fvd_state.npz`` for a resume;
+``--compute-vbench`` scores the saved clips on the VBench dimensions at
+the end (``eval/vbench.py``; towers from ``--vbench-towers-dir``) into
+``online_eval.vbench``, after writing summary.json once without it.
 
 ``--preset opensora_v2`` (or ``opensora_v2_tiny``) runs the Open-Sora v2
 MMDiT backbone (``models/mmdit.py``), ``--preset cogvideox_5b`` (or
@@ -251,6 +254,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "weights only: scores are meaningless on real captions)")
     # online evaluation
     p.add_argument("--fvd-enabled", action="store_true")
+    p.add_argument("--compute-vbench", action="store_true",
+                   help="score the saved clips on the VBench dimensions at the end "
+                        "(eval/vbench.py: the vbench package when installed, else the "
+                        "port's native dimensions on --device) into "
+                        "online_eval.vbench")
+    p.add_argument("--vbench-towers-dir", default=None,
+                   help="folder of dino_vits16.pth, aesthetic_l14.pth + clip_l14/ and "
+                        "musiq_spaq.pth (each with an optional config sidecar) for "
+                        "subject_consistency, aesthetic_quality and imaging_quality")
     p.add_argument("--min-fvd-videos", type=int, default=256,
                    help="small-sample warning threshold of the online Frechet "
                         "accumulator")
@@ -282,7 +294,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def check_composition(args, arch: str = "longcat") -> None:
     """Refuse at start-up the flag combinations the reference refuses
-    (its runner :825-836 and :1011-1022), before any weight is loaded."""
+    (its runner :722-726, :825-836 and :1011-1022), before any weight is
+    loaded."""
+    if args.compute_vbench and (args.no_save_videos or args.skip_generation):
+        raise SystemExit("--compute-vbench scores the saved clips; it cannot run with "
+                         "--no-save-videos or --skip-generation")
     if args.method == "dno" and arch != "longcat":
         raise SystemExit("--method dno is wired for the LongCat backbone only "
                          "(carried init_noise rides the cond-KV/noise-split sampler)")
@@ -524,7 +540,7 @@ def load_bundle(args):
     from ..pipeline.pipeline import ModelBundle
 
     cfg = get_model_config(args.preset)
-    if args.remat_policy:
+    if getattr(args, "remat_policy", None):
         cfg = dataclasses.replace(cfg, dit=dataclasses.replace(
             cfg.dit, remat_policy=args.remat_policy))
     if args.checkpoint_dir:
@@ -908,6 +924,17 @@ def main(argv: Optional[List[str]] = None,
                     print(f"  WARNING: fvd_state save failed: {e}")
 
     summary = _summary(args, results, caption_stats, t_start, fvd)
+    if args.compute_vbench:
+        from ..eval.vbench import run_vbench
+
+        # never lose the run's summary to a scorer failure: write it
+        # first, then amend it with the VBench scores
+        save_results(os.path.join(args.output_dir, "summary.json"), summary)
+        try:
+            summary["online_eval"]["vbench"] = run_vbench(
+                videos_dir, towers_dir=args.vbench_towers_dir, device=device)
+        except Exception as e:
+            summary["online_eval"]["vbench"] = {"error": f"{type(e).__name__}: {e}"}
     save_results(os.path.join(args.output_dir, "summary.json"), summary)
     print(f"\nDone: {summary['num_success']}/{len(results)} videos, "
           f"summary at {args.output_dir}/summary.json")

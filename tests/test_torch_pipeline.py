@@ -162,9 +162,9 @@ def test_runner_summary_keys_match_jax_runner(tmp_path):
 
 
 def test_runner_rejects_unported_method(tmp_path):
-    """Every --method runs; an option that is not ported (the VBench
-    scorer) still raises before any work."""
+    """Every --method runs; an option that is not ported (the native
+    prefetch loader) still raises before any work."""
     with pytest.raises(SystemExit):
-        run_tta.main(["--method", "film", "--compute-vbench", "--output-dir",
+        run_tta.main(["--method", "film", "--native-prefetch", "--output-dir",
                       str(tmp_path), "--device", "cpu", "--synthetic", "1"])
     assert not os.listdir(tmp_path)

@@ -492,9 +492,9 @@ def test_runner_delta_a_writes_a_finite_summary(tmp_path):
 def test_runner_rejects_unported_options(tmp_path):
     base = ["--output-dir", str(tmp_path), "--device", "cpu", "--synthetic", "1"]
     with pytest.raises(SystemExit):
-        run_tta.main(["--method", "lora", "--compute-vbench"] + base)
+        run_tta.main(["--method", "lora", "--video-parallel"] + base)
     with pytest.raises(SystemExit):
-        run_tta.main(["--method", "delta_a", "--vbench-towers-dir", "x"] + base)
+        run_tta.main(["--method", "delta_a", "--data-mesh", "2"] + base)
     assert run_tta.build_arg_parser().parse_args(base).method == "delta_a"
     assert run_tta.build_arg_parser().parse_args(base + ["--clip-gate-enabled"]) \
         .clip_gate_enabled
