@@ -76,8 +76,9 @@ Phases (each one fails the run when it fails):
   8. main paths, the other methods: the runner on 1 video per method
      (lora on all eight sites under W8A8 decode, delta_b hidden, delta_c,
      film, norm_tune all_norm with a delta, full, dno) at the delta_a
-     path's widths, depth and window (full on longcat_bench_3b, whose
-     full-weight TTA state fits the card), 3 steps (dno: 2 through a
+     path's widths and window and 24 of its 48 blocks (to keep the
+     script inside its time limit; full on longcat_bench_3b,
+     whose full-weight TTA state fits the card), 3 steps (dno: 2 through a
      2-step sampler), 2 denoising steps. Each must succeed with finite
      losses, anchors and PSNR/SSIM, train (its anchor or DNO loss moves),
      report the trainable-parameter count of its configuration, and
@@ -178,11 +179,42 @@ Phases (each one fails the run when it fails):
      ``sweep.run_sweep``: delta_a at 13.6B on 1 synthetic video (3 steps,
      check every 3, 4 denoising steps) with --save-adapters and
      --compute-vbench (online_eval.vbench: backend torch-native, five
-     finite dimensions in [0, 1], no error), compile_cache_dir dropped
-     with its note, launches as ``method_launches``; then
+     finite dimensions in [0, 1], no error), compile_cache_dir "auto"
+     forwarded (the kernels' default build folder), launches as
+     ``method_launches``; then
      ``run_eval_adapters --mode adapted --bsa-keep-ratio 0.5`` on the row
      (launches as ``sweep_eval_launches``), ``run_eval``'s best_configs
      and vbench modes and ``export_results``.
+
+ 17. vp (``--only vp``): --video-parallel. (a) B1 at the shapes the lanes
+     fold into (the train step's self-attention over 10 920 tokens with a
+     6240-token prefix and its cross-attention against 512 text tokens at
+     B 2, the anchor eval's 7800 tokens at 12 rows), B2 and B3 at the
+     train step's, against the plain version and SDPA; (b) one batched
+     delta_a step of 2 lanes at longcat_demo width, card vs CPU (each
+     lane's loss and gradient under the step agreement's gates); (c) the
+     runner at LongCat-13.6B width and depth on the delta_a path's window:
+     delta_a with --video-parallel 2 --native-prefetch on 2 videos (3
+     steps, check every 3, 4 denoising steps, LPIPS, adapters saved), the
+     same 2 videos one after the other, and lora on 8 sites at V 2: each
+     lane's step-0 loss within 1e-3 of its sequential run's, later ones
+     within 1e-2, the same best step, adapter cosine >= 0.99, finite
+     metrics; launches per batched train step equal to one video's
+     (``train_step_launches``) and in all ``vp_launches``; the batched
+     step, the anchor eval and the TTA's own peak memory beside one
+     video's.
+ 18. flags (``--only flags``): one longcat_demo video per flag: the default
+     run, --profile-dir (a torch.profiler trace whose kernel events include
+     flash_fwd), --debug-nans and --attn-impl xla (the default run's losses
+     and anchors within 1e-2; xla launches no kernel), --compile-cache-dir
+     on a fresh folder (the three libraries are built there).
+ 19. tools (``--only vp,tools``): eval_external on [vp]'s clips against
+     their ground truth on the card with LPIPS and I3D tower files drawn
+     on the card (to 1e-4 of the runner's metric code on the same clips,
+     near the runner's recorded values, which were taken before the clip
+     was saved as uint8; finite FVD), then compare_all, diagnostics status
+     and audit, export_results, export_loss_curves and (where matplotlib is
+     installed; the card's machine has none) figures over [vp]'s runs.
 
 The counts of every kernel are set to 0 just before each main path and
 read just after; a kernel's ``launches`` in the kernels line is its sum
@@ -1412,14 +1444,14 @@ def phase_tta_path(fa, depth):
 
 
 # method runs: the runner on 1 video per method at LongCat-13.6B width and
-# depth (full: longcat_bench_3b, whose full-weight TTA state fits the
-# card), delta_a's 29-frame window, 3 TTA steps with the anchor check
+# 24 of its 48 blocks (full: longcat_bench_3b, whose full-weight TTA state
+# fits the card), delta_a's 29-frame window, 3 TTA steps with the anchor check
 # every 3, 2 denoising steps, 8 generated frames, each at its learning rate
 # in the demo campaign (campaign/demo/_<method>.yaml; full and lora: their
 # longer variant's). "graph" names where the trainable tensors enter the
 # model (train_step_launches).
 METHOD = dict(height=480, width=832, cond_frames=13, tta_total_frames=29, gen_frames=8,
-              steps=3, check_every=3, inference_steps=2, guidance=4.0)
+              steps=3, check_every=3, inference_steps=2, guidance=4.0, depth=24)
 METHOD_RUNS = {
     "lora": dict(graph="cross_kv", lr=1e-3, flags=["--lora-target-ffn",
                                                     "--quantize-decode", "int8"]),
@@ -1468,79 +1500,87 @@ def method_trainable(method: str, dit_cfg) -> int:
 
 
 def phase_method_path(fa, method: str):
+    """One video of ``method`` through the runner: on LongCat-13.6B at
+    ``METHOD["depth"]`` of its 48 blocks (full width), ``full`` on
+    longcat_bench_3b."""
+    import contextlib
+
     import numpy as np
     import torch
 
-    from longcat_video_tta_tpu_torch.config import get_model_config
+    from longcat_video_tta_tpu_torch import config
     from longcat_video_tta_tpu_torch.runners import run_tta
 
     spec = METHOD_RUNS[method]
     preset = spec.get("preset", "longcat_13b")
-    dit_cfg = get_model_config(preset).dit
-    steps = spec.get("steps", METHOD["steps"])
-    out_dir = os.path.join(RUN_DIR, f"method_{method}")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    argv = ["--method", method, "--preset", preset, "--synthetic", "1",
-            "--output-dir", out_dir, "--device", "cuda",
-            "--height", str(METHOD["height"]), "--width", str(METHOD["width"]),
-            "--num-cond-frames", str(METHOD["cond_frames"]),
-            "--tta-total-frames", str(METHOD["tta_total_frames"]),
-            "--num-frames", str(METHOD["gen_frames"]), "--steps", str(steps),
-            "--lr", str(spec["lr"]),
-            "--es-check-every", str(METHOD["check_every"]),
-            "--num-inference-steps", str(METHOD["inference_steps"]),
-            "--guidance-scale", str(METHOD["guidance"]), "--no-save-videos",
-            # one video: its caption is the whole caption set
-            "--caption-guard-mode", "off", *spec["flags"]]
-    print(f"[method {method}] run_tta " + " ".join(argv))
-    is_dno = method == "dno"
-    expected = method_launches(
-        spec["graph"], dit_cfg.depth, steps=steps,
-        anchors=0 if is_dno else 1 + steps // METHOD["check_every"],
-        inference_steps=METHOD["inference_steps"],
-        sampler_steps=spec.get("sampler_steps", 1))
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated() / 2 ** 30
-    fa.reset_launches()
-    t0 = time.time()
-    summary = run_tta.main(argv)
-    wall = time.time() - t0
-    got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
-           "flash_bwd_dkv": fa.bwd_dkv_launches}
-    shutil.rmtree(os.path.join(out_dir, "synthetic_data"), ignore_errors=True)
-    r = summary["results"][0]
-    es = r.get("early_stopping_info") or {}
-    anchors = [loss for _, loss in es.get("loss_history", [])]
-    n_train = method_trainable(method, dit_cfg)
-    print(f"[method {method}] success={r['success']} preset={preset} "
-          f"train_time={r.get('train_time')} s es_check_time={r.get('es_check_time')} s "
-          f"gen_time={r.get('gen_time')} s total_time={r.get('total_time')} s "
-          f"losses={r.get('losses')} anchors={anchors} best_step={es.get('best_step')} "
-          f"adapter_norm={r.get('adapter_norm')} noise_norm={r.get('noise_norm')} "
-          f"trainable_params={r.get('trainable_params')} (expected {n_train}) "
-          f"psnr={r.get('psnr')} ssim={r.get('ssim')}"
-          + (f" error={r['error']}" if "error" in r else ""))
-    print(f"[method {method}] wall {wall:.1f} s; max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({held:.2f} held before "
-          f"the run); launches {got} "
-          f"(expected {expected})")
-    if summary["num_success"] != 1:
-        raise AssertionError(f"method run {method} failed: {r.get('error')}")
-    losses = r["losses"]
-    if not (np.isfinite(losses + anchors + [r["psnr"], r["ssim"]]).all()
-            and len(losses) == steps):
-        raise AssertionError(f"method run {method}: non-finite or missing values: {r}")
-    # the trained state moved: DNO's loss is deterministic in the noise,
-    # and the anchor loss (fixed sigmas and noises) in the adapted model
-    moved = losses[-1] != losses[0] if is_dno else (len(anchors) == 2
-                                                    and anchors[1] != anchors[0])
-    if not moved or r["trainable_params"] != n_train:
-        raise AssertionError(f"method run {method}: did not train, or reports "
-                             f"{r['trainable_params']} trainable parameters ({n_train})")
-    if got != expected:
-        raise AssertionError(f"kernel launches on the {method} run {got}, "
-                             f"expected {expected}")
-    return got
+    cut = (preset_depth(METHOD["depth"], preset) if preset == "longcat_13b"
+           else contextlib.nullcontext())
+    with cut:
+        dit_cfg = config.get_model_config(preset).dit  # the cut, as the runner reads it
+        steps = spec.get("steps", METHOD["steps"])
+        out_dir = os.path.join(RUN_DIR, f"method_{method}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        argv = ["--method", method, "--preset", preset, "--synthetic", "1",
+                "--output-dir", out_dir, "--device", "cuda",
+                "--height", str(METHOD["height"]), "--width", str(METHOD["width"]),
+                "--num-cond-frames", str(METHOD["cond_frames"]),
+                "--tta-total-frames", str(METHOD["tta_total_frames"]),
+                "--num-frames", str(METHOD["gen_frames"]), "--steps", str(steps),
+                "--lr", str(spec["lr"]),
+                "--es-check-every", str(METHOD["check_every"]),
+                "--num-inference-steps", str(METHOD["inference_steps"]),
+                "--guidance-scale", str(METHOD["guidance"]), "--no-save-videos",
+                # one video: its caption is the whole caption set
+                "--caption-guard-mode", "off", *spec["flags"]]
+        print(f"[method {method}] run_tta " + " ".join(argv))
+        is_dno = method == "dno"
+        expected = method_launches(
+            spec["graph"], dit_cfg.depth, steps=steps,
+            anchors=0 if is_dno else 1 + steps // METHOD["check_every"],
+            inference_steps=METHOD["inference_steps"],
+            sampler_steps=spec.get("sampler_steps", 1))
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        fa.reset_launches()
+        t0 = time.time()
+        summary = run_tta.main(argv)
+        wall = time.time() - t0
+        got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+               "flash_bwd_dkv": fa.bwd_dkv_launches}
+        shutil.rmtree(os.path.join(out_dir, "synthetic_data"), ignore_errors=True)
+        r = summary["results"][0]
+        es = r.get("early_stopping_info") or {}
+        anchors = [loss for _, loss in es.get("loss_history", [])]
+        n_train = method_trainable(method, dit_cfg)
+        print(f"[method {method}] success={r['success']} preset={preset} "
+              f"train_time={r.get('train_time')} s es_check_time={r.get('es_check_time')} s "
+              f"gen_time={r.get('gen_time')} s total_time={r.get('total_time')} s "
+              f"losses={r.get('losses')} anchors={anchors} best_step={es.get('best_step')} "
+              f"adapter_norm={r.get('adapter_norm')} noise_norm={r.get('noise_norm')} "
+              f"trainable_params={r.get('trainable_params')} (expected {n_train}) "
+              f"psnr={r.get('psnr')} ssim={r.get('ssim')}"
+              + (f" error={r['error']}" if "error" in r else ""))
+        print(f"[method {method}] wall {wall:.1f} s; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({held:.2f} held before "
+              f"the run); launches {got} "
+              f"(expected {expected})")
+        if summary["num_success"] != 1:
+            raise AssertionError(f"method run {method} failed: {r.get('error')}")
+        losses = r["losses"]
+        if not (np.isfinite(losses + anchors + [r["psnr"], r["ssim"]]).all()
+                and len(losses) == steps):
+            raise AssertionError(f"method run {method}: non-finite or missing values: {r}")
+        # the trained state moved: DNO's loss is deterministic in the noise,
+        # and the anchor loss (fixed sigmas and noises) in the adapted model
+        moved = losses[-1] != losses[0] if is_dno else (len(anchors) == 2
+                                                        and anchors[1] != anchors[0])
+        if not moved or r["trainable_params"] != n_train:
+            raise AssertionError(f"method run {method}: did not train, or reports "
+                                 f"{r['trainable_params']} trainable parameters ({n_train})")
+        if got != expected:
+            raise AssertionError(f"kernel launches on the {method} run {got}, "
+                                 f"expected {expected}")
+        return got
 
 
 # ---------------------------------------------------------------------------
@@ -3679,8 +3719,8 @@ def sweep_eval_launches(depth: int, steps: int) -> dict:
 def phase_sweep(fa, bsa, depth: int, towers: str):
     """A configs/-style YAML row (campaign_demo_delta_a.yaml's schema:
     delta_a on longcat_13b, 1 synthetic video, --save-adapters,
-    compute_vbench on the towers under ``towers``, compile_cache_dir set
-    so the drop-with-note path runs) through the port's ``run_sweep``
+    compute_vbench on the towers under ``towers``, compile_cache_dir "auto",
+    which the sweep forwards) through the port's ``run_sweep``
     in-process; B1-B3 launches as ``method_launches``; online_eval.vbench
     from the native towers (five finite dimensions in [0, 1], no error).
     Then ``run_eval_adapters --mode adapted --bsa-keep-ratio 0.5`` on the
@@ -3713,7 +3753,7 @@ def phase_sweep(fa, bsa, depth: int, towers: str):
                      "guidance_scale": TTA["guidance"], "seed": SWEEP["seed"],
                      "save_adapters": True, "compute_vbench": True,
                      "vbench_towers_dir": towers,
-                     "compile_cache_dir": os.path.join(base, "xla_cache")},
+                     "compile_cache_dir": "auto"},
            "sweep": [{"run_id": SWEEP["run_id"], "lr": SWEEP["lr"]}]}
     path = os.path.join(base, "chip_smoke_sweep.yaml")
     with open(path, "w") as f:
@@ -3843,6 +3883,480 @@ def phase_vbench(fa, bsa, depth: int, smi: str):
     return agree, launches
 
 
+# ---------------------------------------------------------------------------
+# --video-parallel (the lanes folded into the batch axis), the debugging
+# and profiling flags, and the post-processing tools
+# ---------------------------------------------------------------------------
+
+# [vp]: the delta_a path's window (29 frames: 4 cond, 3 train, 1 val
+# latents) at LongCat-13.6B width and depth on 2 videos, 3 steps with the
+# anchor check every 3, 4 denoising steps, --video-parallel 2
+# --native-prefetch, against the same 2 videos run one after the other
+VP = dict(videos=2, lanes=2, steps=3, check_every=3, inference_steps=4, seed=81,
+          loss0_rtol=1e-3, loss_rtol=1e-2, cos_min=0.99, tower_seed=83)
+# [flags]: one video at longcat_demo width (192 x 320, 8 blocks) per flag
+FLAGS = dict(height=192, width=320, cond_frames=5, tta_total_frames=13, gen_frames=5,
+             steps=2, check_every=1, inference_steps=2, seed=85, loss_rtol=1e-2)
+# the [tools] gates: eval_external against the runner's metric code on the
+# same saved clips; against the runner's recorded values the saved clip is
+# the generation truncated to uint8, which moves each metric a little
+TOOLS = dict(code_atol=1e-4, psnr_atol=0.1, ssim_atol=1e-2, lpips_atol=1e-2)
+
+
+def vp_kernel_cases(dit_cfg, tokens_per_frame):
+    """B1 at the shapes --video-parallel 2 folds the lanes into: the train
+    step's self-attention and cross-attention at B 2, the anchor eval's
+    self-attention at 12 rows (2 lanes x 3 sigmas x 2 draws)."""
+    H, D = dit_cfg.num_heads, dit_cfg.head_dim
+    n_cond_lat, n_train_lat, n_val_lat = tta_split()
+    ncond = n_cond_lat * tokens_per_frame
+    s_train = (n_cond_lat + n_train_lat) * tokens_per_frame
+    s_anchor = (n_cond_lat + n_val_lat) * tokens_per_frame
+    return [("vp_train_self", (VP["lanes"], H, s_train, s_train, D),
+             dict(ncond=ncond, seed=91)),
+            ("vp_anchor_self", (6 * VP["lanes"], H, s_anchor, s_anchor, D),
+             dict(ncond=ncond, seed=92)),
+            ("vp_train_cross", (VP["lanes"], H, s_train, dit_cfg.text_len, D),
+             dict(fused_kv=True, seed=93))]
+
+
+def vp_launches(graph: str, depth: int, *, lanes: int, steps: int, checks: int,
+                inference_steps: int):
+    """Launches per kernel of one --video-parallel group: ``steps`` batched
+    train steps (each launches what one video's step launches: the lanes
+    ride the batch axis), an anchor eval per lane at set-up and ``checks``
+    batched ones (2 x depth forward launches each, every lane in one
+    forward), then each lane's generation."""
+    out = {k: steps * n for k, n in train_step_launches(graph, depth).items()}
+    out["flash_fwd"] += 2 * depth * (lanes + checks + lanes * (1 + inference_steps))
+    return out
+
+
+class PhaseProbe:
+    """The runner's ``on_phase`` hook: at every phase mark, after a device
+    sync, the time, the kernel counts, and the memory; the peak statistics
+    are reset at the first "video" mark (after the weights are drawn). On
+    another device than "cuda" (a CPU rehearsal) the memory reads 0."""
+
+    def __init__(self, fa, card: str = "cuda"):
+        self.fa, self.card, self.events = fa, card, []
+
+    def __call__(self, name):
+        import torch
+
+        on_card = self.card == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+            if name == "video" and not self.events:
+                torch.cuda.reset_peak_memory_stats()
+        fa = self.fa
+        self.events.append(dict(name=name, t=time.perf_counter(), flash_fwd=fa.launches,
+                                flash_bwd_dq=fa.bwd_dq_launches,
+                                flash_bwd_dkv=fa.bwd_dkv_launches,
+                                peak=torch.cuda.max_memory_allocated() if on_card else 0,
+                                held=torch.cuda.memory_allocated() if on_card else 0))
+
+    def first(self, name, after=0):
+        return next(i for i, e in enumerate(self.events) if i >= after and e["name"] == name)
+
+    def train_step(self, k: int):
+        """(launches per train step, seconds per step, anchor eval seconds)
+        of the first chunk of ``k`` steps."""
+        i = self.first("train_chunk")
+        j = self.first("anchor_check", i)
+        a, b, c = self.events[i], self.events[j], self.events[j + 1]
+        per = {key: (b[key] - a[key]) / k for key in ("flash_fwd", "flash_bwd_dq",
+                                                      "flash_bwd_dkv")}
+        return per, (b["t"] - a["t"]) / k, c["t"] - b["t"]
+
+    def tta_peak(self):
+        """(peak allocated GiB up to the first generation, GiB held at the
+        first video mark): the TTA's own peak, with the weights."""
+        g = self.events[self.first("generation")]
+        return g["peak"] / 2**30, self.events[0]["held"] / 2**30
+
+
+def phase_vp_agreement(card: str = "cuda"):
+    """One batched delta_a step of 2 lanes (each its own cond, target,
+    text, sigma and noise) on the card vs the CPU plain path at
+    longcat_demo width (bf16): each lane's loss and delta gradient under
+    the step agreement's gates."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import longcat_demo
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle
+    from longcat_video_tta_tpu_torch.tta.losses import (
+        flow_matching_loss_conditioned,
+        fold_lanes,
+    )
+
+    cfg = longcat_demo()
+    cpu_dit = ModelBundle.init_random(cfg, seed=5, device="cpu").dit
+    gpu_dit = copy.deepcopy(cpu_dit).to(card)
+    rng = np.random.default_rng(2)
+    V, D = VP["lanes"], cfg.dit
+    lanes = [dict(cond=rng.standard_normal((1, 16, 2, 8, 16)),
+                  target=rng.standard_normal((1, 16, 1, 8, 16)),
+                  emb=rng.standard_normal((1, D.text_len, D.text_dim)),
+                  sigma=np.array([0.3 + 0.4 * v]),
+                  noise=rng.standard_normal((1, 16, 1, 8, 16))) for v in range(V)]
+    delta = 0.1 * rng.standard_normal((V, D.adaln_tembed_dim))
+    mask = np.ones((1, D.text_len), np.int64)
+
+    def step(dit, dev):
+        t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+        fold = lambda key: fold_lanes([t(l[key]) for l in lanes])
+        d = t(delta).requires_grad_(True)
+        m = torch.from_numpy(mask).to(dev)
+        loss = flow_matching_loss_conditioned(
+            dit, fold("cond"), fold("target"), fold("emb"), torch.cat([m] * V),
+            adapters={"delta_t": d}, sigma=fold("sigma"), noise=fold("noise"), lanes=V)
+        (g,) = torch.autograd.grad(loss.sum(), [d])
+        return loss.detach().double().cpu(), g.double().cpu()
+
+    loss_c, grad_c = step(cpu_dit, "cpu")
+    loss_g, grad_g = step(gpu_dit, card)
+    ok = True
+    for v in range(V):
+        rel = float(abs(loss_g[v] - loss_c[v]) / abs(loss_c[v]))
+        cos = float(grad_g[v] @ grad_c[v] / (grad_g[v].norm() * grad_c[v].norm()))
+        print(f"[vp-agree] longcat_demo batched delta_a step, lane {v}, card vs cpu: loss "
+              f"{float(loss_g[v]):.6g} vs {float(loss_c[v]):.6g} (rel {rel:.3g}, max "
+              f"{STEP_LOSS_RTOL}); grad cosine {cos:.6f} (min {STEP_GRAD_COS_MIN})")
+        ok = ok and rel <= STEP_LOSS_RTOL and cos >= STEP_GRAD_COS_MIN
+    if not ok:
+        raise AssertionError("card and CPU batched steps disagree")
+
+
+def _vp_argv(method: str, out_dir: str, card: str, *flags):
+    return ["--method", method, "--preset", "longcat_13b", "--synthetic", str(VP["videos"]),
+            "--output-dir", out_dir, "--device", card, "--seed", str(VP["seed"]),
+            "--height", str(TTA["height"]), "--width", str(TTA["width"]),
+            "--num-cond-frames", str(TTA["cond_frames"]),
+            "--tta-total-frames", str(TTA["tta_total_frames"]),
+            "--num-frames", str(TTA["gen_frames"]), "--steps", str(VP["steps"]),
+            "--es-check-every", str(VP["check_every"]), "--es-patience", str(TTA["patience"]),
+            "--num-inference-steps", str(VP["inference_steps"]),
+            "--guidance-scale", str(TTA["guidance"]), "--save-adapters", *flags]
+
+
+def _vp_run(fa, tag: str, argv, card: str):
+    """The runner under a ``PhaseProbe``; returns (summary, probe, launches)."""
+    from longcat_video_tta_tpu_torch.runners import run_tta
+
+    print(f"[vp {tag}] run_tta " + " ".join(argv))
+    probe = PhaseProbe(fa, card)
+    fa.reset_launches()
+    t0 = time.time()
+    summary = run_tta.main(argv, on_phase=probe)
+    got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+           "flash_bwd_dkv": fa.bwd_dkv_launches}
+    print(f"[vp {tag}] wall {time.time() - t0:.1f} s")
+    for i, r in enumerate(summary["results"]):
+        print(f"[vp {tag}] video {i}: success={r['success']} train_time={r.get('train_time')} "
+              f"s es_check_time={r.get('es_check_time')} s gen_time={r.get('gen_time')} s "
+              f"losses={r.get('losses')} adapter_norm={r.get('adapter_norm')} "
+              f"best_step={(r.get('early_stopping_info') or {}).get('best_step')} "
+              f"vp_steps_executed={r.get('vp_steps_executed')} psnr={r.get('psnr')} "
+              f"ssim={r.get('ssim')} lpips={r.get('lpips')}"
+              + (f" error={r['error']}" if "error" in r else ""))
+    if summary["num_success"] != VP["videos"]:
+        raise AssertionError(f"[vp {tag}] {summary['num_success']}/{VP['videos']} videos")
+    return summary, probe, got
+
+
+def _adapter_vector(r):
+    """A video's saved adapter as one flat fp64 vector."""
+    import torch
+
+    state = torch.load(r["adapter_path"], map_location="cpu")
+    return torch.cat([state[k].double().flatten() for k in sorted(state)])
+
+
+def phase_vp(fa, dit_cfg, tokens_per_frame, card: str = "cuda"):
+    """(a) B1-B3 at the folded shapes against the plain version and SDPA;
+    (b) one batched step of 2 lanes, card vs CPU; (c) delta_a at
+    LongCat-13.6B width and depth through the runner with --video-parallel 2
+    --native-prefetch, and the same 2 videos one after the other: each
+    lane's losses, early-stopping record and adapter against its sequential
+    run, per-step launches equal to one video's, the group's own peak; (d)
+    lora on 8 sites at V 2. Returns (forward cases, backward cases,
+    launches over the runs, the run folders and tower files for [tools])."""
+    import numpy as np
+    import torch
+
+    depth = dit_cfg.depth
+    fwd = [check_kernel_case(fa, name, *shape, timed=True, **opts)
+           for name, shape, opts in vp_kernel_cases(dit_cfg, tokens_per_frame)]
+    (b_self, b_anchor, b_cross) = vp_kernel_cases(dit_cfg, tokens_per_frame)
+    bwd = check_bwd_case(fa, b_self[0], *b_self[1], timed=True, **b_self[2])
+    bwd += check_bwd_case(fa, "vp_train_cross_dq", *b_cross[1], timed=True, dkv=False,
+                          **b_cross[2])
+    for c in fwd:
+        print("[vp-kernel] " + json.dumps(c))
+    for c in bwd:
+        print("[vp-bwd-kernel] " + json.dumps(c))
+    phase_vp_agreement(card)
+
+    base = os.path.join(RUN_DIR, "vp", "results", "chip_smoke_vp")
+    towers = os.path.join(RUN_DIR, "vp", "towers")
+    for d in (base, towers):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(towers)
+    gen = torch.Generator(device=card).manual_seed(VP["tower_seed"])
+    paths = {}
+    for name, file, shapes in (("lpips", "lpips_alex.pth", lpips_state_shapes()),
+                               ("i3d", "i3d_pytorch.pt", i3d_state_shapes())):
+        paths[name] = os.path.join(towers, file)
+        torch.save({k: tower_value(k, s, gen, card).cpu() for k, s in shapes.items()},
+                   paths[name])
+    lpips = ["--lpips-model-path", paths["lpips"]]
+    print(f"[vp] geometry: {TTA['height']}x{TTA['width']}, {TTA['tta_total_frames']}-frame "
+          f"window, split {tta_split()}; {VP['videos']} videos, {VP['steps']} steps, check "
+          f"every {VP['check_every']}, {VP['inference_steps']} denoising steps; full width "
+          f"and depth {depth}")
+    checks = VP["steps"] // VP["check_every"]
+    totals = {}
+    out = {}
+    for tag, method, flags in (
+            ("delta_a", "delta_a", ["--video-parallel", str(VP["lanes"]),
+                                    "--native-prefetch", *lpips]),
+            ("sequential", "delta_a", lpips),
+            ("lora", "lora", ["--video-parallel", str(VP["lanes"]), "--native-prefetch",
+                              "--lora-target-ffn", "--no-save-videos"])):
+        run_dir = os.path.join(base, tag)
+        summary, probe, got = _vp_run(fa, tag, _vp_argv(method, run_dir, card, *flags), card)
+        graph = "cross_kv" if method == "lora" else "t_embed"
+        one = train_step_launches(graph, depth)
+        per, step_s, anchor_s = probe.train_step(VP["steps"])
+        peak, held = probe.tta_peak()
+        if tag == "sequential":
+            expected = {k: VP["videos"] * n for k, n in method_launches(
+                graph, depth, steps=VP["steps"], anchors=1 + checks,
+                inference_steps=VP["inference_steps"]).items()}
+        else:
+            expected = vp_launches(graph, depth, lanes=VP["lanes"], steps=VP["steps"],
+                                   checks=checks, inference_steps=VP["inference_steps"])
+        rows = 1 if tag == "sequential" else VP["lanes"]
+        print(f"[vp {tag}] train step {step_s:.3f} s ({rows} row(s)), anchor eval "
+              f"{anchor_s:.3f} s ({6 * rows} rows); TTA peak {peak:.2f} GiB "
+              f"({peak - held:.2f} above the {held:.2f} GiB held after the weight draw); "
+              f"launches per train step {per} (one video's {one}); launches {got} "
+              f"(expected {expected})")
+        if per != {k: float(n) for k, n in one.items()} or got != expected:
+            raise AssertionError(f"[vp {tag}] launches per step {per} (one video's {one}), "
+                                 f"total {got} (expected {expected})")
+        for r in summary["results"]:
+            history = [x for _, x in r["early_stopping_info"]["loss_history"]]
+            if not (np.isfinite(r["losses"] + history).all()
+                    and len(r["losses"]) == VP["steps"]):
+                raise AssertionError(f"[vp {tag}] non-finite or missing losses: {r}")
+            scores = [r["psnr"], r["ssim"]] + ([] if tag == "lora" else [r["lpips"]])
+            if not np.isfinite(scores).all():
+                raise AssertionError(f"[vp {tag}] non-finite metrics: {r}")
+        for k, n in got.items():
+            totals[k] = totals.get(k, 0) + n
+        out[tag] = dict(dir=run_dir, summary=summary, step_s=step_s, anchor_s=anchor_s,
+                        peak=peak, held=held)
+
+    vp, seq = out["delta_a"]["summary"], out["sequential"]["summary"]
+    for v, (a, b) in enumerate(zip(vp["results"], seq["results"])):
+        la, lb = np.asarray(a["losses"]), np.asarray(b["losses"])
+        rel = np.abs(la - lb) / np.abs(lb)
+        ea, eb = a["early_stopping_info"], b["early_stopping_info"]
+        va, vb = _adapter_vector(a), _adapter_vector(b)
+        na, nb = float(va.norm()), float(vb.norm())
+        cos = float(va @ vb / (na * nb)) if na > 0 and nb > 0 else float("nan")
+        print(f"[vp] lane {v} vs its sequential run: losses rel {rel.tolist()} (step 0 max "
+              f"{VP['loss0_rtol']}, later max {VP['loss_rtol']}); best_step "
+              f"{ea['best_step']} vs {eb['best_step']}; adapter norm {na:.6g} vs {nb:.6g}, "
+              f"cosine {cos:.6f} (min {VP['cos_min']}); train_time {a['train_time']:.3f} vs "
+              f"{b['train_time']:.3f} s, es_check_time {a['es_check_time']:.3f} vs "
+              f"{b['es_check_time']:.3f} s; psnr {a['psnr']:.4f} vs {b['psnr']:.4f}")
+        if not (rel[0] <= VP["loss0_rtol"] and (rel[1:] <= VP["loss_rtol"]).all()
+                and ea["best_step"] == eb["best_step"]
+                and (na == nb == 0 or cos >= VP["cos_min"])):
+            raise AssertionError(f"[vp] lane {v} disagrees with its sequential run")
+    print(f"[vp] group of {VP['lanes']} vs one video: train step {out['delta_a']['step_s']:.3f}"
+          f" vs {out['sequential']['step_s']:.3f} s, anchor eval "
+          f"{out['delta_a']['anchor_s']:.3f} vs {out['sequential']['anchor_s']:.3f} s, TTA "
+          f"peak {out['delta_a']['peak']:.2f} vs {out['sequential']['peak']:.2f} GiB "
+          f"(lora group {out['lora']['peak']:.2f} GiB)")
+    runs = dict(base=os.path.join(RUN_DIR, "vp"), results=os.path.dirname(base),
+                runs={k: v["dir"] for k, v in out.items()}, towers=paths)
+    return fwd, bwd, totals, runs
+
+
+def _flags_argv(out_dir: str, card: str, *flags):
+    return ["--method", "delta_a", "--preset", "longcat_demo", "--synthetic", "1",
+            "--output-dir", out_dir, "--device", card, "--seed", str(FLAGS["seed"]),
+            "--height", str(FLAGS["height"]), "--width", str(FLAGS["width"]),
+            "--num-cond-frames", str(FLAGS["cond_frames"]),
+            "--tta-total-frames", str(FLAGS["tta_total_frames"]),
+            "--num-frames", str(FLAGS["gen_frames"]), "--steps", str(FLAGS["steps"]),
+            "--es-check-every", str(FLAGS["check_every"]),
+            "--num-inference-steps", str(FLAGS["inference_steps"]),
+            "--caption-guard-mode", "off", "--no-save-videos", *flags]
+
+
+def phase_flags(fa, card: str = "cuda"):
+    """The debugging and profiling flags on the card, one longcat_demo video
+    each: the default run, --profile-dir (a trace whose kernel events
+    include flash_fwd), --debug-nans and --attn-impl xla (the default run's
+    losses and anchors within the card-vs-CPU tolerance), and
+    --compile-cache-dir on a fresh folder (the three kernel libraries are
+    built there). Returns the kernel launches of the runs."""
+    import numpy as np
+
+    from longcat_video_tta_tpu_torch.ops import flash_attention
+    from longcat_video_tta_tpu_torch.runners import run_tta
+
+    base = os.path.join(RUN_DIR, "flags")
+    shutil.rmtree(base, ignore_errors=True)
+    cache = os.path.join(base, "kernel_cache")
+    runs = {"default": [], "profile": ["--profile-dir", os.path.join(base, "trace")],
+            "debug_nans": ["--debug-nans"], "attn_xla": ["--attn-impl", "xla"],
+            "cache_dir": ["--compile-cache-dir", cache]}
+    totals, rec = {}, {}
+    for name, flags in runs.items():
+        argv = _flags_argv(os.path.join(base, name), card, *flags)
+        fa.reset_launches()
+        t0 = time.time()
+        s = run_tta.main(argv)
+        got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+               "flash_bwd_dkv": fa.bwd_dkv_launches}
+        r = s["results"][0]
+        anchors = [x for _, x in (r.get("early_stopping_info") or {}).get("loss_history",
+                                                                           [])]
+        print(f"[flags {name}] run_tta {' '.join(flags)}: success={r['success']} wall "
+              f"{time.time() - t0:.1f} s losses={r.get('losses')} anchors={anchors} "
+              f"psnr={r.get('psnr')} launches {got}"
+              + (f" error={r['error']}" if "error" in r else ""))
+        if not r["success"] or not np.isfinite(r["losses"] + anchors + [r["psnr"]]).all():
+            raise AssertionError(f"[flags {name}] failed: {r}")
+        for k, n in got.items():
+            totals[k] = totals.get(k, 0) + n
+        rec[name] = (np.asarray(r["losses"] + anchors), got)
+    ref = rec["default"][0]
+    for name in ("debug_nans", "attn_xla", "cache_dir", "profile"):
+        rel = float(np.max(np.abs(rec[name][0] - ref) / np.abs(ref)))
+        print(f"[flags {name}] losses and anchors vs the default run: max rel {rel:.3g} "
+              f"(max {FLAGS['loss_rtol']})")
+        if rel > FLAGS["loss_rtol"]:
+            raise AssertionError(f"[flags {name}] disagrees with the default run")
+    if rec["attn_xla"][1]["flash_fwd"] or not rec["default"][1]["flash_fwd"]:
+        raise AssertionError("[flags] --attn-impl xla launched a kernel, or the default "
+                             "run none")
+    with open(os.path.join(base, "trace", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    flash = [e for e in kernels if "flash_fwd" in e.get("name", "")]
+    print(f"[flags profile] trace.json: {len(events)} events, {len(kernels)} kernel events, "
+          f"{len(flash)} named flash_fwd ({sum(e.get('dur', 0) for e in flash) / 1e3:.2f} ms)")
+    if not flash:
+        raise AssertionError("[flags profile] no flash_fwd kernel event in the trace")
+    built = sorted(f for f in os.listdir(cache) if f.endswith(".so"))
+    print(f"[flags cache_dir] {cache}: {built}; kernel folder after the run "
+          f"{os.path.relpath(flash_attention.BUILD_DIR, ROOT)}")
+    stems = {os.path.splitext(os.path.basename(s))[0] for s in flash_attention.SOURCES}
+    if {f.split("-")[0] for f in built} != stems or \
+            flash_attention.BUILD_DIR != flash_attention.DEFAULT_BUILD_DIR:
+        raise AssertionError(f"[flags cache_dir] libraries {built}, expected {stems}")
+    shutil.rmtree(base, ignore_errors=True)
+    return totals
+
+
+def phase_tools(vp_runs, card: str = "cuda"):
+    """The post-processing tools on [vp]'s folders: eval_external on the
+    group's saved clips against their ground truth (the runner's GT window
+    at the run's geometry as uint8 clips) on the card with [vp]'s LPIPS and
+    I3D tower files, held to the runner's metric code on the same clips
+    and to the runner's recorded values, with a finite FVD; then
+    compare_all, diagnostics status and audit, export_results,
+    export_loss_curves and figures (where matplotlib is installed) over the
+    runs: each returns and writes its files."""
+    import numpy as np
+
+    from longcat_video_tta_tpu_torch.comparisons import compare_all, eval_external
+    from longcat_video_tta_tpu_torch.data.video_io import decode_frames, resize_frames
+    from longcat_video_tta_tpu_torch.eval.lpips import load_lpips_params, \
+        make_lpips_feature_fn
+    from longcat_video_tta_tpu_torch.eval.metrics import evaluate_generation_metrics
+    from longcat_video_tta_tpu_torch.sweep import diagnostics, export_loss_curves, \
+        export_results
+
+    runs, paths = vp_runs["runs"], vp_runs["towers"]
+    out = os.path.join(vp_runs["base"], "tools")
+    shutil.rmtree(out, ignore_errors=True)
+    gt_dir = os.path.join(out, "gt")
+    os.makedirs(gt_dir)
+    with open(os.path.join(runs["delta_a"], "summary.json")) as f:
+        vp = json.load(f)
+    gen_dir = os.path.join(runs["delta_a"], "videos")
+    for r in vp["results"]:
+        n = np.load(r["video_path"], mmap_mode="r").shape[0]
+        frames = decode_frames(r["path"], n, vp["config"]["gen_start_frame"])
+        np.save(os.path.join(gt_dir, r["video"] + ".npy"),
+                resize_frames(frames, TTA["height"], TTA["width"]))
+    t0 = time.time()
+    ext = eval_external.main(["--gen-dir", gen_dir, "--gt-dir", gt_dir, "--device", card,
+                              "--lpips-model-path", paths["lpips"], "--i3d-model-path",
+                              paths["i3d"], "--output", os.path.join(out, "external.json")])
+    print(f"[tools] eval_external {time.time() - t0:.1f} s: n={ext['n']} psnr={ext['psnr']} "
+          f"ssim={ext['ssim']} lpips={ext['lpips']} fvd={ext['fvd']}")
+    lp = make_lpips_feature_fn(load_lpips_params(paths["lpips"], card))
+    keys = ("psnr", "ssim", "lpips")
+    by_clip = {os.path.basename(r["video_path"]): r for r in vp["results"]}
+    ok = ext["n"] == VP["videos"] and np.isfinite(ext["fvd"])
+    for row in ext["per_video"]:
+        r = by_clip[row["video"]]
+        gen = np.load(r["video_path"]) / 255.0
+        gt = np.load(os.path.join(gt_dir, r["video"] + ".npy")) / 255.0
+        code = evaluate_generation_metrics(gen, gt, device=card, lpips_feature_fn=lp)
+        d_code = max(abs(row[k] - code[k]) for k in keys)
+        d_run = {k: abs(row[k] - r[k]) for k in keys}
+        print(f"[tools] {row['video']}: eval_external {[row[k] for k in keys]}; the runner's "
+              f"metric code on the saved clip {[code[k] for k in keys]} (max diff "
+              f"{d_code:.3g}, max {TOOLS['code_atol']}); the runner's record "
+              f"{[r[k] for k in keys]} (diff {d_run}: the clip is saved as uint8)")
+        ok = ok and d_code <= TOOLS["code_atol"] and d_run["psnr"] <= TOOLS["psnr_atol"] \
+            and d_run["ssim"] <= TOOLS["ssim_atol"] and d_run["lpips"] <= TOOLS["lpips_atol"]
+    if not ok:
+        raise AssertionError("[tools] eval_external disagrees with the runner")
+
+    table = os.path.join(out, "compare.json")
+    rows = compare_all.main([f"{k}={v}/summary.json" for k, v in runs.items()]
+                            + [f"external={os.path.join(out, 'external.json')}",
+                               "--output", table])
+    status = diagnostics.main(["status", "--results-roots", vp_runs["results"]])
+    audit = diagnostics.main(["audit", runs["sequential"], runs["delta_a"]])
+    all_results = os.path.join(out, "all_results.json")
+    curves = os.path.join(out, "loss_curves.json")
+    export_results.main(["--results-roots", vp_runs["results"], "--output", all_results])
+    export_loss_curves.main(["--results-roots", vp_runs["results"], "--output", curves])
+    try:  # figures draws with matplotlib, which the card's machine may lack
+        from longcat_video_tta_tpu_torch.sweep import figures
+    except ImportError as e:
+        print(f"[tools] figures not run: {e} (tests/test_torch_tools.py holds it to the "
+              "JAX module on the CPU)")
+        made = [all_results, curves]
+    else:
+        made = figures.main(["--all-results", all_results, "--loss-curves", curves,
+                             "--output-dir", os.path.join(out, "figures")])
+    print(f"[tools] compare_all rows {[r['label'] for r in rows]}; diagnostics status "
+          f"{ {k: len(v) for k, v in status.items()} }; audit shared videos "
+          f"{audit['num_shared_videos']}, mean delta psnr {audit['mean_delta_psnr']}; "
+          f"figures {[os.path.basename(p) for p in made]}")
+    if not (len(rows) == len(runs) + 1 and os.path.exists(table)
+            and len(status["complete"]) == len(runs) and audit["num_shared_videos"] ==
+            VP["videos"] and made and all(os.path.exists(p) for p in made)):
+        raise AssertionError("[tools] a tool returned too little or wrote no file")
+    shutil.rmtree(vp_runs["base"], ignore_errors=True)
+
+
 def print_build(fa):
     spills = []
     for path, log, seconds in fa.build_libraries():
@@ -3867,7 +4381,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="development: run the build and these comma-separated phases "
                          "(checkpoint, remat, bucket, eval, kernel, bwd, opensora, cogvideox, "
-                         "t2v, vbench) "
+                         "t2v, vbench, vp, flags, tools; tools runs after vp) "
                          "and print no result")
     only = [x for x in ap.parse_args(argv).only.split(",") if x]
     try:
@@ -3919,9 +4433,14 @@ def main(argv=None) -> int:
                   "bwd": (phase_bwd_kernel_checks, fa, cfg.dit, tokens_per_frame),
                   "opensora": (phase_opensora, fa), "cogvideox": (phase_cogvideox, fa),
                   "t2v": (phase_t2v, fa, cfg.dit, tokens_per_frame),
-                  "vbench": (phase_vbench, fa, bsa, cfg.dit.depth, smi)}
+                  "vbench": (phase_vbench, fa, bsa, cfg.dit.depth, smi),
+                  "vp": (phase_vp, fa, cfg.dit, tokens_per_frame), "flags": (phase_flags, fa)}
+        done = {}
         for name in only:
-            timed_phase(name, *phases[name])
+            if name == "tools":  # on [vp]'s run folders
+                timed_phase(name, phase_tools, done["vp"][3])
+                continue
+            done[name] = timed_phase(name, *phases[name])
         print(f"[time] all phases {time.time() - t_start:.1f} s")
         return 0
     cases = timed_phase("kernel check", phase_kernel_checks, fa, cfg.dit, tokens_per_frame)
@@ -3952,8 +4471,12 @@ def main(argv=None) -> int:
     t2v_cases, t2v_fwd, t2v_gen = timed_phase("t2v", phase_t2v, fa, cfg.dit, tokens_per_frame)
     print(f"[t2v] gen_time per request {t2v_gen} s")
     _, sweep_run = timed_phase("vbench", phase_vbench, fa, bsa, cfg.dit.depth, smi)
-    cases += os_fwd + cv_fwd + t2v_cases
-    bwd_cases += os_bwd + cv_bwd
+    vp_fwd, vp_bwd, vp_run, vp_runs = timed_phase("vp", phase_vp, fa, cfg.dit,
+                                                  tokens_per_frame)
+    flags_run = timed_phase("flags", phase_flags, fa)
+    timed_phase("tools", phase_tools, vp_runs)
+    cases += os_fwd + cv_fwd + t2v_cases + vp_fwd
+    bwd_cases += os_bwd + cv_bwd + vp_bwd
     print(f"[time] all phases {time.time() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, all_cases):
@@ -3973,7 +4496,8 @@ def main(argv=None) -> int:
                               + sweep_run.get(name, 0))
     train_sum = lambda name: (tta[name] + sum(m[name] for m in methods.values())
                               + remat_run[name] + bucket_run[name] + eval_run[name]
-                              + os_run[name] + cv_run[name])
+                              + os_run[name] + cv_run[name] + vp_run[name]
+                              + flags_run[name])
     kernels = [
         entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:133",
               serving_launches + ckpt_launches + t2v_fwd + train_sum("flash_fwd")

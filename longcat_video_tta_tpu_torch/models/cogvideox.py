@@ -24,7 +24,8 @@ Adapter dict keys: ``delta_t`` [time_embed_dim] added to the fp32 time
 embedding; ``lora`` {site: {'a': [depth, in, r], 'b': [depth, r, out]}}
 with ``lora_scale`` (sites to_q, to_k, to_v, to_out, ff_in, ff_out). The
 reference's ``delta_out`` hook is reached by none of its CogVideoX
-schemes and is not ported.
+schemes and is not ported. Each may carry a leading lane axis
+(``--video-parallel``; ``models/dit.py``).
 
 RoPE rotates half-split pairs; upstream checkpoints rotate interleaved
 pairs, and the converter permutes the to_q / to_k rows and the q/k norm
@@ -43,6 +44,7 @@ from ..config import CogVideoXConfig, resolve_dtype
 from ..ops.attention import attention
 from ..ops.layers import (
     apply_rope,
+    lane_rows,
     layer_norm,
     linear,
     mlp_embedder,
@@ -50,7 +52,7 @@ from ..ops.layers import (
     rope_3d_angles,
     timestep_embedding,
 )
-from .dit import _Norm
+from .dit import _Norm, block_slice
 from .mmdit import _embedder, pack_latents, unpack_tokens
 
 PORTED_ADAPTERS = ("delta_t", "lora", "lora_scale")
@@ -168,7 +170,8 @@ class CogVideoX(nn.Module):
     def _block_lora(stack: Optional[Dict], i: int) -> Optional[Dict]:
         if not stack:
             return None
-        return {site: {"a": ab["a"][i], "b": ab["b"][i]} for site, ab in stack.items()}
+        return {site: {"a": block_slice(ab["a"], 3, i), "b": block_slice(ab["b"], 3, i)}
+                for site, ab in stack.items()}
 
     def forward(self, latents, timestep, text_emb, image_latents=None, *,
                 adapters: Optional[Dict] = None, pab_reuse: bool = False,
@@ -206,17 +209,18 @@ class CogVideoX(nn.Module):
         txt = linear(self.text_proj, text_emb.to(cdtype))
         if cfg.learned_pos_embed_len > 0:
             S = L + vid.shape[1]
-            if S > self.pos_embed.shape[0]:
+            pos = lane_rows(self.pos_embed, 2, B)  # full's lane tables apply per row
+            if S > pos.shape[1]:
                 raise ValueError(
                     f"sequence {S} exceeds learned pos-embed table "
-                    f"{self.pos_embed.shape[0]} (text {L} + video {vid.shape[1]})")
-            txt = txt + self.pos_embed[None, :L].to(cdtype)
-            vid = vid + self.pos_embed[None, L:S].to(cdtype)
+                    f"{pos.shape[1]} (text {L} + video {vid.shape[1]})")
+            txt = txt + pos[:, :L].to(cdtype)
+            vid = vid + pos[:, L:S].to(cdtype)
 
         t_feat = timestep_embedding(timestep.float(), cfg.hidden_size)
         temb = mlp_embedder(self.time_embed["w1"], self.time_embed["w2"], t_feat)
         if adapters.get("delta_t") is not None:
-            temb = temb + adapters["delta_t"].float()[None, :]
+            temb = temb + lane_rows(adapters["delta_t"].float(), 1, B)
 
         cos, sin = rope_3d_angles(T, H // p, W // p, cfg.rope_dims, cfg.rope_theta,
                                   device=latents.device)

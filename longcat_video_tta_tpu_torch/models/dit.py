@@ -27,8 +27,11 @@ method reaches the model (all keys optional):
     delta_h_final  [D]            delta_b hidden: before the final layer
     delta_out      [C_out]        delta_c: added to the velocity after
                                   unpatchify, in the compute dtype
-In training (grad enabled) ``forward`` checkpoints every block when
-``cfg.remat``.
+Every key may also carry a leading lane axis V (``--video-parallel``: V
+videos' adapters in one batch, row r of the batch in lane r % V;
+``ops/layers.py::lane_rows``), and so may the weights a weight-training
+method swaps in. In training (grad enabled) ``forward`` checkpoints every
+block when ``cfg.remat``.
 
 Parameter names follow the reference's parameter tree (``x_embed``,
 ``blocks[i].attn.qkv`` ...) so ``models/weights.py`` maps one onto the
@@ -48,6 +51,7 @@ from ..ops.attention import attention
 from ..ops.bsa import bsa_attention, decode_top_k
 from ..ops.layers import (
     apply_rope,
+    lane_rows,
     layer_norm,
     linear,
     mlp_embedder,
@@ -63,6 +67,12 @@ AdapterDict = Optional[Dict[str, torch.Tensor]]
 PORTED_ADAPTERS = ("delta_t", "delta_t_blocks", "film_blocks", "lora", "lora_scale",
                    "delta_h_blocks", "delta_h_final", "delta_out")
 _PER_BLOCK_KEYS = ("delta_t_blocks", "film_blocks", "delta_h_blocks")
+
+
+def block_slice(t: torch.Tensor, ndim: int, i: int) -> torch.Tensor:
+    """Block ``i`` of a per-block stack of rank ``ndim`` ([depth, ...]),
+    or of its lane form ([V, depth, ...] -> [V, ...])."""
+    return t[i] if t.ndim == ndim else t[:, i]
 
 
 def patchify(x: torch.Tensor, patch: Tuple[int, int, int]) -> torch.Tensor:
@@ -222,11 +232,12 @@ class DiTBlock(nn.Module):
         attention is skipped; the caller's cache holds the output of the
         block's last computed step. Cross-attention is never broadcast."""
         ad = ad or {}
+        B = x.shape[0]
         if ad.get("delta_t_blocks") is not None:
-            t_emb = t_emb + ad["delta_t_blocks"].float()[None, None, :]
+            t_emb = t_emb + lane_rows(ad["delta_t_blocks"].float(), 1, B)[:, None, :]
         mod = linear(self.adaln, F.silu(t_emb).to(x.dtype))  # [B, nt, 6D]
         if ad.get("film_blocks") is not None:
-            mod = mod + ad["film_blocks"].to(mod.dtype)[None, None, :]
+            mod = mod + lane_rows(ad["film_blocks"].to(mod.dtype), 1, B)[:, None, :]
         lora, lora_scale = ad.get("lora") or {}, ad.get("lora_scale", 1.0)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
             mod.chunk(6, dim=-1)
@@ -247,7 +258,7 @@ class DiTBlock(nn.Module):
         h = modulate(layer_norm(x), e(shift_mlp), e(scale_mlp))
         x = x + e(gate_mlp) * self.ffn(h, lora, lora_scale)
         if ad.get("delta_h_blocks") is not None:
-            x = x + ad["delta_h_blocks"].to(x.dtype)[None, None, None, :]
+            x = x + lane_rows(ad["delta_h_blocks"].to(x.dtype), 1, B)[:, None, None, :]
         return x, kv, attn_out
 
 
@@ -303,7 +314,7 @@ class LongCatDiT(nn.Module):
         feats = timestep_embedding(timesteps, cfg.t_embed_freq_dim)
         t_emb = mlp_embedder(self.t_embed["w1"], self.t_embed["w2"], feats)
         if adapters and "delta_t" in adapters:
-            t_emb = t_emb + adapters["delta_t"].float()[None, None, :]
+            t_emb = t_emb + lane_rows(adapters["delta_t"].float(), 1, B)[:, None, :]
 
         if text_emb.ndim == 4:  # the reference's [B, 1, L, C] layout
             text_emb = text_emb[:, 0]
@@ -319,27 +330,32 @@ class LongCatDiT(nn.Module):
         unpatchify in the compute dtype, then the cast to fp32."""
         cfg = self.cfg
         adapters = adapters or {}
+        B = x.shape[0]
         if "delta_h_final" in adapters:
-            x = x + adapters["delta_h_final"].to(x.dtype)[None, None, None, :]
+            x = x + lane_rows(adapters["delta_h_final"].to(x.dtype), 1, B)[:, None, None, :]
         mod = linear(self.final["adaln"], F.silu(t_emb).to(x.dtype))
         shift, scale = mod.chunk(2, dim=-1)
         h = modulate(layer_norm(x), shift[:, :, None, :], scale[:, :, None, :])
         h = linear(self.final["proj"], h)
         out = unpatchify(h, cfg.patch_size, nt, nh, nw, cfg.out_channels)
         if "delta_out" in adapters:
-            out = out + adapters["delta_out"].to(out.dtype)[None, :, None, None, None]
+            out = out + lane_rows(adapters["delta_out"].to(out.dtype), 1, B)[
+                :, :, None, None, None]
         return out.float()
 
     def _block_adapters(self, adapters: AdapterDict):
         """Per-block slices of the adapter dict (the reference's scan
-        inputs): one dict per block, or None per block without adapters."""
+        inputs): one dict per block, or None per block without adapters.
+        A lane axis stays in front ([V, depth, ...] -> [V, ...])."""
         if not adapters:
             return [None] * len(self.blocks)
         out = []
         for i in range(len(self.blocks)):
-            ad = {k: adapters[k][i] for k in _PER_BLOCK_KEYS if k in adapters}
+            ad = {k: block_slice(adapters[k], 2, i)
+                  for k in _PER_BLOCK_KEYS if k in adapters}
             if "lora" in adapters:
-                ad["lora"] = {site: {"a": ab["a"][i], "b": ab["b"][i]}
+                ad["lora"] = {site: {"a": block_slice(ab["a"], 3, i),
+                                     "b": block_slice(ab["b"], 3, i)}
                               for site, ab in adapters["lora"].items()}
                 ad["lora_scale"] = adapters.get("lora_scale", 1.0)
             out.append(ad)

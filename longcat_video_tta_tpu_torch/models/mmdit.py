@@ -22,7 +22,8 @@ converter permutes the q/k rows (``models/convert.py``).
 Adapter dict keys: ``delta_t`` [D] added to the fp32 vec; ``lora_double``
 / ``lora_single`` {site: {'a': [depth, in, r], 'b': [depth, r, out]}}
 with ``lora_scale`` (sites img_qkv, img_proj, txt_qkv, txt_proj,
-img/txt_mlp_in/out; lin1, lin2).
+img/txt_mlp_in/out; lin1, lin2). Each may carry a leading lane axis
+(``--video-parallel``; ``models/dit.py``).
 
 Parameter names follow the reference's tree under ``double_blocks`` /
 ``single_blocks`` (``double_blocks[i].img_attn.qkv``,
@@ -40,6 +41,7 @@ from torch import nn
 from ..config import MMDiTConfig, resolve_dtype
 from ..ops.attention import attention
 from ..ops.layers import (
+    lane_rows,
     layer_norm,
     linear,
     mlp_embedder,
@@ -49,6 +51,7 @@ from ..ops.layers import (
     rope_3d_angles,
     timestep_embedding,
 )
+from .dit import block_slice
 
 PORTED_ADAPTERS = ("delta_t", "lora_double", "lora_single", "lora_scale")
 PABCache = Tuple[torch.Tensor, torch.Tensor]  # [n_double|n_single, B, L+S, D]
@@ -252,7 +255,8 @@ class MMDiT(nn.Module):
     def _block_lora(group: Optional[Dict], i: int) -> Optional[Dict]:
         if not group:
             return None
-        return {site: {"a": ab["a"][i], "b": ab["b"][i]} for site, ab in group.items()}
+        return {site: {"a": block_slice(ab["a"], 3, i), "b": block_slice(ab["b"], 3, i)}
+                for site, ab in group.items()}
 
     def forward(self, latents, sigma, txt, y_vec, cond=None, guidance=None, *,
                 adapters: Optional[Dict] = None, pab_reuse: bool = False,
@@ -295,7 +299,7 @@ class MMDiT(nn.Module):
                 self.guidance_in["w1"], self.guidance_in["w2"],
                 timestep_embedding(guidance.float() * 1000.0, cfg.t_embed_freq_dim))
         if adapters.get("delta_t") is not None:
-            vec = vec + adapters["delta_t"].float()[None, :]
+            vec = vec + lane_rows(adapters["delta_t"].float(), 1, B)
 
         cos, sin = rope_joint(cfg, L, T, H // p, W // p, device=latents.device)
         lscale = adapters.get("lora_scale", 1.0)

@@ -23,16 +23,19 @@ every query.
 
 The shared libraries are built with ``nvcc`` at first use, one per
 source, from this package's sources only, into ``csrc/build/`` (listed in
-.gitignore).
+.gitignore), or into the folder ``kernel_build_dir`` names for a run (the
+runner's ``--compile-cache-dir``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -188,6 +191,41 @@ def attention_backward_reference(
 # ---------------------------------------------------------------------------
 # Build and binding
 # ---------------------------------------------------------------------------
+
+
+DEFAULT_BUILD_DIR = BUILD_DIR
+
+
+def _drop_libraries() -> None:
+    """Forget the bound libraries: the next launch loads (or builds) them
+    from ``BUILD_DIR``."""
+    global _lib, _bwd_lib
+    from . import bsa
+
+    _lib = _bwd_lib = bsa._lib = None
+
+
+@contextlib.contextmanager
+def kernel_build_dir(spec: str = "auto"):
+    """Build and load the kernel libraries of the enclosed code in a folder
+    of the caller's: "auto" is ``csrc/build/``, "off" a temporary folder
+    removed at the end, any other value that path. Yields the folder."""
+    global BUILD_DIR
+    tmp = tempfile.mkdtemp(prefix="lc_kernels_") if spec == "off" else None
+    path = tmp or (DEFAULT_BUILD_DIR if spec in (None, "", "auto")
+                   else os.path.abspath(os.path.expanduser(spec)))
+    prev = BUILD_DIR
+    if path != prev:
+        BUILD_DIR = path
+        _drop_libraries()
+    try:
+        yield path
+    finally:
+        if path != prev:
+            BUILD_DIR = prev
+            _drop_libraries()
+        if tmp:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _nvcc() -> str:

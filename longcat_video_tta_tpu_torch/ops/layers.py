@@ -1,7 +1,13 @@
 """Primitive layers shared across models: norms, modulation, linear,
 sinusoidal embeddings, 3D RoPE, and the per-block gradient-checkpoint
 wrapper. Plain tensor functions; each computes in the same precision as
-its reference counterpart (``longcat_video_tta_tpu/ops/layers.py``)."""
+its reference counterpart (``longcat_video_tta_tpu/ops/layers.py``).
+
+Lanes (``--video-parallel``): V videos' adapters train in one batch, the
+lanes folded into the batch axis lane-minor (row r belongs to lane
+r % V). A weight or adapter tensor then carries a leading lane axis, one
+more axis than its own rank, and the functions here apply lane r % V to
+row r (``lane_rows``); a tensor of its own rank applies to every row."""
 
 from __future__ import annotations
 
@@ -16,19 +22,48 @@ from torch import nn
 from .quant import Int8Linear, int8_linear, lora_term
 
 
+def lane_rows(t: torch.Tensor, ndim: int, rows: int) -> torch.Tensor:
+    """``t`` as per-row values for a batch of ``rows``: [1, *t.shape] when
+    it has its own rank ``ndim``; with a leading lane axis ([V, *shape]),
+    [rows, *shape] with row r taking lane r % V."""
+    if t.ndim == ndim:
+        return t[None]
+    V = t.shape[0]
+    if t.ndim != ndim + 1 or rows % V:
+        raise ValueError(f"a tensor of rank {ndim} with lanes is [V, ...] with V "
+                         f"dividing the batch; got {tuple(t.shape)} for {rows} rows")
+    return t.repeat((rows // V,) + (1,) * ndim)
+
+
+def _row_affine(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A norm's [D] or lane [V, D] affine as a tensor that broadcasts
+    against x [B, ..., D]."""
+    r = lane_rows(w.float(), 1, x.shape[0])
+    return r.reshape((r.shape[0],) + (1,) * (x.ndim - 2) + (r.shape[-1],))
+
+
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor], eps: float = 1e-6):
-    """RMSNorm over the last axis in fp32, optional learned scale."""
+    """RMSNorm over the last axis in fp32, optional learned scale (a lane
+    scale [V, D] applies per row)."""
     dtype = x.dtype
     x = x.float()
     x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
     if weight is not None:
-        x = x * weight.float()
+        x = x * (weight.float() if weight.ndim == 1 else _row_affine(weight, x))
     return x.to(dtype)
 
 
 def layer_norm(x: torch.Tensor, weight=None, bias=None, eps: float = 1e-6):
-    """LayerNorm over the last axis in fp32; affine optional."""
+    """LayerNorm over the last axis in fp32; affine optional (a lane affine
+    [V, D] applies per row, after the normalization)."""
     dtype = x.dtype
+    if (weight is not None and weight.ndim > 1) or (bias is not None and bias.ndim > 1):
+        x = F.layer_norm(x.float(), (x.shape[-1],), None, None, eps)
+        if weight is not None:
+            x = x * _row_affine(weight, x)
+        if bias is not None:
+            x = x + _row_affine(bias, x)
+        return x.to(dtype)
     x = F.layer_norm(x.float(), (x.shape[-1],),
                      None if weight is None else weight.float(),
                      None if bias is None else bias.float(), eps)
@@ -40,18 +75,32 @@ def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor):
     return x * (1.0 + scale) + shift
 
 
+def lane_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]):
+    """F.linear with an [out, in] weight, or with lane weights [V, out, in]
+    (the bias [out] or [V, out]): x [B, ..., in] is taken as [B / V, V, N, in] and
+    multiplied lane by lane in one batched product."""
+    if w.ndim == 2:
+        return F.linear(x, w, b)
+    V, out, K = w.shape
+    B = x.shape[0]
+    y = torch.matmul(x.reshape(B // V, V, -1, K), w.transpose(1, 2))
+    if b is not None:
+        y = y + (b if b.ndim == 1 else b[:, None, :])
+    return y.reshape(x.shape[:-1] + (out,))
+
+
 def linear(layer: nn.Module, x: torch.Tensor,
            lora: Optional[Dict[str, torch.Tensor]] = None,
            lora_scale=None) -> torch.Tensor:
     """Dense layer computed in x's dtype (weights cast as in the
     reference's ``linear``), plus the LoRA side branch when ``lora`` is
     given; an ``Int8Linear`` runs W8A8 (the reference dispatches on its
-    'kernel_i8' key)."""
+    'kernel_i8' key). Lane weights and lane LoRA pairs apply per row."""
     if isinstance(layer, Int8Linear):
         return int8_linear(layer, x, lora=lora, lora_scale=lora_scale)
     w = layer.weight.to(x.dtype)
     b = None if layer.bias is None else layer.bias.to(x.dtype)
-    y = F.linear(x, w, b)
+    y = lane_linear(x, w, b)
     if lora is not None:
         y = y + lora_term(x, lora, lora_scale)
     return y
@@ -69,7 +118,7 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0):
 
 def mlp_embedder(w1: nn.Linear, w2: nn.Linear, feats: torch.Tensor):
     """2-layer SiLU MLP (the fp32 t_embedder)."""
-    return F.linear(F.silu(F.linear(feats, w1.weight, w1.bias)), w2.weight, w2.bias)
+    return lane_linear(F.silu(lane_linear(feats, w1.weight, w1.bias)), w2.weight, w2.bias)
 
 
 # ---------------------------------------------------------------------------

@@ -61,8 +61,16 @@ class Int8Linear(nn.Module):
 def lora_term(x: torch.Tensor, lora: Dict[str, torch.Tensor],
               lora_scale) -> torch.Tensor:
     """The LoRA side branch (x @ a) @ b * scale in x's dtype; ``lora`` is
-    {'a': [in, r], 'b': [r, out]}."""
-    lx = (x @ lora["a"].to(x.dtype)) @ lora["b"].to(x.dtype)
+    {'a': [in, r], 'b': [r, out]}, or one pair per lane ({'a': [V, in, r],
+    'b': [V, r, out]}, x [B, ..., in] with row r in lane r % V: one batched
+    product per factor)."""
+    a, b = lora["a"].to(x.dtype), lora["b"].to(x.dtype)
+    if a.ndim == 2:
+        lx = (x @ a) @ b
+    else:
+        V = a.shape[0]
+        lx = ((x.reshape(x.shape[0] // V, V, -1, x.shape[-1]) @ a) @ b).reshape(
+            x.shape[:-1] + (b.shape[-1],))
     return lx * torch.as_tensor(lora_scale, dtype=x.dtype, device=x.device)
 
 

@@ -289,13 +289,56 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--load-fps", type=float, default=None,
                    help="Subsample frames to this fps (stride = round(24 / "
                         "target)); default: consecutive frames")
+    p.add_argument("--native-prefetch", action="store_true",
+                   help="decode the TTA windows ahead of the loop with the C++ threaded "
+                        "prefetch loader (data/native_loader.py; .npy clips), built with "
+                        "g++ at first use")
+    # video-parallel TTA (engine.train_chunk_batched)
+    p.add_argument("--video-parallel", type=int, default=1,
+                   help="train V videos' adapters as one batch (their lanes folded into "
+                        "the batch axis; generation stays per video). Results match "
+                        "the sequential runs")
+    for flag in ("--data-mesh", "--context-mesh", "--tensor-mesh"):
+        p.add_argument(flag, type=int, default=0,
+                       help="multi-device mesh: not yet ported to the PyTorch runner")
+    # the reference's debugging and profiling flags
+    p.add_argument("--attn-impl", default=None, choices=[None, "xla", "pallas"],
+                   help="attention implementation: unset = the kernels on the card and "
+                        "the plain version on the CPU; 'xla' the plain version on any "
+                        "device (debugging; it materialises the scores); 'pallas' the "
+                        "Hopper kernels (a CUDA device)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="autograd anomaly detection, and a FloatingPointError on a "
+                        "non-finite train loss or anchor")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace (CPU and CUDA activity) of the "
+                        "first video's TTA and generation to <dir>/trace.json")
+    p.add_argument("--compile-cache-dir", default="auto",
+                   help="folder the kernel libraries are built in and loaded from: "
+                        "'auto' = longcat_video_tta_tpu_torch/csrc/build/, 'off' = a "
+                        "temporary folder removed at the end")
     return p
 
 
 def check_composition(args, arch: str = "longcat") -> None:
     """Refuse at start-up the flag combinations the reference refuses
-    (its runner :722-726, :825-836 and :1011-1022), before any weight is
-    loaded."""
+    (its runner :722-726, :825-836 and :1001-1022), and the mesh flags,
+    before any weight is loaded."""
+    meshes = [f for f, n in (("--data-mesh", args.data_mesh),
+                              ("--context-mesh", args.context_mesh),
+                              ("--tensor-mesh", args.tensor_mesh)) if n > 0]
+    if meshes:
+        raise SystemExit(f"{', '.join(meshes)}: multi-device meshes are not yet ported "
+                         "to the PyTorch runner (ROADMAP Queue A, step A5)")
+    if args.video_parallel > 1:
+        if args.method in ("none", "dno"):
+            raise SystemExit(f"--video-parallel requires an adapter TTA method, not "
+                             f"{args.method!r}")
+        for on, name in ((args.aug_enabled, "augmentation"),
+                         (args.batch_videos > 1, "--batch-videos"),
+                         (args.bucket_shapes, "--bucket-shapes")):
+            if on:
+                raise SystemExit(f"--video-parallel does not compose with {name}")
     if args.compute_vbench and (args.no_save_videos or args.skip_generation):
         raise SystemExit("--compute-vbench scores the saved clips; it cannot run with "
                          "--no-save-videos or --skip-generation")
@@ -662,12 +705,24 @@ def main(argv: Optional[List[str]] = None,
          on_phase: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
     args = build_arg_parser().parse_args(argv)
     apply_fast_decode_defaults(args)
-    from ..archs import get_arch
     from ..config import get_model_config
+    from ..ops.attention import attention_impl
+    from ..ops.flash_attention import kernel_build_dir
 
     arch = get_model_config(args.preset).arch
     check_decode_levers(args, arch)
     check_composition(args, arch)
+    with attention_impl(args.attn_impl), \
+            kernel_build_dir(args.compile_cache_dir) as build_dir, \
+            torch.autograd.set_detect_anomaly(args.debug_nans):
+        return _run(args, arch, on_phase, build_dir)
+
+
+def _run(args, arch: str, on_phase, build_dir: str) -> Dict[str, Any]:
+    """``main`` after the flags are checked, under its attention
+    implementation, kernel build folder and anomaly mode."""
+    from ..archs import get_arch
+
     mark = on_phase or (lambda name: None)
 
     from ..config import (
@@ -704,6 +759,9 @@ def main(argv: Optional[List[str]] = None,
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
+    if args.attn_impl == "pallas" and device.type != "cuda":
+        raise SystemExit("--attn-impl pallas runs the Hopper kernels: it needs a CUDA "
+                         "device")
     t_start = time.time()
     os.makedirs(args.output_dir, exist_ok=True)
 
@@ -791,18 +849,50 @@ def main(argv: Optional[List[str]] = None,
     n_ctx_lat = estimate_latent_len(frames.tta_context_frames)
     tta_start = frames.gen_start_frame - frames.tta_total_frames
 
-    def encode_window(path: str):
+    prefetched = None
+    if args.native_prefetch:
+        from ..data.native_loader import ClipPrefetcher
+
+        prefetched = PrefetchedWindows(ClipPrefetcher(
+            [videos[i]["path"] for i in range(start_idx, len(videos))],
+            frames.tta_total_frames, tta_start, frames.height, frames.width,
+            target_fps=args.load_fps), start_idx)
+    if device.type == "cuda":
+        from ..ops.flash_attention import build_libraries
+
+        build_libraries()  # every kernel source at once, into --compile-cache-dir
+        print(f"[runner] kernel libraries in {build_dir}")
+
+    def encode_window(path: str, idx: Optional[int] = None):
         """(pixels [1, 3, T, H, W] in [-1, 1], latents) of a video's TTA
-        window."""
-        px = load_video_frames(path, frames.tta_total_frames, frames.height,
-                               frames.width, start_frame=tta_start,
-                               target_fps=args.load_fps)
+        window (video ``idx``'s from the prefetch loader when it runs)."""
+        if prefetched is not None and idx is not None:
+            px = prefetched.window(idx, path)
+        else:
+            px = load_video_frames(path, frames.tta_total_frames, frames.height,
+                                   frames.width, start_frame=tta_start,
+                                   target_fps=args.load_fps)
         with torch.no_grad():
             lat = bundle.encode_video(torch.from_numpy(px))
         return px, lat
 
     train_inputs = TrainInputs(args, bundle, escfg, augmentation_config(args), pool,
                                n_ctx_lat, encode_window)
+    group = None
+    if args.video_parallel > 1:
+        group = VideoGroup(args, bundle, scheme, opt, escfg, gatecfg, gate_scorer,
+                           videos, encode_window, n_ctx_lat, mark)
+    pretrained: Dict[int, Dict[str, Any]] = {}
+
+    def record_adapter_result(res, tp, idx, vid_id):
+        """The adapter's fields, the same on the sequential and the
+        video-parallel path."""
+        res["adapter_norm"] = adapter_norm(tp)
+        res["trainable_params"] = scheme.num_params(tp)
+        if args.save_adapters:
+            res["adapter_path"] = save_adapter_state(os.path.join(
+                args.output_dir, "adapters", f"{idx:04d}_{vid_id}.pt"), tp)
+
     for idx in range(start_idx, len(videos)):
         stop_f = _drain_file(args)
         if stop_f:
@@ -819,41 +909,61 @@ def main(argv: Optional[List[str]] = None,
         print(f"\n[{idx + 1}/{len(videos)}] {vid_id}")
         mark("video")
         t_vid = time.time()
+        profiler = _start_profile(args, device) if idx == start_idx else None
         res: Dict[str, Any] = {"video": vid_id, "path": entry["path"],
                                "caption": entry["caption"], "index": idx,
                                "success": True}
         try:
-            # the TTA window, ending at the anchor (for --method none it
-            # is the conditioning window: tta_total defaults to it)
-            mark("encode_window")
-            t0 = time.time()
-            window_px, window_lat = encode_window(entry["path"])
-            _sync(device)
-            res["encode_time"] = time.time() - t0
-            t0 = time.time()
-            gate = evaluate_clip_gate((window_px[0].transpose(1, 2, 3, 0) + 1.0) / 2.0,
-                                      entry["caption"], gatecfg, gate_scorer)
-            res.update(gate)
-            res["clip_gate_eval_time"] = time.time() - t0
+            pre = None
+            if group is not None:
+                if idx not in pretrained:
+                    pretrained.update(group.train(
+                        list(range(idx, min(idx + args.video_parallel, len(videos))))))
+                pre = pretrained.pop(idx)
+                if "error" in pre:  # the lane's own failure, raised as this video's
+                    raise pre["error"]
+            if pre is not None:
+                window_px, window_lat = pre["window"]
+                gate = pre["gate"]
+                res.update(gate)
+                res["encode_time"] = pre["encode_time"]
+                res["clip_gate_eval_time"] = pre["gate_time"]
+            else:
+                # the TTA window, ending at the anchor (for --method none it
+                # is the conditioning window: tta_total defaults to it)
+                mark("encode_window")
+                t0 = time.time()
+                window_px, window_lat = encode_window(entry["path"], idx)
+                _sync(device)
+                res["encode_time"] = time.time() - t0
+                t0 = time.time()
+                gate = evaluate_clip_gate(
+                    (window_px[0].transpose(1, 2, 3, 0) + 1.0) / 2.0, entry["caption"],
+                    gatecfg, gate_scorer)
+                res.update(gate)
+                res["clip_gate_eval_time"] = time.time() - t0
 
             train_time = es_time = 0.0
             tp = dno_noise = None
             if gate["skip_tta"]:
                 print(f"  CLIP gate: score {gate['clip_gate_score']} < "
                       f"{gatecfg.threshold}, TTA skipped")
+            elif pre is not None:  # the group phase trained this video's adapter
+                tp, train_time, es_time = pre["tp"], pre["train_time"], pre["es_time"]
+                res["losses"] = pre["losses"]
+                res["vp_steps_executed"] = pre["steps_executed"]
+                if pre["es_info"] is not None:
+                    res["early_stopping_info"] = pre["es_info"]
             elif is_adapter:
                 tp, train_time, es_time = _adapt(
                     args, res, bundle, scheme, opt, stopper, escfg, train_inputs,
                     window_px, window_lat, entry, idx, vid_id, mark)
-                res["adapter_norm"] = adapter_norm(tp)
-                res["trainable_params"] = scheme.num_params(tp)
-                if args.save_adapters:
-                    res["adapter_path"] = save_adapter_state(os.path.join(
-                        args.output_dir, "adapters", f"{idx:04d}_{vid_id}.pt"), tp)
             elif is_dno:
                 dno_noise, train_time = _optimize_noise(
                     args, res, bundle, window_lat, n_ctx_lat, entry["caption"], idx,
                     mark)
+            if tp is not None:
+                record_adapter_result(res, tp, idx, vid_id)
 
             gen_time = 0.0
             if not args.skip_generation:
@@ -908,6 +1018,9 @@ def main(argv: Optional[List[str]] = None,
             traceback.print_exc()
             res["success"] = False
             res["error"] = f"{type(e).__name__}: {e}"
+        finally:
+            # stopped even when the profiled video failed
+            _stop_profile(profiler, args.profile_dir)
         mark("video_end")
         results.append(res)
         save_checkpoint(ckpt_path, idx + 1, results)
@@ -965,6 +1078,200 @@ def _verify_fast_decode(bundle, cond_px, caption, gen, gt, res, gen_kw,
         **{f"{k}_delta": res[k] - v for k, v in dm.items()
            if k in ("psnr", "ssim", "lpips") and np.isfinite(v)},
     }
+
+
+def check_finite(args, what: str, values) -> None:
+    """--debug-nans: a non-finite train loss or anchor raises (the
+    reference's jax_debug_nans stops at the first NaN it computes)."""
+    if args.debug_nans and not np.isfinite(np.asarray(values, np.float64)).all():
+        raise FloatingPointError(f"--debug-nans: non-finite {what}: {values}")
+
+
+def _start_profile(args, device: torch.device):
+    """--profile-dir: a started torch.profiler run (CPU activity, and CUDA
+    activity on the card), or None."""
+    if not args.profile_dir:
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, out_dir: Optional[str]) -> None:
+    """Stop a ``_start_profile`` run and write its Chrome trace to
+    <out_dir>/trace.json."""
+    if prof is None:
+        return
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"  profiler trace -> {path}")
+
+
+class PrefetchedWindows:
+    """--native-prefetch: the TTA windows of videos start_idx.. from a
+    ``ClipPrefetcher``, taken in any order (the loader yields them as its
+    workers finish; the ones not asked for yet wait here)."""
+
+    def __init__(self, prefetcher, start_idx: int):
+        self.it = iter(prefetcher)
+        self.start_idx = start_idx
+        self.ready: Dict[int, Optional[np.ndarray]] = {}
+
+    def window(self, idx: int, path: str) -> np.ndarray:
+        """[1, 3, T, H, W] in [-1, 1]; a clip the loader failed to decode
+        raises here, as this video's own failure."""
+        want = idx - self.start_idx
+        while want not in self.ready:
+            j, clip = next(self.it)
+            self.ready[j] = clip
+        clip = self.ready.pop(want)
+        if clip is None:
+            raise ValueError(f"native prefetch failed to decode {path}")
+        return clip[None]
+
+
+class VideoGroup:
+    """--video-parallel V: the reference runner's group phase (:1045-1200).
+    For a group of up to V videos: each lane's window, gate, split, prompt,
+    init (from its own generator, seeded as its sequential run's) and
+    early-stopper setup; then ``train_chunk_batched`` over the lanes until
+    every lane has stopped or ``--steps`` ran, each lane's losses recorded
+    while it is active and its best state restored. A lane that fails to
+    load or set up fails only its own video. The lanes that train run at
+    the group's real width: a short last group has no padded lanes (eager
+    torch has no trace to share). train_time and es_time are split over the
+    group's lanes as the reference splits them."""
+
+    def __init__(self, args, bundle, scheme, opt, escfg, gatecfg, gate_scorer, videos,
+                 encode_window: Callable, n_ctx_lat: int, mark: Callable):
+        from ..archs import get_arch
+
+        self.args, self.bundle, self.scheme, self.opt = args, bundle, scheme, opt
+        self.escfg, self.gatecfg, self.gate_scorer = escfg, gatecfg, gate_scorer
+        self.videos, self.encode_window = videos, encode_window
+        self.n_ctx_lat, self.mark = n_ctx_lat, mark
+        arch = get_arch(bundle.cfg.arch)
+        self.loss_fn, self.anchor_fn = arch.loss, arch.anchor
+
+    def _lane(self, i: int) -> Dict[str, Any]:
+        """One video's lane: its window and gate, and for a video the gate
+        lets through its split, prompt, init and stopper."""
+        from ..tta.clip_gate import evaluate_clip_gate
+        from ..tta.early_stopping import build_early_stopper
+
+        bundle, device = self.bundle, self.bundle.device
+        e = self.videos[i]
+        vid = os.path.basename(e["path"])
+        self.mark("encode_window")
+        t0 = time.time()
+        wpx, wlat = self.encode_window(e["path"], i)
+        _sync(device)
+        lane: Dict[str, Any] = {"idx": i, "vid": vid, "window": (wpx, wlat),
+                                "encode_time": time.time() - t0}
+        t0 = time.time()
+        lane["gate"] = evaluate_clip_gate((wpx[0].transpose(1, 2, 3, 0) + 1.0) / 2.0,
+                                          e["caption"], self.gatecfg, self.gate_scorer)
+        lane["gate_time"] = time.time() - t0
+        if lane["gate"]["skip_tta"]:
+            return lane
+        stopper = build_early_stopper(self.escfg, self.scheme, bundle.cfg.dit,
+                                      anchor_fn=self.anchor_fn)
+        lane.update(prepare_video(self.args, bundle, self.scheme, stopper, self.escfg,
+                                  self.n_ctx_lat, wlat, e["caption"], i, vid, self.mark),
+                    stopper=stopper, losses=[], active=True)
+        return lane
+
+    def train(self, idxs: List[int]) -> Dict[int, Dict[str, Any]]:
+        """{video index: its precomputed state} for the per-video loop:
+        window, gate, trained params, losses, early-stopping record and
+        times; or {"error": exception} for a lane that failed."""
+        from ..tta.engine import lane_slice, train_chunk_batched
+
+        args, escfg, device = self.args, self.escfg, self.bundle.device
+        out: Dict[int, Dict[str, Any]] = {}
+        lanes = []
+        for i in idxs:
+            try:
+                lanes.append(self._lane(i))
+            except Exception as exc:  # this video's failure, not the group's
+                print(f"  [vp] lane {os.path.basename(self.videos[i]['path'])} failed "
+                      f"in load/gate/setup: {type(exc).__name__}: {exc}")
+                out[i] = {"error": exc}
+        for l in lanes:
+            if "tp" not in l:  # the gate skipped its TTA
+                out[l["idx"]] = {k: l[k] for k in ("window", "gate", "gate_time",
+                                                   "encode_time")}
+        live = [l for l in lanes if "tp" in l]
+        if not live:
+            return out
+        stack = lambda key: torch.stack([l[key] for l in live])
+        tps = {k: torch.stack([l["tp"][k] for l in live]) for k in live[0]["tp"]}
+        opt_state = self.opt.init(tps)
+        cond, train, emb = stack("cond"), stack("train"), stack("emb")
+        mask = None if live[0]["mask"] is None else stack("mask")
+        es_active = all(l["stopper"] is not None and l["val"] is not None for l in live)
+        val = stack("val") if es_active else None
+        noises = (torch.stack([l["stopper"].fixed_noises for l in live])
+                  if es_active else None)
+        k0 = escfg.check_every if es_active else (args.loss_fetch_every or 25)
+        marks = {}
+
+        def on_phase(name):
+            marks[name] = _clock(device)
+            self.mark(name)
+
+        es_loop = 0.0
+        t_train = time.time()
+        s = 0
+        while s < args.steps and any(l["active"] for l in live):
+            k = min(k0, args.steps - s)
+            do_anchor = es_active and (s + k) % escfg.check_every == 0
+            marks.clear()
+            tps, opt_state, loss_mat, anchors = train_chunk_batched(
+                self.scheme, self.bundle.dit, self.opt, tps, opt_state, cond, train,
+                emb, mask, steps=k, generators=[l["gen"] for l in live],
+                val_latents=val if do_anchor else None,
+                fixed_noises=noises if do_anchor else None,
+                anchor_sigmas=escfg.anchor_sigmas, on_phase=on_phase,
+                loss_fn=self.loss_fn, anchor_fn=self.anchor_fn)
+            end = _clock(device)
+            s += k
+            loss_mat = loss_mat.tolist()  # the chunk's host sync
+            if do_anchor:
+                es_loop += _seconds(marks["anchor_check"], end)
+                anchors = anchors.tolist()
+            for v, l in enumerate(live):
+                if not l["active"]:
+                    continue
+                check_finite(args, f"train losses of {l['vid']}", loss_mat[v])
+                l["losses"].extend(loss_mat[v])
+                if do_anchor:
+                    check_finite(args, f"anchor of {l['vid']}", anchors[v])
+                    stop, _ = l["stopper"].step_with_loss(s, lane_slice(tps, v),
+                                                          anchors[v])
+                    if stop:
+                        l["active"] = False
+                        print(f"  [vp] early stop {l['vid']} at step {s}")
+        wall = time.time() - t_train - es_loop
+        for v, l in enumerate(live):
+            tp, es_info = lane_slice(tps, v), None
+            if es_active:
+                tp, es_info = l["stopper"].restore(), l["stopper"].state
+            out[l["idx"]] = {
+                **{key: l[key] for key in ("window", "gate", "gate_time", "encode_time",
+                                           "losses")},
+                # a lane's own tensors, not views of the group's stack
+                "tp": {key: t.clone() for key, t in tp.items()}, "es_info": es_info,
+                "train_time": wall / len(live), "es_time": l["es_time"] + es_loop / len(live),
+                "steps_executed": s}
+        return out
 
 
 class TrainInputs:
@@ -1031,6 +1338,32 @@ class TrainInputs:
         return stacks, select
 
 
+def prepare_video(args, bundle, scheme, stopper, escfg, n_ctx_lat: int, window_lat,
+                  caption: str, idx: int, vid_id: str, mark) -> Dict[str, Any]:
+    """A video's TTA start, the same in ``_adapt`` and the group phase: the
+    window split into cond / train / val latents, the prompt, the video's
+    generator (its draws: LoRA's init first, then each step's sigma and
+    noise), the scheme's initial tensors, and the stopper set up on them
+    ("es_time": its seconds)."""
+    from ..tta.split import split_tta_latents
+
+    device = bundle.device
+    cond, train, val = split_tta_latents(window_lat, n_ctx_lat, escfg.holdout_fraction)
+    with torch.no_grad():
+        emb, mask = bundle.encode_prompt(caption)
+    gen = torch.Generator(device=device).manual_seed(video_seed(args.seed, idx))
+    tp = scheme.init(device, dit=bundle.dit, generator=gen)
+    es_time = 0.0
+    if stopper is not None and val is not None:
+        _sync(device)
+        mark("setup_anchor")
+        t0 = time.time()
+        stopper.setup(bundle.dit, cond, val, emb, mask, vid_id, tp)
+        es_time = time.time() - t0
+    return dict(cond=cond, train=train, val=val, emb=emb, mask=mask, gen=gen, tp=tp,
+                es_time=es_time)
+
+
 def _adapt(args, res, bundle, scheme, opt, stopper, escfg, inputs: TrainInputs,
            window_px, window_lat, entry, idx, vid_id, mark):
     """One video's TTA: split the window, set up the stopper, build the
@@ -1040,26 +1373,15 @@ def _adapt(args, res, bundle, scheme, opt, stopper, escfg, inputs: TrainInputs,
     es_time is the stopper's setup plus every anchor check, train_time the
     loop's wall time without the anchor checks."""
     from ..tta.engine import train_chunk
-    from ..tta.split import split_tta_latents
 
     device = bundle.device
-    cond_l, train_l, val_l = split_tta_latents(window_lat, inputs.n_ctx_lat,
-                                               escfg.holdout_fraction)
-    with torch.no_grad():
-        emb, mask = bundle.encode_prompt(entry["caption"])
-    stacks, select = inputs.build(window_px, cond_l, train_l, emb, mask, entry, idx)
-    # the video's draws: LoRA's init first, then each step's sigma and noise
-    gen = torch.Generator(device=device).manual_seed(video_seed(args.seed, idx))
-    tp = scheme.init(device, dit=bundle.dit, generator=gen)
+    v = prepare_video(args, bundle, scheme, stopper, escfg, inputs.n_ctx_lat, window_lat,
+                      entry["caption"], idx, vid_id, mark)
+    stacks, select = inputs.build(window_px, v["cond"], v["train"], v["emb"], v["mask"],
+                                  entry, idx)
+    gen, tp, val_l, es_time = v["gen"], v["tp"], v["val"], v["es_time"]
     opt_state = opt.init(tp)
     es_active = stopper is not None and val_l is not None
-    es_time = 0.0
-    if es_active:
-        _sync(device)
-        mark("setup_anchor")
-        t0 = time.time()
-        stopper.setup(bundle.dit, cond_l, val_l, emb, mask, vid_id, tp)
-        es_time += time.time() - t0
 
     k0 = escfg.check_every if es_active else (args.loss_fetch_every or 25)
     marks = {}
@@ -1087,9 +1409,12 @@ def _adapt(args, res, bundle, scheme, opt, stopper, escfg, inputs: TrainInputs,
             anchor_fn=inputs.losses[1])
         end = _clock(device)
         s += k
-        losses.extend(float(x) for x in loss_vec.tolist())  # the chunk's host sync
+        chunk = loss_vec.tolist()  # the chunk's host sync
+        check_finite(args, "train losses", chunk)
+        losses.extend(chunk)
         if do_anchor:
             es_loop_time += _seconds(marks["anchor_check"], end)
+            check_finite(args, "anchor", float(anchor))
             stop, _ = stopper.step_with_loss(s, tp, float(anchor))
             if stop:
                 print(f"  early stop at step {s}")

@@ -13,12 +13,11 @@ CUDA_VISIBLE_DEVICES, the fleet STOP file and the merged
 ``sweep_<series>.json`` launch record. ``--device`` is forwarded to
 every row.
 
-Differs from the reference by design: ``compile_cache_dir`` (eager torch
-has no compile cache; the kernels' build cache is csrc/build/, keyed by
-the source hash) and ``attn_impl`` (one attention path per device) are
-dropped with a printed note; ``video_parallel``, ``data_mesh``,
-``context_mesh``, ``tensor_mesh``, ``native_prefetch`` and
-``debug_nans`` raise, as not yet ported.
+Every key of the reference's table reaches the port's runner under the
+same flag (``compile_cache_dir`` names the kernels' build folder there,
+``attn_impl`` the attention implementation) except the multi-device
+mesh keys ``data_mesh``, ``context_mesh`` and ``tensor_mesh``, which
+raise, as not yet ported.
 
 CLI:
   python -m longcat_video_tta_tpu_torch.sweep.run_sweep configs/smoke_tiny.yaml \
@@ -169,17 +168,8 @@ _BOOL_FLAGS = {
 }
 
 
-# keys the port drops, with the note printed when a row sets one
-_DROPPED = {
-    "compile_cache_dir": "eager torch has no XLA compile cache; the kernels' build "
-                         "cache is longcat_video_tta_tpu_torch/csrc/build/, keyed by "
-                         "the source hash",
-    "attn_impl": "the port has one attention path per device (the kernels on the "
-                 "card, the plain version on the CPU)",
-}
-# keys of runner paths the port does not have yet (ROADMAP Queue A)
-_NOT_PORTED = ("video_parallel", "data_mesh", "context_mesh", "tensor_mesh",
-               "native_prefetch", "debug_nans")
+# keys of runner paths the port does not have yet (ROADMAP Queue A, step A5)
+_NOT_PORTED = ("data_mesh", "context_mesh", "tensor_mesh")
 
 
 def load_config(path: str) -> Dict[str, Any]:
@@ -203,7 +193,7 @@ def load_config(path: str) -> Dict[str, Any]:
 def build_argv(method: str, params: Dict[str, Any], output_dir: str,
                data_dir: Optional[str]) -> List[str]:
     """The runner's argv of one row (the reference's mapping, with the
-    port's drops and refusals)."""
+    port's refusals)."""
     argv = ["--method", method, "--output-dir", output_dir]
     if data_dir:
         argv += ["--data-dir", data_dir]
@@ -212,9 +202,7 @@ def build_argv(method: str, params: Dict[str, Any], output_dir: str,
         if key in _NOT_PORTED:
             raise ValueError(f"sweep config key '{key}' is not yet ported to the PyTorch "
                              "runner (ROADMAP Queue A)")
-        if key in _DROPPED:
-            print(f"[sweep] note: '{key}' dropped: {_DROPPED[key]}")
-        elif key == "resolution":
+        if key == "resolution":
             # reference: "480p" (832x480 bucket)
             if str(val) not in ("480p", "480"):
                 raise ValueError(f"unsupported resolution '{val}' (use height/width)")

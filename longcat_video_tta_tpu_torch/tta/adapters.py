@@ -23,6 +23,11 @@ a depth axis: a weight's key names its block ("blocks.3.pre_crs_norm.weight").
 LoRA's a and b keep the reference's [depth, in, r] / [depth, r, out]
 layout (keys "<site>.a", "<site>.b").
 
+``to_forward`` also takes train params with a leading lane axis V on
+every tensor (``--video-parallel``: V videos' states stacked), and then
+returns the adapters and the swapped-in weights with that axis in front,
+which the models apply per batch row (``ops/layers.py::lane_rows``).
+
 The Open-Sora v2 MMDiT takes the three methods the reference ports to it
 (``MMDIT_SCHEMES``): delta_a on the hidden-sized vec, LoRA on the
 double-stream img/txt attention (and optionally mlp) linears and the
@@ -225,10 +230,10 @@ class DeltaBScheme(AdapterScheme):
 
     def to_forward(self, train_params, dit):
         deltas = train_params["deltas"]
-        padded = _pad_dim(deltas, self.full_dim)  # [G, full]
+        padded = _pad_dim(deltas, self.full_dim)  # [(V,) G, full]
         gmap = torch.tensor(self.groups, dtype=torch.long, device=deltas.device)
-        per_block = padded[gmap] * active_mask(self.cfg.depth, self.targets,
-                                               deltas.device)[:, None]
+        per_block = padded[..., gmap, :] * active_mask(self.cfg.depth, self.targets,
+                                                       deltas.device)[:, None]
         if self.acfg.delta_target == "timestep":
             return dit, {"delta_t_blocks": per_block}
         return dit, {"delta_h_blocks": per_block,
@@ -271,17 +276,17 @@ class FiLMScheme(AdapterScheme):
         return {"corrections": _zeros(self.acfg.num_groups, self.dim, device=device)}
 
     def _expand(self, corr: torch.Tensor) -> torch.Tensor:
-        """[G, k*D] -> [G, 6*D], zeros in the untouched chunks."""
+        """[(V,) G, k*D] -> [(V,) G, 6*D], zeros in the untouched chunks."""
         D = self.cfg.hidden_size
-        pieces = [corr[:, self.chunks.index(c) * D:(self.chunks.index(c) + 1) * D]
-                  if c in self.chunks else corr.new_zeros((corr.shape[0], D))
+        pieces = [corr[..., self.chunks.index(c) * D:(self.chunks.index(c) + 1) * D]
+                  if c in self.chunks else corr.new_zeros(corr.shape[:-1] + (D,))
                   for c in range(6)]
-        return torch.cat(pieces, dim=1)
+        return torch.cat(pieces, dim=-1)
 
     def to_forward(self, train_params, dit):
         full = self._expand(train_params["corrections"])
         gmap = torch.tensor(self.groups, dtype=torch.long, device=full.device)
-        return dit, {"film_blocks": full[gmap]}
+        return dit, {"film_blocks": full[..., gmap, :]}
 
 
 class LoRAScheme(AdapterScheme):
@@ -334,8 +339,8 @@ class LoRAScheme(AdapterScheme):
             path = self.table[site][1]
             for i, blk in enumerate(dit.blocks):
                 w = blk.get_submodule(path).weight  # [out, in]
-                delta = (a[i] @ b[i]) * self.scale  # [in, out]
-                merged[f"blocks.{i}.{path}.weight"] = w + delta.t().to(w.dtype)
+                delta = (a[..., i, :, :] @ b[..., i, :, :]) * self.scale  # [(V,) in, out]
+                merged[f"blocks.{i}.{path}.weight"] = w + delta.transpose(-1, -2).to(w.dtype)
         return with_tensors(dit, merged), None
 
     def num_params(self, train_params) -> int:

@@ -1,6 +1,8 @@
 """TTA optimization engine (counterpart of
 ``longcat_video_tta_tpu/tta/engine.py``): the optimizer, one train step,
-and the k-step chunk with the folded anchor evaluation.
+the k-step chunk with the folded anchor evaluation, and its
+video-parallel form (``train_chunk_batched``: V videos' adapters trained
+as one batch, the reference's ``make_batched_train_chunk``).
 
 The optimizer reproduces optax's arithmetic, not torch's helpers:
 ``clip_by_global_norm`` scales by max_norm / norm only when norm >=
@@ -33,12 +35,24 @@ from .adapters import AdapterScheme, TrainParams
 from .losses import (
     flow_matching_loss_conditioned,
     flow_matching_loss_conditioned_fixed,
+    fold_lanes,
 )
 
 
 def global_norm(tree: TrainParams) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor (optax.global_norm)."""
     return torch.sqrt(sum((x.float() ** 2).sum() for x in tree.values()))
+
+
+def lane_norms(tree: TrainParams) -> torch.Tensor:
+    """[V]: each lane's global norm, over every tensor's non-lane axes
+    (optax.global_norm of each video's tree under the reference's vmap)."""
+    return torch.sqrt(sum((x.float() ** 2).flatten(1).sum(1) for x in tree.values()))
+
+
+def lane_slice(tree: TrainParams, v: int) -> TrainParams:
+    """Lane ``v`` of a lane-stacked tree (views)."""
+    return {k: x[v] for k, x in tree.items()}
 
 
 class Optimizer:
@@ -66,15 +80,19 @@ class Optimizer:
         frac = 1.0 - min(max(count, 0), c.warmup_steps) / c.warmup_steps
         return (0.0 - c.lr) * frac + c.lr
 
-    def update(self, grads: TrainParams, state: Dict,
-               params: TrainParams) -> Tuple[TrainParams, Dict]:
+    def update(self, grads: TrainParams, state: Dict, params: TrainParams,
+               lanes: bool = False) -> Tuple[TrainParams, Dict]:
         """One step -> (new params, new state). Tensor by tensor: clip by
         the global norm (optax.clip_by_global_norm: t / norm * max_norm
         when norm >= max_norm, t otherwise), then the AdamW or SGD update;
-        no clipped copy of all the gradients is made at once."""
+        no clipped copy of all the gradients is made at once. With
+        ``lanes`` every tensor has a leading lane axis and each lane is
+        clipped by its own norm; AdamW and SGD are elementwise, so the rest
+        is per lane as it stands, and the lanes share the step count (they
+        always step together)."""
         c = self.cfg
         max_norm = c.grad_clip_norm
-        norm = global_norm(grads)
+        norm = lane_norms(grads) if lanes else global_norm(grads)
         keep = norm < max_norm
         lr = self.learning_rate(state["count"])
         count = state["count"] + 1
@@ -82,7 +100,12 @@ class Optimizer:
         new, mu, nu, trace = {}, {}, {}, {}
         for k, p in params.items():
             g = grads[k]
-            g = torch.where(keep, g, g / norm.to(g.dtype) * max_norm)
+            if lanes:  # [V] -> [V, 1, ...]
+                shape = (-1,) + (1,) * (g.ndim - 1)
+                g = torch.where(keep.reshape(shape), g,
+                                g / norm.reshape(shape).to(g.dtype) * max_norm)
+            else:
+                g = torch.where(keep, g, g / norm.to(g.dtype) * max_norm)
             if c.optimizer == "adamw":
                 mu[k] = (1 - b1) * g + b1 * state["mu"][k]
                 nu[k] = (1 - b2) * g * g + b2 * state["nu"][k]
@@ -101,6 +124,19 @@ def build_optimizer(ocfg: OptimConfig) -> Optimizer:
     """AdamW (betas, eps 1e-15, decoupled weight decay) or SGD (momentum
     optional), after a global-norm clip, with optional linear warmup."""
     return Optimizer(ocfg)
+
+
+def _grads(loss: torch.Tensor, leaves) -> Tuple:
+    """``autograd.grad`` of ``loss`` w.r.t. ``leaves`` (None for a leaf
+    the loss does not reach). Under anomaly detection (the runner's
+    --debug-nans) a backward function that returns NaN raises
+    FloatingPointError, as the reference's jax_debug_nans does."""
+    try:
+        return torch.autograd.grad(loss, list(leaves), allow_unused=True)
+    except RuntimeError as e:
+        if torch.is_anomaly_enabled() and "nan" in str(e):
+            raise FloatingPointError(str(e)) from e
+        raise
 
 
 def train_step(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
@@ -124,7 +160,7 @@ def train_step(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
             fwd_dit, cond_latents, target_latents, text_emb, text_mask,
             adapters=adapters, sigma=sigma, noise=noise, generator=generator,
             num_valid_target=num_valid_target)
-        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        grads = _grads(loss, leaves.values())
     # a tensor the loss does not reach gets a zero gradient, as in the reference
     grads = {k: torch.zeros_like(v) if g is None else g
              for (k, v), g in zip(leaves.items(), grads)}
@@ -199,6 +235,71 @@ def train_chunk(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
                              text_emb, text_mask, fixed_noises, anchor_sigmas,
                              anchor_fn=anchor_fn)
     return train_params, opt_state, torch.stack(losses), anchor
+
+
+def train_chunk_batched(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
+                        train_params: TrainParams, opt_state: Dict, cond, train,
+                        emb, mask, *, steps: int,
+                        generators: Optional[Sequence[torch.Generator]] = None,
+                        draws: Optional[Sequence[Sequence[Tuple]]] = None,
+                        val_latents=None, fixed_noises=None,
+                        anchor_sigmas: Sequence[float] = (),
+                        on_phase: Optional[Callable[[str], None]] = None,
+                        loss_fn: Callable = flow_matching_loss_conditioned,
+                        anchor_fn: Callable = flow_matching_loss_conditioned_fixed):
+    """``steps`` optimizer steps of V videos at once, then (when
+    ``val_latents`` is given) each one's anchor: the reference's
+    ``make_batched_train_chunk`` (its vmap over videos) with the videos
+    folded into the batch axis, so each step is one forward and one
+    backward over V rows and every kernel launch carries all of them.
+
+    ``train_params`` and ``opt_state``'s moments carry a leading lane axis
+    V (stacked per-video inits); the DiT is one shared copy. ``cond``,
+    ``train``, ``emb``, ``mask`` (or None), ``val_latents`` are stacked
+    [V, b, ...], ``fixed_noises`` [V, n_draws, b, ...]. Each lane keeps its
+    own clip norm and AdamW state, its loss is its own mean (the folded
+    loss sums the lanes' means), and its (sigma, noise) come from
+    ``generators[v]`` in the order its own ``train_chunk`` would draw
+    them, or from ``draws[i][v]`` (tests inject the reference's). Returns
+    (train_params, opt_state, losses [V, steps] on the device, anchors
+    [V] or None)."""
+    mark = on_phase or (lambda name: None)
+    V = len(cond)
+    if draws is None and (generators is None or len(generators) != V):
+        raise ValueError("train_chunk_batched draws from one generator per lane")
+    fold = lambda x: None if x is None else fold_lanes(list(x))
+    cond_f, train_f, emb_f, mask_f = (fold(x) for x in (cond, train, emb, mask))
+    mark("train_chunk")
+    losses: List[torch.Tensor] = []
+    for i in range(steps):
+        sigma = noise = None
+        if draws is not None:
+            sigma = fold_lanes([d[0] for d in draws[i]])
+            noise = fold_lanes([d[1] for d in draws[i]])
+        leaves = {k: v.detach().requires_grad_(True) for k, v in train_params.items()}
+        with torch.enable_grad():
+            fwd_dit, adapters = scheme.to_forward(leaves, dit)
+            loss = loss_fn(fwd_dit, cond_f, train_f, emb_f, mask_f, adapters=adapters,
+                           sigma=sigma, noise=noise,
+                           generator=None if generators is None else list(generators),
+                           lanes=V)
+            grads = _grads(loss.sum(), leaves.values())
+        grads = {k: torch.zeros_like(v) if g is None else g
+                 for (k, v), g in zip(leaves.items(), grads)}
+        del leaves
+        train_params, opt_state = opt.update(grads, opt_state, train_params, lanes=True)
+        losses.append(loss.detach())
+    anchors = None
+    if val_latents is not None:
+        mark("anchor_check")
+        noises = torch.stack([fold_lanes(list(fixed_noises[:, d]))
+                              for d in range(fixed_noises.shape[1])])
+        with torch.no_grad():
+            fwd_dit, adapters = scheme.to_forward(train_params, dit)
+            anchors = anchor_fn(fwd_dit, cond_f, fold(val_latents), emb_f, mask_f, noises,
+                                fixed_sigmas=tuple(anchor_sigmas), adapters=adapters,
+                                lanes=V)
+    return train_params, opt_state, torch.stack(losses, dim=1), anchors
 
 
 def adapter_norm(train_params: TrainParams) -> float:

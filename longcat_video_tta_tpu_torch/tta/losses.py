@@ -20,6 +20,13 @@ Random draws: σ and ε are arguments; when they are not given they are
 drawn from ``generator`` (an explicit ``torch.Generator``), ε at the
 shape the loss noises (the target, or CogVideoX's whole window). Tests pass the
 reference's own draws so both packages see the same numbers.
+
+Lanes (``--video-parallel``): with ``lanes=V`` the batch holds V videos
+folded lane-minor (row r in lane r % V, ``fold_lanes``), ``generator`` is
+a sequence of V generators (lane v's rows drawn from generator v, as its
+own run would draw them), and every loss returns the [V] vector of the
+lanes' own means: their sum's gradient is each lane's own gradient,
+where one mean over the batch would scale it by 1/V.
 """
 
 from __future__ import annotations
@@ -33,10 +40,30 @@ from ..models.dit import LongCatDiT
 NUM_TRAIN_TIMESTEPS = 1000.0
 
 
-def draw_sigma_noise(target_latents: torch.Tensor,
-                     generator: Optional[torch.Generator], *,
+def fold_lanes(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """V per-lane batches [b, ...] as one batch [b * V, ...], lane-minor
+    (row i * V + v is row i of lane v)."""
+    return torch.stack(list(xs), dim=1).reshape((-1,) + tuple(xs[0].shape[1:]))
+
+
+def lane_means(err: torch.Tensor, lanes: Optional[int]) -> torch.Tensor:
+    """The mean of ``err``, or with ``lanes`` the [V] means of each lane's
+    rows (row r in lane r % V)."""
+    if lanes is None:
+        return err.mean()
+    return err.reshape(err.shape[0] // lanes, lanes, -1).mean(dim=(0, 2))
+
+
+def draw_sigma_noise(target_latents: torch.Tensor, generator, *,
                      sigma_min: float = 0.001, sigma_max: float = 1.0):
-    """(sigma [B], noise like target_latents) in fp32 from ``generator``."""
+    """(sigma [B], noise like target_latents) in fp32 from ``generator``;
+    from a sequence of V generators, lane v's rows (r % V == v) from
+    generator v, sigma first, as that lane alone would draw them."""
+    if isinstance(generator, (list, tuple)):
+        V = len(generator)
+        parts = [draw_sigma_noise(target_latents[v::V], g, sigma_min=sigma_min,
+                                  sigma_max=sigma_max) for v, g in enumerate(generator)]
+        return fold_lanes([p[0] for p in parts]), fold_lanes([p[1] for p in parts])
     B = target_latents.shape[0]
     device = target_latents.device
     sigma = torch.rand((B,), generator=generator, device=device)
@@ -70,6 +97,7 @@ def flow_matching_loss_conditioned(
     sigma_min: float = 0.001,
     sigma_max: float = 1.0,
     num_valid_target: Optional[int] = None,
+    lanes: Optional[int] = None,
 ) -> torch.Tensor:
     """Conditioning-aware loss replicating LongCat inference: the clean
     conditioning latents and the noised target latents go through one
@@ -102,7 +130,9 @@ def flow_matching_loss_conditioned(
                                   else t_cond + int(num_valid_target)))
     err = (pred[:, :, t_cond:] - (noise - tgt32)) ** 2
     if num_valid_target is None:
-        return err.mean()
+        return lane_means(err, lanes)
+    if lanes is not None:
+        raise ValueError("shape bucketing does not compose with lanes")
     valid = int(num_valid_target)
     return err[:, :, :valid].sum() / (valid * (err.numel() // t_tgt))
 
@@ -117,11 +147,12 @@ def flow_matching_loss_conditioned_fixed(
     *,
     fixed_sigmas: Sequence[float],
     adapters: Optional[Dict[str, torch.Tensor]] = None,
+    lanes: Optional[int] = None,
 ) -> torch.Tensor:
     """Deterministic conditioned anchor loss for the early stopper: the
     |sigmas| x |draws| grid as ONE batched forward of G*B rows (G =
     len(fixed_sigmas) * n_draws), in the reference's row order (sigma
-    major, draw minor)."""
+    major, draw minor); with ``lanes``, each lane's anchor ([V])."""
     B = cond_latents.shape[0]
     pt = dit.cfg.patch_size[0]
     t_cond, t_tgt = cond_latents.shape[2], target_latents.shape[2]
@@ -142,7 +173,7 @@ def flow_matching_loss_conditioned_fixed(
     mask_g = None if text_mask is None else torch.cat([text_mask] * G, dim=0)
     pred = dit(hidden, timestep, emb_g, mask_g, num_cond_latents=t_cond,
                adapters=adapters)
-    return ((pred[:, :, t_cond:] - (noi - tgt_g)) ** 2).mean()
+    return lane_means((pred[:, :, t_cond:] - (noi - tgt_g)) ** 2, lanes)
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +207,7 @@ def mmdit_flow_matching_loss_conditioned(
     sigma_max: float = 1.0,
     guidance: float = 7.5,
     num_valid_target: Optional[int] = None,
+    lanes: Optional[int] = None,
 ) -> torch.Tensor:
     """The MMDiT's conditioned loss: noise on the target frames only, the
     conditioning through ``cond``, the vec's timestep the row's sigma; fp32
@@ -198,7 +230,7 @@ def mmdit_flow_matching_loss_conditioned(
     pred = dit(full, sigma.float(), txt, y_vec,
                cond=mmdit_cond_input(cond_latents, t_cond + t_tgt),
                guidance=torch.full((B,), guidance, device=full.device), adapters=adapters)
-    return ((pred[:, :, t_cond:] - (noise - tgt32)) ** 2).mean()
+    return lane_means((pred[:, :, t_cond:] - (noise - tgt32)) ** 2, lanes)
 
 
 def mmdit_flow_matching_loss_conditioned_fixed(
@@ -212,9 +244,11 @@ def mmdit_flow_matching_loss_conditioned_fixed(
     fixed_sigmas: Sequence[float],
     adapters: Optional[Dict[str, torch.Tensor]] = None,
     guidance: float = 7.5,
+    lanes: Optional[int] = None,
 ) -> torch.Tensor:
     """The MMDiT anchor loss: one B-row forward per (sigma, draw), sigma
-    major, draw minor (the reference's scan), the mean of their MSEs."""
+    major, draw minor (the reference's scan), the mean of their MSEs (per
+    lane with ``lanes``)."""
     B, _, t_cond = cond_latents.shape[:3]
     tgt32, cond32 = target_latents.float(), cond_latents.float()
     cond_in = mmdit_cond_input(cond_latents, t_cond + target_latents.shape[2])
@@ -226,7 +260,7 @@ def mmdit_flow_matching_loss_conditioned_fixed(
             noisy = (1.0 - sigma[0]) * tgt32 + sigma[0] * noise
             pred = dit(torch.cat([cond32, noisy], dim=2), sigma, txt, y_vec,
                        cond=cond_in, guidance=g, adapters=adapters)
-            total = total + ((pred[:, :, t_cond:] - (noise - tgt32)) ** 2).mean()
+            total = total + lane_means((pred[:, :, t_cond:] - (noise - tgt32)) ** 2, lanes)
             n += 1
     return total / n
 
@@ -268,6 +302,7 @@ def cogvideox_flow_matching_loss_conditioned(
     sigma_min: float = 0.001,
     sigma_max: float = 1.0,
     num_valid_target: Optional[int] = None,
+    lanes: Optional[int] = None,
 ) -> torch.Tensor:
     """The reference's rectified-flow TTA loss for CogVideoX: the whole
     [cond | target] window noised with one sigma per row, x_t = (1-σ)x +
@@ -291,7 +326,7 @@ def cogvideox_flow_matching_loss_conditioned(
     noisy = (1.0 - sig) * full + sig * noise
     pred = dit(noisy, sigma.float() * NUM_TRAIN_TIMESTEPS, text_emb,
                _cogvideox_image_input(dit, cond_latents, full.shape[2]), adapters=adapters)
-    return ((pred - (noise - full)) ** 2).mean()
+    return lane_means((pred - (noise - full)) ** 2, lanes)
 
 
 def cogvideox_flow_matching_loss_conditioned_fixed(
@@ -304,11 +339,12 @@ def cogvideox_flow_matching_loss_conditioned_fixed(
     *,
     fixed_sigmas: Sequence[float],
     adapters: Optional[Dict[str, torch.Tensor]] = None,
+    lanes: Optional[int] = None,
 ) -> torch.Tensor:
     """The CogVideoX anchor loss: fixed noise on the target slice, the
     conditioning latents clean; one B-row forward per (sigma, draw), sigma
     major, draw minor (the reference's scan), the mean of their MSEs on
-    the target slice."""
+    the target slice (per lane with ``lanes``)."""
     B, _, t_cond = cond_latents.shape[:3]
     tgt32, cond32 = target_latents.float(), cond_latents.float()
     img = _cogvideox_image_input(dit, cond_latents, t_cond + target_latents.shape[2])
@@ -319,6 +355,6 @@ def cogvideox_flow_matching_loss_conditioned_fixed(
             noisy = (1.0 - sigma[0]) * tgt32 + sigma[0] * noise
             pred = dit(torch.cat([cond32, noisy], dim=2), sigma * NUM_TRAIN_TIMESTEPS,
                        text_emb, img, adapters=adapters)
-            total = total + ((pred[:, :, t_cond:] - (noise - tgt32)) ** 2).mean()
+            total = total + lane_means((pred[:, :, t_cond:] - (noise - tgt32)) ** 2, lanes)
             n += 1
     return total / n

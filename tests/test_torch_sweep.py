@@ -1,8 +1,9 @@
 """The port's sweep runner (sweep/run_sweep.py) against the JAX one.
 
-- Every row of every configs/*.yaml builds the JAX sweep's argv, less
-  the documented drops (compile_cache_dir, attn_impl), and the port
-  runner's parser takes it; the not-yet-ported keys raise.
+- Every row of every configs/*.yaml builds the JAX sweep's argv, with
+  compile_cache_dir and attn_impl forwarded, and the port runner's parser
+  takes it; the not-yet-ported mesh keys raise, and video_parallel,
+  native_prefetch and debug_nans give the runner's flags.
 - The campaign YAMLs pass the port runner's --preflight-only.
 - Dry-run, resume-skip, --jobs with a CUDA_VISIBLE_DEVICES pool, the
   fleet STOP file and the subprocess drain sentinel, as tests/test_sweep.py
@@ -29,7 +30,12 @@ from longcat_video_tta_tpu_torch.sweep import run_sweep as tsw
 torch.set_num_threads(2)
 
 CONFIGS = sorted(glob.glob("configs/*.yaml"))
-DROPPED = ("--compile-cache-dir", "--attn-impl")
+FORWARDED = {"compile_cache_dir": "--compile-cache-dir", "attn_impl": "--attn-impl"}
+# the six keys the port refused before video_parallel, native_prefetch and
+# debug_nans were ported; the three mesh keys still raise
+ONCE_REFUSED = ("video_parallel", "data_mesh", "context_mesh", "tensor_mesh",
+                "native_prefetch", "debug_nans")
+MESH_KEYS = ("data_mesh", "context_mesh", "tensor_mesh")
 
 
 def _rows(path):
@@ -38,17 +44,6 @@ def _rows(path):
         params = dict(cfg["fixed"])
         params.update({k: v for k, v in row.items() if k != "run_id"})
         yield cfg["method"], row["run_id"], params
-
-
-def _without_drops(argv):
-    out, i = [], 0
-    while i < len(argv):
-        if argv[i] in DROPPED:
-            i += 2
-            continue
-        out.append(argv[i])
-        i += 1
-    return out
 
 
 def test_every_config_is_covered():
@@ -60,20 +55,29 @@ def test_build_argv_matches_jax_and_parses(path):
     parser = build_arg_parser()
     for method, run_id, params in _rows(path):
         data = params.get("data_dir", "/data")
-        with contextlib.redirect_stdout(io.StringIO()) as notes:
+        with contextlib.redirect_stdout(io.StringIO()):
             ref = jsw.build_argv(method, params, "/out", data)
             argv = tsw.build_argv(method, params, "/out", data)
-        assert argv == _without_drops(ref), (path, run_id)
-        for key in ("compile_cache_dir", "attn_impl"):
+        assert argv == ref, (path, run_id)
+        for key, flag in FORWARDED.items():
             if key in params:
-                assert f"'{key}' dropped" in notes.getvalue()
+                assert argv[argv.index(flag) + 1] == str(params[key])
         parser.parse_args(argv)  # SystemExit on a flag the port lacks
 
 
-@pytest.mark.parametrize("key", tsw._NOT_PORTED)
+@pytest.mark.parametrize("key", ONCE_REFUSED)
 def test_not_ported_keys_raise(key):
-    with pytest.raises(ValueError, match="not yet ported"):
-        tsw.build_argv("delta_a", {key: True}, "/out", None)
+    """The mesh keys raise; the three ported keys give the runner's flag,
+    and the port's parser takes it."""
+    params = {key: 2 if key == "video_parallel" else True}
+    if key in MESH_KEYS:
+        with pytest.raises(ValueError, match="not yet ported"):
+            tsw.build_argv("delta_a", params, "/out", None)
+        return
+    argv = tsw.build_argv("delta_a", params, "/out", None)
+    assert argv == jsw.build_argv("delta_a", params, "/out", None)
+    args = build_arg_parser().parse_args(argv)
+    assert getattr(args, key) == params[key]
 
 
 def test_reference_keys_and_unknown_keys():
@@ -147,7 +151,8 @@ def test_dry_run_stop_file_and_device_forwarded(tmp_path):
     argv = rows[0]["argv"]
     assert argv[argv.index("--stop-file") + 1] == os.path.join(base, "STOP")
     assert argv[argv.index("--device") + 1] == "cpu"
-    assert "--lr" in argv and "--attn-impl" not in argv
+    # the config's attn_impl reaches the port's runner
+    assert "--lr" in argv and argv[argv.index("--attn-impl") + 1] == "xla"
     with open(os.path.join(base, "sweep_smoke_tiny.json")) as f:
         assert [r["run_id"] for r in json.load(f)] == ["a"]
 
@@ -234,7 +239,7 @@ def test_smoke_tiny_through_both_sweeps(both_sweeps):
     assert set(jrows[0]) == set(trows[0])
     for key in ("run_id", "series", "method"):
         assert jrows[0][key] == trows[0][key]
-    assert _without_drops(jrows[0]["argv"]) == [
+    assert jrows[0]["argv"] == [
         a.replace(os.path.join(out, "torch"), os.path.join(out, "jax"))
         for a in trows[0]["argv"][:-2]]
     assert trows[0]["argv"][-2:] == ["--device", "cpu"]

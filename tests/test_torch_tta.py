@@ -495,6 +495,9 @@ def test_runner_rejects_unported_options(tmp_path):
         run_tta.main(["--method", "lora", "--video-parallel"] + base)
     with pytest.raises(SystemExit):
         run_tta.main(["--method", "delta_a", "--data-mesh", "2"] + base)
+    with pytest.raises(SystemExit, match="not yet ported"):
+        run_tta.main(["--method", "delta_a", "--video-parallel", "2", "--data-mesh", "2"]
+                     + base)
     assert run_tta.build_arg_parser().parse_args(base).method == "delta_a"
     assert run_tta.build_arg_parser().parse_args(base + ["--clip-gate-enabled"]) \
         .clip_gate_enabled
