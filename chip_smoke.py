@@ -84,7 +84,8 @@ Phases (each one fails the run when it fails):
      report the trainable-parameter count of its configuration, and
      launch each kernel as often as ``method_launches`` derives;
   9. checkpoint path: a LongCat-13.6B-layout checkpoint (dit/, vae/,
-     text_encoder/ as bf16 safetensors shards of at most 5 GB, 48 blocks,
+     text_encoder/ as bf16 safetensors shards of at most 5 GB, 12 of the 48
+     blocks (CUT_DEPTH),
      UMT5-XXL, WAN VAE base 96; no tokenizer folder) drawn on the card
      from a seed, written under a temporary folder in .chip_smoke/ (removed
      at the end) and loaded through the runner's --checkpoint-dir: load
@@ -136,7 +137,8 @@ Phases (each one fails the run when it fails):
      MMDiT with head_dim 128 (hidden 256, the published axes_dims) on the
      card against the CPU: generate_vc >= 30 dB, one delta_a and one LoRA
      train step within the step agreement's gates; (c) the runner at
-     full width and depth: --method none (2 requests at [main]'s
+     full width and 10 + 19 of the 19 + 38 blocks (the script's time
+     limit): --method none (2 requests at [main]'s
      geometry), a lever request (W8A8, PAB and CFG reuse every 2, 2-step
      segments, --fast-decode-verify 1), delta_a on the TTA window (6
      steps), lora (3 steps) and full at a depth cut of 4 double + 8
@@ -158,7 +160,8 @@ Phases (each one fails the run when it fails):
      CogVideoX with head_dim 64 (hidden 256, rope_dims (16, 24, 24)) on
      the card against the CPU: generate_vc >= 30 dB, one delta_a, LoRA
      and full train step within the step agreement's gates; (c) the
-     runner at full width: --method none (2 requests at [main]'s
+     runner at full width and 21 of the 42 blocks (the script's time
+     limit): --method none (2 requests at [main]'s
      geometry), the lever request as in 13, delta_a on the TTA window (6
      steps), lora (3 steps) and full at a depth cut of 16 of 42 blocks (3
      steps; at 5.57B its AdamW state would not fit beside the encoder):
@@ -215,6 +218,38 @@ Phases (each one fails the run when it fails):
      was saved as uint8; finite FVD), then compare_all, diagnostics status
      and audit, export_results, export_loss_curves and (where matplotlib is
      installed; the card's machine has none) figures over [vp]'s runs.
+ 20. mesh (``--only mesh``): the multi-rank paths, in rank processes that
+     share this card over gloo (NCCL refuses two ranks on one GPU; gloo
+     moves every message through host memory, so no time here measures a
+     real mesh). The kernel libraries are built before any rank starts.
+     (a) B1-B3 at the ring's chunk shapes with their global offsets in
+     this process (10 920 tokens with a 6240-token prefix in chunks of
+     5460 and 2730: cond x cond, straddling, all-noise chunks and cond
+     rows against an all-noise chunk, the CTAs with no tile; the decode's
+     cache and noise pieces; 16 heads, tensor parallelism's) against the
+     plain version, timed beside SDPA with the same boolean mask and the
+     bound of the pairs the mask lets through; then ``ring_self_attention``
+     in 2 and 4 ranks (the train sequence, the serving decode with and
+     without a key bound, the 12 480-token bucket) against one launch over
+     the whole sequence and against the plain version under the gates of
+     2 and 3, each rank's launches P forward (2P for the decode's two
+     pieces), P dQ and P dK/dV; (b) the runner at LongCat-13.6B width
+     (MESH["depth"], 24 of 48 blocks) on delta_a's window
+     (3 steps, a check every 3, 4 denoising steps): --context-mesh 2 and
+     --tensor-mesh 2 against one rank's run of 1 video, --video-parallel 2
+     --data-mesh 2 against one rank's --video-parallel 2 run of 2 videos:
+     step-0 loss within 1e-3, later losses and anchors within 1e-2, the
+     same best step, adapter cosine >= 0.99, each clip within 30 dB of the
+     one-rank clip, finite PSNR/SSIM, each rank's launches as
+     ``mesh_launches``; per-rank step, anchor and peak memory beside one
+     rank's; (c) in the 2-rank world, the small MMDiT and CogVideoX under
+     tensor parallelism against one rank: forward relative L2 <= 1e-2,
+     one delta_a step's loss within 1e-2 and gradient cosine >= 0.99.
+
+The lever runs (7), the checkpoint path (9), [eval], [t2v], [vbench] and
+[vp] run LongCat-13.6B at 12 of its 48 blocks (``CUT_DEPTH``, full
+widths), and the Open-Sora and CogVideoX runner runs half their blocks,
+to keep the script inside its time limit beside [mesh]'s runs at 24.
 
 The counts of every kernel are set to 0 just before each main path and
 read just after; a kernel's ``launches`` in the kernels line is its sum
@@ -233,6 +268,7 @@ import shutil
 import subprocess
 import sys
 import time
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(ROOT, ".chip_smoke")
@@ -289,30 +325,52 @@ def _events_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _allowed_pairs(Sq: int, Sk: int, ncond: int, kv_valid=None) -> int:
-    """(query, key) pairs the mask lets through: the work this input needs."""
-    kv = Sk if kv_valid is None else min(Sk, kv_valid)
-    pairs = Sq * kv
+def _timed_once(fn):
+    """(fn(), its milliseconds on the card's clock): one run, no warm-up
+    (a plain version, whose result a gate also reads)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _allowed_pairs(Sq: int, Sk: int, ncond: int, kv_valid=None, q_offset: int = 0,
+                   k_offset: int = 0) -> int:
+    """(query, key) pairs the mask lets through: the work this input needs.
+    Queries sit at global indices q_offset.., keys at k_offset.. (a ring
+    chunk); the prefix rule applies to square inputs, the key bound
+    ``kv_valid`` to global key indices."""
+    clamp = lambda x, hi: max(0, min(x, hi))
+    kv = Sk + k_offset if kv_valid is None else kv_valid
+    n_keys = clamp(kv - k_offset, Sk)
+    pairs = Sq * n_keys
     if ncond > 0 and Sq == Sk:
-        cond_rows = min(ncond, Sq)
-        noise_keys = max(0, kv - ncond)
-        pairs -= cond_rows * noise_keys
+        cond_rows = clamp(ncond - q_offset, Sq)
+        cond_keys = clamp(min(ncond, kv) - k_offset, Sk)
+        pairs -= cond_rows * (n_keys - cond_keys)
     return pairs
 
 
-def _bound_ms(B, H, Sq, Sk, D, ncond, kv_valid, elem_bytes):
-    flops = 4.0 * B * H * D * _allowed_pairs(Sq, Sk, ncond, kv_valid)
+def _bound_ms(B, H, Sq, Sk, D, ncond, kv_valid, elem_bytes, q_offset=0, k_offset=0):
+    flops = 4.0 * B * H * D * _allowed_pairs(Sq, Sk, ncond, kv_valid, q_offset, k_offset)
     nbytes = (2 * B * Sq * H * D + 2 * B * Sk * H * D) * elem_bytes + B * Sq * H * 4
     t_ops = flops / H100_BF16_FLOPS * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _bwd_bound_ms(B, H, Sq, Sk, D, ncond, kv_valid, elem_bytes, dkv: bool):
+def _bwd_bound_ms(B, H, Sq, Sk, D, ncond, kv_valid, elem_bytes, dkv: bool, q_offset=0,
+                  k_offset=0):
     """Least time of one backward kernel: 8*D FLOP per allowed pair for
     dK/dV (S, dP, dV, dK), 6*D for dQ (S, dP, dQ); bytes: q, k, v, dO and
     the fp32 lse and delta read once, dq (or dk and dv) written once."""
-    flops = (8.0 if dkv else 6.0) * B * H * D * _allowed_pairs(Sq, Sk, ncond, kv_valid)
+    flops = (8.0 if dkv else 6.0) * B * H * D * _allowed_pairs(Sq, Sk, ncond, kv_valid,
+                                                              q_offset, k_offset)
     n_out = 2 * Sk if dkv else Sq
     nbytes = ((2 * Sq + 2 * Sk + n_out) * B * H * D * elem_bytes + 2 * B * Sq * H * 4)
     t_ops = flops / H100_BF16_FLOPS * 1e3
@@ -336,15 +394,16 @@ def _reference_chunked(fa, q, k, v, ncond, kv_valid, heads_per_chunk):
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
 
-def sdpa_mask(Sq: int, Sk: int, ncond: int, kv_valid):
+def sdpa_mask(Sq: int, Sk: int, ncond: int, kv_valid, q_offset: int = 0, k_offset: int = 0):
     """The boolean allowed-mask SDPA takes for the kernels' masks (the
-    conditioning prefix when Sq == Sk, keys past kv_valid), or None."""
+    conditioning prefix when Sq == Sk, keys past kv_valid; global indices
+    from the offsets), or None."""
     import torch
 
     if not (ncond > 0 and Sq == Sk) and kv_valid is None:
         return None
-    qi = torch.arange(Sq, device="cuda")[:, None]
-    ki = torch.arange(Sk, device="cuda")[None, :]
+    qi = torch.arange(Sq, device="cuda")[:, None] + q_offset
+    ki = torch.arange(Sk, device="cuda")[None, :] + k_offset
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
     if ncond > 0 and Sq == Sk:
         mask = (qi >= ncond) | (ki < ncond)
@@ -1826,7 +1885,8 @@ class PeakRSS:
 
 
 def phase_checkpoint_path(fa):
-    """A LongCat-13.6B-layout checkpoint (48 blocks, UMT5-XXL, WAN VAE base
+    """A LongCat-13.6B-layout checkpoint (the preset's blocks: 12 of 48
+    under ``at_cut_depth``, as chip_smoke runs it; UMT5-XXL, WAN VAE base
     96; bf16 shards of at most 5 GB) written under a temporary folder and
     loaded through the runner's --checkpoint-dir: load time, rate and the
     host's peak RSS; sampled tensors against their drawn values; one
@@ -2816,7 +2876,11 @@ OPENSORA = dict(name="opensora", preset="opensora_v2",
                 lr={"delta_a": 1e-3, "lora": 1e-3, "full": 1e-4},
                 # full's weights, gradients and AdamW moments at 11.8B are about
                 # 142 GB: full runs at full width with this depth cut
-                full_depth=(4, 8), ckpt_seed=13, small_seed=17)
+                full_depth=(4, 8), ckpt_seed=13, small_seed=17,
+                # the runner's serving, lever, delta_a and lora runs: 10 + 19 of
+                # the 19 + 38 blocks (the script's time limit, beside [mesh]'s
+                # runs at 24 of LongCat's 48 blocks)
+                run_depth=(10, 19))
 # the lever request of both joint-attention backbones (Open-Sora v2,
 # CogVideoX): W8A8, PAB and CFG reuse every 2, 2-step segments and one
 # dense generation for the fidelity record
@@ -2897,6 +2961,21 @@ def n_joint_attn(dit_cfg) -> int:
     if dit_cfg.arch == "cogvideox":
         return dit_cfg.depth
     return dit_cfg.depth_double + dit_cfg.depth_single
+
+
+# The script's time limit: the lever runs, [checkpoint], [eval], [t2v],
+# [vbench] and [vp] run LongCat-13.6B at 12 of its 48 blocks (full widths;
+# at 24, beside [mesh]'s runs at 24, a run took 1187.5 s of the 1200);
+# the serving and delta_a main paths, [remat] and [bucket] keep all 48.
+CUT_DEPTH = 12
+
+
+def at_cut_depth(phase):
+    """``phase`` with the runner's longcat_13b cut to ``CUT_DEPTH`` blocks."""
+    def run(*args):
+        with preset_depth(CUT_DEPTH, "longcat_13b"):
+            return phase(*args)
+    return run
 
 
 class preset_depth:
@@ -3369,7 +3448,8 @@ def phase_opensora(fa):
     torch.cuda.empty_cache()
     phase_opensora_agreement(fa)
     torch.cuda.empty_cache()
-    launches, serve_times = phase_joint_runs(fa, OPENSORA)
+    with preset_depth(OPENSORA["run_depth"], OPENSORA["preset"]):
+        launches, serve_times = phase_joint_runs(fa, OPENSORA)
     print(f"[opensora] serving gen_time per request {serve_times} s")
     got = phase_opensora_checkpoint(fa)
     for k in launches:
@@ -3390,7 +3470,10 @@ COGVIDEOX = dict(name="cogvideox", preset="cogvideox_5b",
                  # full's weights, gradients and AdamW moments at 5.57B are about
                  # 67 GB, beside the 9.5 GB encoder and the best snapshot: full
                  # runs at full width with this depth cut (2.11B)
-                 full_depth=16, small_seed=19)
+                 full_depth=16, small_seed=19,
+                 # the runner's serving, lever, delta_a and lora runs: 21 of the
+                 # 42 blocks (the script's time limit, as Open-Sora's)
+                 run_depth=21)
 
 
 def cogvideox_shapes():
@@ -3542,7 +3625,8 @@ def phase_cogvideox(fa):
     torch.cuda.empty_cache()
     phase_cogvideox_agreement(fa)
     torch.cuda.empty_cache()
-    launches, serve_times = phase_joint_runs(fa, COGVIDEOX)
+    with preset_depth(COGVIDEOX["run_depth"], COGVIDEOX["preset"]):
+        launches, serve_times = phase_joint_runs(fa, COGVIDEOX)
     print(f"[cogvideox] serving gen_time per request {serve_times} s")
     print(f"[cogvideox] launches over the runs {launches}")
     return fwd, bwd, launches
@@ -3929,6 +4013,34 @@ def vp_launches(graph: str, depth: int, *, lanes: int, steps: int, checks: int,
     forward), then each lane's generation."""
     out = {k: steps * n for k, n in train_step_launches(graph, depth).items()}
     out["flash_fwd"] += 2 * depth * (lanes + checks + lanes * (1 + inference_steps))
+    return out
+
+
+def mesh_launches(kind: str, depth: int, ranks: int, *, steps: int, anchors: int,
+                  inference_steps: int, lanes: int = 1, checks: int = 0):
+    """Launches per kernel on each rank of a delta_a ("t_embed") mesh run of
+    one video (``kind`` "context" or "tensor") or of one data rank's lanes
+    of a --video-parallel group ("data"):
+      "context"  P = ``ranks``: each self-attention is a ring of P chunk
+                 launches (B1), its backward P dQ and P dK/dV chunk
+                 launches; cross-attention stays one launch. A train step
+                 (each block recomputed under remat): forward 2 x depth x
+                 (P + 1), dQ depth x (P + 1), dK/dV depth x P; an anchor
+                 eval depth x (P + 1); generation: the cond cache depth x
+                 (P + 1), each decode step depth x (2P + 1) (the cache and
+                 the fresh tokens are two pieces of each chunk);
+      "tensor"   one rank's counts (the heads split, not the calls);
+      "data"     ``vp_launches`` of this rank's ``lanes``."""
+    if kind == "tensor":
+        return method_launches("t_embed", depth, steps=steps, anchors=anchors,
+                               inference_steps=inference_steps)
+    if kind == "data":
+        return vp_launches("t_embed", depth, lanes=lanes, steps=steps, checks=checks,
+                           inference_steps=inference_steps)
+    d, p = depth, ranks
+    out = {"flash_fwd": steps * 2 * d * (p + 1), "flash_bwd_dq": steps * d * (p + 1),
+           "flash_bwd_dkv": steps * d * p}
+    out["flash_fwd"] += d * (p + 1) * (anchors + 1) + inference_steps * d * (2 * p + 1)
     return out
 
 
@@ -4357,6 +4469,624 @@ def phase_tools(vp_runs, card: str = "cuda"):
     shutil.rmtree(vp_runs["base"], ignore_errors=True)
 
 
+# [mesh]: context and tensor parallelism and the data mesh, in ranks
+# that share the card over gloo (NCCL refuses two ranks on one GPU).
+# Times taken this way say nothing about a real mesh: the ranks share
+# the card's SMs and memory, and gloo copies every message through host
+# memory. The chunk rows time B1-B3 in this process at the ring's chunk
+# shapes, with global offsets.
+MESH = dict(seed=101, timeout_s=420, loss0_rtol=1e-3, loss_rtol=1e-2, cos_min=0.99,
+            psnr_min=30.0, tp_loss_rtol=1e-2, tp_cos_min=0.99, tp_fwd_rel_l2=1e-2,
+            # the runner runs: the delta_a window, 3 steps, a check every 3, 4
+            # denoising steps; ``depth`` of the 48 blocks (the method runs'
+            # cut; two ranks that each hold the whole DiT share the card's
+            # 80 GB)
+            depth=24, steps=3, check_every=3, inference_steps=4, videos=2)
+
+
+def mesh_geometry(dit_cfg, tokens_per_frame):
+    """(S train, ncond, S decode queries, S cache) of the delta_a window
+    and the serving request at 480 x 832 (its 8 generated frames round up
+    to 9: 3 latents, 4680 noise tokens against 3120 cached ones)."""
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import round_frames_4k1
+
+    n_cond_lat, n_train_lat, _ = tta_split()
+    s_train = (n_cond_lat + n_train_lat) * tokens_per_frame
+    cond_lat = (MAIN["cond_frames"] - 1) // 4 + 1
+    gen_lat = (round_frames_4k1(MAIN["gen_frames"]) - 1) // 4 + 1
+    return (s_train, n_cond_lat * tokens_per_frame, gen_lat * tokens_per_frame,
+            cond_lat * tokens_per_frame)
+
+
+def mesh_ring_cases(dit_cfg, tokens_per_frame, world: int):
+    """The ring cases one world of ranks runs: the train self-attention
+    (10 920 tokens, a 6240-token prefix), and at 2 ranks also the serving
+    decode (B 2: 4680 noise queries against 3120 cached and 4680 fresh
+    keys), the decode with a key bound two noise frames in, and the train
+    step bucketed to 12 480 tokens with kv_valid 10 920."""
+    H, D = dit_cfg.num_heads, dit_cfg.head_dim
+    s_train, ncond, s_dec, s_cache = mesh_geometry(dit_cfg, tokens_per_frame)
+    cases = [dict(name=f"ring_train_p{world}", B=1, H=H, D=D, Sq=s_train, Sk=s_train,
+                  ncond=ncond, kv_valid=None, cache=0, bwd=True)]
+    if world == 2:
+        cases += [
+            dict(name="ring_decode_p2", B=2, H=H, D=D, Sq=s_dec, Sk=s_dec, ncond=0,
+                 kv_valid=None, cache=s_cache, bwd=False),
+            dict(name="ring_decode_kv_p2", B=2, H=H, D=D, Sq=s_dec, Sk=s_dec, ncond=0,
+                 kv_valid=s_cache + 2 * tokens_per_frame, cache=s_cache, bwd=False),
+            dict(name="ring_bucket_p2", B=1, H=H, D=D, Sq=s_train + 1560, Sk=s_train + 1560,
+                 ncond=ncond, kv_valid=s_train, cache=0, bwd=True)]
+    return cases
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(world: int, argv, out_dir: str, timeout_s: float, extra_env=None):
+    """Start ``world`` rank processes of ``argv`` (after the interpreter) on
+    this card, as torchrun would (MASTER_ADDR/PORT, WORLD_SIZE, RANK,
+    LOCAL_RANK, LOCAL_WORLD_SIZE), wait for all under one timeout, and
+    kill every one that is left. Each rank's output goes to
+    ``out_dir/rank{r}.log``. Raises unless every rank exits with 0."""
+    os.makedirs(out_dir, exist_ok=True)
+    port = _free_port()
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS="1",
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True", **(extra_env or {}))
+        log = open(os.path.join(out_dir, f"rank{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
+                                      stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.time() + timeout_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = []
+        for r in bad:
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                tails.append(f"rank {r} (exit {procs[r].returncode}):\n"
+                             + "".join(f.readlines()[-40:]))
+        raise AssertionError(f"mesh ranks failed: {' '.join(argv[:3])}\n"
+                             + "\n".join(tails))
+
+
+def _ring_inputs(case, seed, device):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    B, H, D = case["B"], case["H"], case["D"]
+    shape = lambda S: (B, S, H, D)
+    rnd = lambda S: torch.randn(shape(S), generator=g, device=device).to(torch.bfloat16)
+    q, k, v, do = rnd(case["Sq"]), rnd(case["Sk"]), rnd(case["Sk"]), rnd(case["Sq"])
+    kc = vc = None
+    if case["cache"]:
+        kc, vc = rnd(case["cache"]), rnd(case["cache"])
+    return q, k, v, do, kc, vc
+
+
+def mesh_ring_worker(case, out_path: str):
+    """One rank of a ring case: the ring forward (and backward) of this
+    rank's token shard against one B1 (B2, B3) launch over the whole
+    sequence and against the plain version, each rank's launches of each
+    kernel, and its times. Writes a JSON record to ``out_path``."""
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import MeshConfig
+    from longcat_video_tta_tpu_torch.ops import flash_attention as fa
+    from longcat_video_tta_tpu_torch.parallel import build_mesh, ring_self_attention
+    from longcat_video_tta_tpu_torch.parallel.context_attention import shard_tokens
+
+    world = int(os.environ["WORLD_SIZE"])
+    mesh = build_mesh(MeshConfig(context=world), device="cuda")
+    dev = mesh.device
+    q, k, v, do, kc, vc = _ring_inputs(case, MESH["seed"], dev)
+    ncond, kv = case["ncond"], case["kv_valid"]
+    cache = None if kc is None else (kc, vc)
+    kf = k if kc is None else torch.cat([kc, k], 1)
+    vf = v if vc is None else torch.cat([vc, v], 1)
+    kw = dict(num_cond_tokens=ncond, kv_valid_len=kv)
+    # one launch over the whole sequence, and the plain version
+    o1, lse1 = fa.flash_attention(q, kf, vf, **kw)
+    o_ref, lse_ref = reference(fa, q, kf, vf, ncond, kv)
+    sh = lambda x: shard_tokens(x, mesh)
+    ql, kl, vl, dol = (sh(x).contiguous() for x in (q, k, v, do))
+    cl = None if cache is None else tuple(sh(x).contiguous() for x in cache)
+    rec = {"case": case["name"], "rank": mesh.rank, "world": world}
+    fa.reset_launches()
+    if case["bwd"]:
+        ql.requires_grad_(True), kl.requires_grad_(True), vl.requires_grad_(True)
+    with torch.enable_grad():
+        o, lse = ring_self_attention(ql, kl, vl, mesh, num_cond_tokens=ncond, kv_valid=kv,
+                                     cache=cl, return_lse=True)
+    torch.cuda.synchronize(dev)
+    rec["fwd_launches"] = fa.launches
+    rec["vs_single"] = kernel_errors(o.detach(), lse.detach(), sh(o1), sh(lse1), "bfloat16")
+    rec["vs_plain"] = kernel_errors(o.detach(), lse.detach(), sh(o_ref), sh(lse_ref),
+                                    "bfloat16")
+    if case["bwd"]:
+        o.backward(dol)
+        torch.cuda.synchronize(dev)
+        rec["dq_launches"], rec["dkv_launches"] = fa.bwd_dq_launches, fa.bwd_dkv_launches
+        delta = (do.float() * o1.float()).sum(-1)
+        single = (fa.flash_attention_bwd_dq(q, k, v, do, lse1, delta, **kw),
+                  *fa.flash_attention_bwd_dkv(q, k, v, do, lse1, delta, **kw))
+        plain = backward_reference(fa, q, k, v, o_ref, lse_ref, do, ncond, kv)
+        for name, got, one, ref in zip(("dq", "dk", "dv"), (ql.grad, kl.grad, vl.grad),
+                                       single, plain):
+            rec[f"{name}_vs_single"] = grad_errors(got, sh(one), "bfloat16")
+            rec[f"{name}_vs_plain"] = grad_errors(got, sh(ref), "bfloat16")
+        del single, plain
+    # times on this rank (the other ranks run beside it on the card)
+    ql_, kl_, vl_ = (x.detach() for x in (ql, kl, vl))
+
+    def ring_fwd():
+        return ring_self_attention(ql_, kl_, vl_, mesh, num_cond_tokens=ncond, kv_valid=kv,
+                                   cache=cl)
+
+    rec["ring_fwd_ms"] = _events_ms(ring_fwd, iters=2)
+    rec["single_fwd_ms"] = _events_ms(lambda: fa.flash_attention(q, kf, vf, **kw), iters=2)
+    if case["bwd"]:
+        def ring_step():
+            a, b, c = (x.detach().requires_grad_(True) for x in (ql_, kl_, vl_))
+            ring_self_attention(a, b, c, mesh, num_cond_tokens=ncond,
+                                kv_valid=kv).backward(dol)
+
+        rec["ring_fwd_bwd_ms"] = _events_ms(ring_step, iters=1)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def mesh_chunk_rows(fa, dit_cfg, tokens_per_frame):
+    """B1-B3 at the ring's chunk shapes in this process, with their global
+    offsets: (name, B, H, Sq, Sk, D, q_offset, k_offset, ncond, kv_valid,
+    backward too)."""
+    H, D = dit_cfg.num_heads, dit_cfg.head_dim
+    s_train, ncond, s_dec, s_cache = mesh_geometry(dit_cfg, tokens_per_frame)
+    c2, c4 = s_train // 2, s_train // 4
+    return [
+        ("chunk_p2_cond_x_cond", 1, H, c2, c2, D, 0, 0, ncond, None, True),
+        ("chunk_p2_cond_x_straddle", 1, H, c2, c2, D, 0, c2, ncond, None, True),
+        ("chunk_p2_straddle_x_straddle", 1, H, c2, c2, D, c2, c2, ncond, None, True),
+        ("chunk_p4_cond_x_noise", 1, H, c4, c4, D, 0, 3 * c4, ncond, None, True),
+        ("chunk_p4_noise_x_noise", 1, H, c4, c4, D, 3 * c4, 3 * c4, ncond, None, True),
+        ("chunk_p4_straddle_x_cond", 1, H, c4, c4, D, 2 * c4, 0, ncond, None, True),
+        ("chunk_p2_decode_cache", 2, H, s_dec // 2, s_cache // 2, D, 0, 0, 0, None, False),
+        ("chunk_p2_decode_noise", 2, H, s_dec // 2, s_dec // 2, D, 0, s_cache, 0, None,
+         False),
+        ("tp2_train_self_h16", 1, H // 2, s_train, s_train, D, 0, 0, ncond, None, True),
+    ]
+
+
+def check_chunk_row(fa, row):
+    """One chunk row: the B1 chunk launch (and B3, B2) against the plain
+    versions at the same offsets, timed beside the plain version, SDPA
+    with the same boolean mask, and the bound of the pairs the mask lets
+    through. Returns (forward result, backward results)."""
+    import torch
+    import torch.nn.functional as F
+
+    name, B, H, Sq, Sk, D, qo, ko, ncond, kv, bwd = row
+    q, k, v = case_inputs(B, H, Sq, Sk, D, seed=zlib.crc32(name.encode()) % 1000)
+    kw = dict(num_cond_tokens=ncond, kv_valid=kv)
+    o, lse = fa.flash_chunk_fwd(q, k, v, qo, ko, **kw)
+    ref, plain_fwd_ms = _timed_once(lambda: [fa.attention_reference(
+        q[:, :, h:h + 4], k[:, :, h:h + 4], v[:, :, h:h + 4], num_cond_tokens=ncond,
+        kv_valid_len=kv, q_offset=qo, k_offset=ko) for h in range(0, H, 4)])
+    o_ref, lse_ref = (torch.cat(x, dim=2) for x in zip(*ref))
+    del ref
+    err = kernel_errors(o, lse, o_ref, lse_ref, "bfloat16")
+    base = {"case": name, "B": B, "H": H, "Sq": Sq, "Sk": Sk, "D": D, "q_offset": qo,
+            "k_offset": ko, "ncond": ncond, "kv_valid": kv}
+    if not err.pop("ok"):
+        raise AssertionError(f"chunk row {name}: {json.dumps({**base, **err})}")
+    fwd = {**base, **err}
+    fwd["ms"] = _events_ms(lambda: fa.flash_chunk_fwd(q, k, v, qo, ko, **kw), iters=10)
+    fwd["plain_ms"] = plain_fwd_ms  # the plain version's run above, once
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = sdpa_mask(Sq, Sk, ncond, kv, qo, ko)
+    if mask is not None and not bool(mask.any(-1).all()):
+        fwd["library_ms"] = None  # SDPA gives NaN rows where no key is visible
+    else:
+        fwd["library_ms"] = _events_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), iters=10)
+    fwd["bound_ms"], fwd["bound_by"] = _bound_ms(B, H, Sq, Sk, D, ncond, kv, 2, qo, ko)
+    out_bwd = []
+    if bwd:
+        g = torch.Generator(device="cuda").manual_seed(7)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = fa.flash_chunk_dq(q, k, v, do, lse, delta, qo, ko, **kw)
+        dk, dv = fa.flash_chunk_dkv(q, k, v, do, lse, delta, qo, ko, **kw)
+        refs, plain_ms = _timed_once(lambda: [fa._backward_reference_from_delta(
+            q[:, :, h:h + 4], k[:, :, h:h + 4], v[:, :, h:h + 4], do[:, :, h:h + 4],
+            lse[:, :, h:h + 4], delta[:, :, h:h + 4], num_cond_tokens=ncond,
+            kv_valid_len=kv, q_offset=qo, k_offset=ko) for h in range(0, H, 4)])
+        rq, rk, rv = (torch.cat(x, dim=2) for x in zip(*refs))
+        del refs
+        for kname, outs, rs in (("flash_bwd_dq", (dq,), (rq,)),
+                                ("flash_bwd_dkv", (dk, dv), (rk, rv))):
+            res = {"kernel": kname, **base}
+            for oname, d, d_ref in zip(GRAD_NAMES[kname], outs, rs):
+                e = grad_errors(d, d_ref, "bfloat16")
+                if not e.pop("ok"):
+                    raise AssertionError(f"chunk row {name} {oname}: {json.dumps(e)}")
+                res.update({f"{oname}_{key}": val for key, val in e.items()})
+            res["max_abs_err"] = max(v_ for key, v_ in res.items()
+                                     if key.endswith("_max_abs_err"))
+            fn = fa.flash_chunk_dkv if kname == "flash_bwd_dkv" else fa.flash_chunk_dq
+            res["ms"] = _events_ms(lambda: fn(q, k, v, do, lse, delta, qo, ko, **kw),
+                                   iters=10)
+            res["plain_ms"] = None
+            res["bound_ms"], res["bound_by"] = _bwd_bound_ms(
+                B, H, Sq, Sk, D, ncond, kv, 2, kname == "flash_bwd_dkv", qo, ko)
+            out_bwd.append(res)
+        del rq, rk, rv
+        library_ms = None
+        if fwd["library_ms"] is not None:
+            qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+            ot = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+            dot = do.transpose(1, 2).contiguous()
+            library_ms = _events_ms(lambda: ot.backward(dot, retain_graph=True), iters=3)
+        for res in out_bwd:
+            res["plain_ms"], res["library_ms"] = plain_ms, library_ms
+    return fwd, out_bwd
+
+
+def phase_mesh_kernels(fa, dit_cfg, tokens_per_frame):
+    """[mesh] (a): the chunk rows in this process, then the ring in 2 and
+    4 ranks on the card against one launch over the whole sequence and
+    the plain version, with each rank's launches."""
+    fwd_rows, bwd_rows = [], []
+    for row in mesh_chunk_rows(fa, dit_cfg, tokens_per_frame):
+        f, b = check_chunk_row(fa, row)
+        fwd_rows.append(f)
+        bwd_rows += b
+        print(f"[mesh-chunk] {json.dumps(f)}")
+        for r in b:
+            print(f"[mesh-chunk] {json.dumps(r)}")
+    out_dir = os.path.join(RUN_DIR, "mesh_ring")
+    for world in (2, 4):
+        cases = mesh_ring_cases(dit_cfg, tokens_per_frame, world)
+        t0 = time.time()
+        spawn_ranks(world, [os.path.abspath(__file__), "--mesh-worker", "ring",
+                            "--mesh-out", out_dir], out_dir, MESH["timeout_s"],
+                    {"CHIP_SMOKE_CASES": json.dumps(cases)})
+        for case in cases:
+            pieces = 2 if case["cache"] else 1
+            for r in range(world):
+                with open(os.path.join(out_dir, f"{case['name']}.rank{r}.json")) as f:
+                    rec = json.load(f)
+                want = {"fwd_launches": world * pieces}
+                if case["bwd"]:
+                    want.update(dq_launches=world, dkv_launches=world)
+                got = {key: rec[key] for key in want}
+                gates = [rec[g] for g in rec if g.startswith(("vs_", "dq_", "dk_", "dv_"))
+                         and isinstance(rec[g], dict)]
+                bad = [g for g in gates if not g["ok"]]
+                if got != want or bad:
+                    raise AssertionError(f"ring case {case['name']} rank {r}: launches "
+                                         f"{got} (want {want}); {json.dumps(rec)}")
+                print(f"[mesh-ring] {json.dumps(rec)}")
+        print(f"[mesh-ring] {world} ranks on one card over gloo: {time.time() - t0:.1f} s")
+    return fwd_rows, bwd_rows
+
+
+def _mesh_argv(out_dir: str, videos: int, *flags):
+    return ["--method", "delta_a", "--preset", "longcat_13b", "--synthetic", str(videos),
+            "--output-dir", out_dir, "--device", "cuda", "--seed", str(MESH["seed"]),
+            "--height", str(TTA["height"]), "--width", str(TTA["width"]),
+            "--num-cond-frames", str(TTA["cond_frames"]),
+            "--tta-total-frames", str(TTA["tta_total_frames"]),
+            "--num-frames", str(TTA["gen_frames"]), "--steps", str(MESH["steps"]),
+            "--es-check-every", str(MESH["check_every"]),
+            "--es-patience", str(TTA["patience"]),
+            "--num-inference-steps", str(MESH["inference_steps"]),
+            "--guidance-scale", str(TTA["guidance"]), "--save-adapters",
+            "--caption-guard-mode", "off", *flags]  # one synthetic caption: 100% of the set
+
+
+def mesh_runner(fa, argv, out_json: str):
+    """One rank's runner call (or the one-rank reference, in this process)
+    at [mesh]'s depth cut: its launches counted from 0, the phase times
+    and peak memory of a ``PhaseProbe``, and each generated clip kept as
+    .npy beside ``out_json`` (the saved clip is lossy). Writes and returns
+    the record."""
+    import numpy as np
+
+    from longcat_video_tta_tpu_torch.eval import metrics
+    from longcat_video_tta_tpu_torch.runners import run_tta
+
+    rank = int(os.environ.get("RANK", "0"))
+    clips = []
+    evaluate = metrics.evaluate_generation_metrics
+
+    def keep(gen, gt, **kw):
+        path = f"{out_json}.clip{len(clips)}.rank{rank}.npy"
+        np.save(path, np.asarray(gen))
+        clips.append(path)
+        return evaluate(gen, gt, **kw)
+
+    probe = PhaseProbe(fa, "cuda")
+    metrics.evaluate_generation_metrics = keep
+    try:
+        with preset_depth(MESH["depth"], "longcat_13b"):
+            fa.reset_launches()  # the main path starts here
+            summary = run_tta.main(argv, on_phase=probe)
+            launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+                        "flash_bwd_dkv": fa.bwd_dkv_launches}
+    finally:
+        metrics.evaluate_generation_metrics = evaluate
+    per, step_s, anchor_s = probe.train_step(MESH["steps"])
+    peak, held = probe.tta_peak()
+    rec = dict(rank=rank, launches=launches, summary=summary, clips=clips, step_s=step_s,
+               anchor_s=anchor_s, peak_gib=peak, held_gib=held,
+               wall_s=probe.events[-1]["t"] - probe.events[0]["t"])
+    with open(f"{out_json}.rank{rank}", "w") as f:
+        json.dump(rec, f)
+    return rec
+
+
+def _clip_psnr(a_path: str, b_path: str) -> float:
+    import numpy as np
+
+    a, b = (np.load(p).astype(np.float64) for p in (a_path, b_path))
+    mse = float(np.mean((a - b) ** 2))
+    peak = 1.0 if max(a.max(), b.max()) <= 1.0 else 255.0
+    return float("inf") if mse == 0 else 10 * math.log10(peak ** 2 / mse)
+
+
+def _adapter_cos(a_path: str, b_path: str) -> float:
+    import torch
+
+    va, vb = (torch.cat([s[k].double().flatten() for k in sorted(s)])
+              for s in (torch.load(p, map_location="cpu") for p in (a_path, b_path)))
+    return float(va @ vb / (va.norm() * vb.norm()))
+
+
+def check_mesh_run(tag, ranks, ref, expected):
+    """A mesh run's rank 0 summary against the one-rank run: step-0 loss
+    within ``loss0_rtol``, later losses and anchors within ``loss_rtol``,
+    the same best step, adapter cosine, the clip within ``psnr_min`` dB of
+    the one-rank clip, finite metrics; every rank's launches as
+    ``expected`` (one dict, or one per rank)."""
+    import numpy as np
+
+    res = ranks[0]["summary"]["results"]
+    failed = [r.get("error") for r in res + ref["summary"]["results"] if not r["success"]]
+    if failed or len(res) != len(ref["summary"]["results"]):
+        raise AssertionError(f"[mesh {tag}] videos failed: {failed}")
+    ok_all = True
+    for i, (a, b) in enumerate(zip(res, ref["summary"]["results"])):
+        la, lb = np.asarray(a["losses"], float), np.asarray(b["losses"], float)
+        ha = np.asarray([x for _, x in a["early_stopping_info"]["loss_history"]], float)
+        hb = np.asarray([x for _, x in b["early_stopping_info"]["loss_history"]], float)
+        rel = lambda x, y: np.abs(x - y) / np.abs(y)
+        clip_a = _clip_for(ranks, i)
+        psnr = _clip_psnr(clip_a, ref["clips"][i])
+        cos = _adapter_cos(a["adapter_path"], b["adapter_path"])
+        ok = (a["success"] and len(la) == len(lb) and rel(la[:1], lb[:1]).max() <= MESH["loss0_rtol"]
+              and rel(la, lb).max() <= MESH["loss_rtol"] and len(ha) == len(hb)
+              and rel(ha, hb).max() <= MESH["loss_rtol"]
+              and a["early_stopping_info"]["best_step"] == b["early_stopping_info"]["best_step"]
+              and cos >= MESH["cos_min"] and psnr >= MESH["psnr_min"]
+              and np.isfinite([a["psnr"], a["ssim"]]).all())
+        print(f"[mesh {tag}] video {i}: losses {la.tolist()} vs one rank {lb.tolist()}; "
+              f"anchors {ha.tolist()} vs {hb.tolist()}; best step "
+              f"{a['early_stopping_info']['best_step']} vs "
+              f"{b['early_stopping_info']['best_step']}; adapter cosine {cos:.6f}; clip "
+              f"{psnr:.2f} dB from the one-rank clip; psnr {a['psnr']:.4f} ssim "
+              f"{a['ssim']:.4f} (one rank {b['psnr']:.4f} {b['ssim']:.4f})")
+        ok_all = ok_all and ok
+    for r in ranks:
+        want = expected[r["rank"]] if isinstance(expected, list) else expected
+        print(f"[mesh {tag}] rank {r['rank']} of {len(ranks)} sharing the card over gloo: "
+              f"train step {r['step_s']:.3f} s, anchor eval {r['anchor_s']:.3f} s, TTA peak "
+              f"{r['peak_gib']:.2f} GiB ({r['held_gib']:.2f} held), wall {r['wall_s']:.1f} s; "
+              f"launches {r['launches']} (expected {want})")
+        ok_all = ok_all and r["launches"] == want
+    print(f"[mesh {tag}] one rank alone: train step {ref['step_s']:.3f} s, anchor eval "
+          f"{ref['anchor_s']:.3f} s, TTA peak {ref['peak_gib']:.2f} GiB "
+          f"({ref['held_gib']:.2f} held), wall {ref['wall_s']:.1f} s")
+    if not ok_all:
+        raise AssertionError(f"[mesh {tag}] the mesh run disagrees with one rank")
+
+
+def _clip_for(ranks, i: int) -> str:
+    """The clip of video ``i``: rank 0's when every rank generated every
+    video (context, tensor); under a data mesh each rank generated its
+    lanes, in rank order."""
+    own = ranks[0]["clips"]
+    if len(own) == len(ranks[0]["summary"]["results"]):
+        return own[i]
+    return [p for r in ranks for p in r["clips"]][i]
+
+
+def phase_mesh_runs(fa):
+    """[mesh] (b): the runner at LongCat-13.6B width, [mesh]'s depth cut,
+    2 ranks sharing the card over gloo: --context-mesh 2 and --tensor-mesh
+    2 against the one-rank run of 1 video, --video-parallel 2 --data-mesh 2
+    against the one-rank --video-parallel 2 run of 2 videos. Returns each
+    run's launches summed over its ranks (main-path launches)."""
+    import gc
+
+    import torch
+
+    base = os.path.join(RUN_DIR, "mesh_runs")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    d = MESH["depth"]
+    print(f"[mesh] geometry: {TTA['height']}x{TTA['width']}, {TTA['tta_total_frames']}-frame "
+          f"window, split {tta_split()}; {MESH['steps']} steps, check every "
+          f"{MESH['check_every']}, {MESH['inference_steps']} denoising steps; full width, "
+          f"{d} of 48 blocks; 2 ranks share one card over gloo (no measure of a real mesh)")
+    refs = {}
+    for tag, videos, flags in (("one", 1, []), ("vp", MESH["videos"],
+                                                ["--video-parallel", "2"])):
+        out = os.path.join(base, tag)
+        refs[tag] = mesh_runner(fa, _mesh_argv(out, videos, *flags), out + ".json")
+        gc.collect()
+        torch.cuda.empty_cache()
+    checks = MESH["steps"] // MESH["check_every"]
+    common = dict(steps=MESH["steps"], anchors=1 + checks,
+                  inference_steps=MESH["inference_steps"])
+    totals = {}
+    for tag, kind, videos, flags, ref in (
+            ("context", "context", 1, ["--context-mesh", "2"], refs["one"]),
+            ("tensor", "tensor", 1, ["--tensor-mesh", "2"], refs["one"]),
+            ("data", "data", MESH["videos"], ["--video-parallel", "2", "--data-mesh", "2"],
+             refs["vp"])):
+        out = os.path.join(base, tag)
+        t0 = time.time()
+        spawn_ranks(2, [os.path.abspath(__file__), "--mesh-worker", "runner",
+                        "--mesh-out", out + ".json"], out + "_logs", MESH["timeout_s"],
+                    {"CHIP_SMOKE_ARGV": json.dumps(_mesh_argv(out, videos, *flags))})
+        ranks = []
+        for r in range(2):
+            with open(f"{out}.json.rank{r}") as f:
+                ranks.append(json.load(f))
+            for res in ranks[-1]["summary"]["results"]:
+                if not res["success"]:  # the traceback is in the rank's log
+                    with open(os.path.join(out + "_logs", f"rank{r}.log")) as f:
+                        print(f"[mesh {tag}] rank {r} log tail:\n" + "".join(f.readlines()[-60:]))
+        expected = (mesh_launches("data", d, 2, lanes=1, checks=checks, **common)
+                    if kind == "data" else mesh_launches(kind, d, 2, **common))
+        check_mesh_run(tag, ranks, ref, expected)
+        print(f"[mesh {tag}] {time.time() - t0:.1f} s with the ranks' start")
+        for r in ranks:
+            for k, n in r["launches"].items():
+                totals[k] = totals.get(k, 0) + n
+    return totals
+
+
+def tp_small_check(cfg, seed: int, mesh):
+    """One small backbone under tensor parallelism against the same model
+    on this rank alone: the forward (relative L2) and one delta_a step's
+    loss and delta gradient. The sharded model is drawn tensor by tensor
+    into its shards from the same seed."""
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.archs import get_arch
+    from longcat_video_tta_tpu_torch.config import AdapterConfig
+    from longcat_video_tta_tpu_torch.models.weights import init_random
+    from longcat_video_tta_tpu_torch.tta.adapters import build_scheme
+
+    dev = mesh.device
+    draw = lambda m: init_random(cfg, dev, torch.Generator(device=dev).manual_seed(seed),
+                                 m)[0]
+    one, tp = draw(None), draw(mesh)
+    rng = np.random.default_rng(seed)
+    t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    C, D = cfg.vae.z_dim, cfg.dit  # 16 latent channels
+    cond, target, noise = t(1, C, 2, 8, 16), t(1, C, 1, 8, 16), t(1, C, 1, 8, 16)
+    if cfg.arch == "mmdit":  # noise on the target; CogVideoX noises the whole window
+        emb, mask = t(1, 16, D.context_in_dim), t(1, D.vec_in_dim)
+        fwd = lambda m: m(t(1, C, 3, 8, 16), torch.full((1,), 0.6, device=dev), emb, mask)
+    else:
+        emb, mask = t(1, 16, D.text_dim), None
+        noise = t(1, C, 3, 8, 16)
+        fwd = lambda m: m(t(1, C, 3, 8, 16), torch.full((1,), 600.0, device=dev), emb,
+                          t(1, C, 3, 8, 16))
+    state = rng.bit_generator.state
+    out = []
+    for m in (one, tp):
+        rng.bit_generator.state = state
+        with torch.no_grad():
+            y = fwd(m).double()
+        scheme = build_scheme(D, AdapterConfig(method="delta_a"))
+        leaves = {k: (v + 0.01).requires_grad_(True)
+                  for k, v in scheme.init(dev, dit=m).items()}
+        fwd_dit, ad = scheme.to_forward(leaves, m)
+        loss = get_arch(cfg.arch).loss(fwd_dit, cond, target, emb, mask, adapters=ad,
+                                       sigma=torch.full((1,), 0.6, device=dev), noise=noise)
+        (g,) = torch.autograd.grad(loss, list(leaves.values()))
+        out.append((y, float(loss), g.double().flatten()))
+    (y1, l1, g1), (y2, l2, g2) = out
+    rel = float((y2 - y1).norm() / y1.norm())
+    cos = float(g1 @ g2 / (g1.norm() * g2.norm()))
+    return dict(arch=cfg.arch, rank=mesh.rank, fwd_rel_l2=rel, loss_one=l1, loss_tp=l2,
+                loss_rel=abs(l2 - l1) / abs(l1), grad_cos=cos,
+                ok=(rel <= MESH["tp_fwd_rel_l2"] and abs(l2 - l1) / abs(l1) <= MESH["tp_loss_rtol"]
+                    and cos >= MESH["tp_cos_min"]))
+
+
+def mesh_worker(task: str, out_dir: str) -> int:
+    """A rank process of [mesh] (``--mesh-worker``): join the process group
+    from torchrun's variables and run ``task``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from longcat_video_tta_tpu_torch.parallel import init_distributed
+
+    assert init_distributed(device="cuda")
+    rank = int(os.environ["RANK"])
+    if task == "ring":
+        for case in json.loads(os.environ["CHIP_SMOKE_CASES"]):
+            mesh_ring_worker(case, os.path.join(out_dir, f"{case['name']}.rank{rank}.json"))
+        # (c): the small MMDiT and CogVideoX under --tensor-mesh 2
+        from longcat_video_tta_tpu_torch.config import MeshConfig
+        from longcat_video_tta_tpu_torch.parallel import build_mesh
+
+        if int(os.environ["WORLD_SIZE"]) == 2:
+            mesh = build_mesh(MeshConfig(tensor=2), device="cuda")
+            recs = [tp_small_check(cfg, 17, mesh)
+                    for cfg in (opensora_small_config(), cogvideox_small_config())]
+            with open(os.path.join(out_dir, f"tp_small.rank{rank}.json"), "w") as f:
+                json.dump(recs, f)
+    elif task == "runner":
+        from longcat_video_tta_tpu_torch.ops import flash_attention as fa
+
+        mesh_runner(fa, json.loads(os.environ["CHIP_SMOKE_ARGV"]), out_dir)
+    else:
+        raise ValueError(f"unknown mesh task {task!r}")
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh(fa, dit_cfg, tokens_per_frame):
+    """[mesh]: (a) the chunk rows and the ring in 2 and 4 ranks, with (c)
+    the small MMDiT and CogVideoX under tensor parallelism in the 2-rank
+    world; (b) the runner's three meshes at 13.6B width. Returns (forward
+    rows, backward rows, the runner runs' launches)."""
+    fwd_rows, bwd_rows = phase_mesh_kernels(fa, dit_cfg, tokens_per_frame)
+    out_dir = os.path.join(RUN_DIR, "mesh_ring")
+    bad = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"tp_small.rank{r}.json")) as f:
+            for rec in json.load(f):
+                print(f"[mesh-tp-small] {json.dumps(rec)}")
+                bad += [] if rec["ok"] else [rec]
+    if bad:
+        raise AssertionError(f"tensor parallelism disagrees with one rank: {bad}")
+    return fwd_rows, bwd_rows, phase_mesh_runs(fa)
+
+
 def print_build(fa):
     spills = []
     for path, log, seconds in fa.build_libraries():
@@ -4381,9 +5111,14 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="development: run the build and these comma-separated phases "
                          "(checkpoint, remat, bucket, eval, kernel, bwd, opensora, cogvideox, "
-                         "t2v, vbench, vp, flags, tools; tools runs after vp) "
+                         "t2v, vbench, vp, flags, tools, mesh; tools runs after vp) "
                          "and print no result")
-    only = [x for x in ap.parse_args(argv).only.split(",") if x]
+    ap.add_argument("--mesh-worker", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", default="", help=argparse.SUPPRESS)
+    opts = ap.parse_args(argv)
+    if opts.mesh_worker:  # a rank process of [mesh]
+        return mesh_worker(opts.mesh_worker, opts.mesh_out)
+    only = [x for x in opts.only.split(",") if x]
     try:
         import torch
     except ImportError:
@@ -4426,15 +5161,23 @@ def main(argv=None) -> int:
     cfg = longcat_13b()
     sf = cfg.vae.spatial_factor * cfg.dit.patch_size[1]
     tokens_per_frame = (MAIN["height"] // sf) * (MAIN["width"] // sf)
+    import dataclasses
+
+    cut = dataclasses.replace(cfg.dit, depth=CUT_DEPTH)
     if only:  # a development run of the named phases alone: no result lines
-        phases = {"checkpoint": (phase_checkpoint_path, fa), "remat": (phase_remat_path, fa),
-                  "bucket": (phase_bucket_path, fa), "eval": (phase_eval, fa, cfg.dit.depth, smi),
+        phases = {"checkpoint": (at_cut_depth(phase_checkpoint_path), fa),
+                  "remat": (phase_remat_path, fa),
+                  "bucket": (phase_bucket_path, fa),
+                  "eval": (at_cut_depth(phase_eval), fa, CUT_DEPTH, smi),
                   "kernel": (phase_kernel_checks, fa, cfg.dit, tokens_per_frame),
                   "bwd": (phase_bwd_kernel_checks, fa, cfg.dit, tokens_per_frame),
                   "opensora": (phase_opensora, fa), "cogvideox": (phase_cogvideox, fa),
-                  "t2v": (phase_t2v, fa, cfg.dit, tokens_per_frame),
-                  "vbench": (phase_vbench, fa, bsa, cfg.dit.depth, smi),
-                  "vp": (phase_vp, fa, cfg.dit, tokens_per_frame), "flags": (phase_flags, fa)}
+                  "t2v": (at_cut_depth(phase_t2v), fa, cut, tokens_per_frame),
+                  "vbench": (at_cut_depth(phase_vbench), fa, bsa, CUT_DEPTH, smi),
+                  "vp": (at_cut_depth(phase_vp), fa, cut, tokens_per_frame),
+                  "flags": (phase_flags, fa),
+                  "mesh": (phase_mesh, fa, cfg.dit, tokens_per_frame),
+                  "mesh_runs": (phase_mesh_runs, fa)}
         done = {}
         for name in only:
             if name == "tools":  # on [vp]'s run folders
@@ -4456,27 +5199,30 @@ def main(argv=None) -> int:
     tta = timed_phase("delta_a path", phase_tta_path, fa, cfg.dit.depth)
     levers = {}
     for run in LEVER_RUNS:
-        levers[run], gen_times = timed_phase(f"lever run {run}", phase_lever_path, fa, bsa,
-                                             run, cfg.dit.depth)
+        levers[run], gen_times = timed_phase(f"lever run {run}", at_cut_depth(phase_lever_path),
+                                             fa, bsa, run, CUT_DEPTH)
         print(f"[lever {run}] gen_time per request {gen_times} s; dense serving path "
               f"(5 cond, 8 generated frames, 4 steps) {[g for g, _ in serving_gen]} s")
     methods = {m: timed_phase(f"method run {m}", phase_method_path, fa, m)
                for m in METHOD_RUNS}
-    ckpt_launches = timed_phase("checkpoint path", phase_checkpoint_path, fa)
+    ckpt_launches = timed_phase("checkpoint path", at_cut_depth(phase_checkpoint_path), fa)
     _, remat_run = timed_phase("remat path", phase_remat_path, fa)
     bucket_run = timed_phase("bucket path", phase_bucket_path, fa)
-    _, eval_run = timed_phase("eval", phase_eval, fa, cfg.dit.depth, smi)
+    _, eval_run = timed_phase("eval", at_cut_depth(phase_eval), fa, CUT_DEPTH, smi)
     os_fwd, os_bwd, os_run = timed_phase("opensora", phase_opensora, fa)
     cv_fwd, cv_bwd, cv_run = timed_phase("cogvideox", phase_cogvideox, fa)
-    t2v_cases, t2v_fwd, t2v_gen = timed_phase("t2v", phase_t2v, fa, cfg.dit, tokens_per_frame)
+    t2v_cases, t2v_fwd, t2v_gen = timed_phase("t2v", at_cut_depth(phase_t2v), fa, cut,
+                                              tokens_per_frame)
     print(f"[t2v] gen_time per request {t2v_gen} s")
-    _, sweep_run = timed_phase("vbench", phase_vbench, fa, bsa, cfg.dit.depth, smi)
-    vp_fwd, vp_bwd, vp_run, vp_runs = timed_phase("vp", phase_vp, fa, cfg.dit,
+    _, sweep_run = timed_phase("vbench", at_cut_depth(phase_vbench), fa, bsa, CUT_DEPTH, smi)
+    vp_fwd, vp_bwd, vp_run, vp_runs = timed_phase("vp", at_cut_depth(phase_vp), fa, cut,
                                                   tokens_per_frame)
     flags_run = timed_phase("flags", phase_flags, fa)
     timed_phase("tools", phase_tools, vp_runs)
-    cases += os_fwd + cv_fwd + t2v_cases + vp_fwd
-    bwd_cases += os_bwd + cv_bwd + vp_bwd
+    mesh_fwd, mesh_bwd, mesh_run = timed_phase("mesh", phase_mesh, fa, cfg.dit,
+                                               tokens_per_frame)
+    cases += os_fwd + cv_fwd + t2v_cases + vp_fwd + mesh_fwd
+    bwd_cases += os_bwd + cv_bwd + vp_bwd + mesh_bwd
     print(f"[time] all phases {time.time() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, all_cases):
@@ -4497,7 +5243,7 @@ def main(argv=None) -> int:
     train_sum = lambda name: (tta[name] + sum(m[name] for m in methods.values())
                               + remat_run[name] + bucket_run[name] + eval_run[name]
                               + os_run[name] + cv_run[name] + vp_run[name]
-                              + flags_run[name])
+                              + flags_run[name] + mesh_run[name])
     kernels = [
         entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:133",
               serving_launches + ckpt_launches + t2v_fwd + train_sum("flash_fwd")

@@ -17,7 +17,7 @@ class Arch:
     dit_cls: type
     fill: Callable             # (empty DiT, Getter) -> None
     from_numpy: Callable       # (reference tree, dit cfg, device) -> DiT
-    from_checkpoint: Callable  # (dit/ folder, dit cfg, device) -> DiT
+    from_checkpoint: Callable  # (dit/ folder, dit cfg, device, mesh=) -> DiT
     quantize: Callable         # DiT -> its W8A8 decode copy
     loss: Callable             # the conditioned flow-matching loss
     anchor: Callable           # its fixed-draw version (the anchor)

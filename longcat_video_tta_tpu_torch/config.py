@@ -640,6 +640,20 @@ class OnlineEvalConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Process mesh: data x context x tensor axes (the reference's
+    ``config.MeshConfig``); one rank per mesh point."""
+
+    data: int = 1
+    context: int = 1
+    tensor: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.context * self.tensor
+
+
+@dataclass(frozen=True)
 class CaptionGuardConfig:
     mode: str = "fail"  # "fail" | "warn" | "off"
     min_nonempty_ratio: float = 0.95

@@ -47,11 +47,13 @@ from ..ops.layers import (
     lane_rows,
     layer_norm,
     linear,
+    shared_in_group,
     mlp_embedder,
     remat_wrap,
     rope_3d_angles,
     timestep_embedding,
 )
+from ..parallel.sharding import tp_size
 from .dit import _Norm, block_slice
 from .mmdit import _embedder, pack_latents, unpack_tokens
 
@@ -116,7 +118,7 @@ class CogVideoXBlock(nn.Module):
         cfg = self.cfg
         B, L = txt.shape[:2]
         S = vid.shape[1]
-        nH, dh = cfg.num_heads, cfg.head_dim
+        nH, dh = cfg.num_heads // tp_size(self.attn.to_q), cfg.head_dim
         lora = lora or {}
         vid_n, txt_n, g, eg = self.norm1(temb, vid, txt)
         if pab_cached is not None:
@@ -126,8 +128,9 @@ class CogVideoXBlock(nn.Module):
             joint = torch.cat([txt_n, vid_n], dim=1)
             q, k, v = (linear(getattr(a, name), joint, lora.get(name), lscale).reshape(
                 B, L + S, nH, dh) for name in ("to_q", "to_k", "to_v"))
-            q = layer_norm(q, a.norm_q.weight, a.norm_q.bias, eps=cfg.norm_eps)
-            k = layer_norm(k, a.norm_k.weight, a.norm_k.bias, eps=cfg.norm_eps)
+            sh = lambda t: shared_in_group(t, a.to_q)  # per-head norms on head shards
+            q = layer_norm(q, sh(a.norm_q.weight), sh(a.norm_q.bias), eps=cfg.norm_eps)
+            k = layer_norm(k, sh(a.norm_k.weight), sh(a.norm_k.bias), eps=cfg.norm_eps)
             T = cos.shape[0]
 
             def rope_vid(t):  # RoPE on the video tokens only

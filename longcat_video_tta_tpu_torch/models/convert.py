@@ -408,32 +408,42 @@ def vae_tree(src: _Source, cfg: VAEConfig) -> Dict:
     }
 
 
-def _load(folder: str, cls, cfg, fill, tree_fn, what: str, device, **kw):
+def _load(folder: str, cls, cfg, fill, tree_fn, what: str, device, mesh=None,
+          arch: str = "longcat", **kw):
+    """``cls`` filled from ``folder``'s shards, tensor by tensor. With a
+    ``mesh`` that has a tensor axis the module's linears are this rank's
+    slices (``models/weights.py::_empty``): each full tensor is read,
+    sliced and dropped before the next is read."""
     sd = ShardIndex(folder)
-    m = _empty(cls, cfg, device)
+    m = _empty(cls, cfg, device, mesh, arch)
     fill(m, tree_getter(tree_fn(_Source(sd, device), cfg, **kw)))
     sd.assert_fully_consumed(what)
     return m
 
 
 def load_dit_checkpoint(folder: str, cfg: DiTConfig, device="cuda",
-                        rope_interleaved: bool = False) -> LongCatDiT:
-    """The LongCat DiT of a checkpoint's ``dit/`` shard folder."""
+                        rope_interleaved: bool = False, mesh=None) -> LongCatDiT:
+    """The LongCat DiT of a checkpoint's ``dit/`` shard folder (with a
+    ``mesh``, this rank's)."""
     return _load(folder, LongCatDiT, cfg, _fill_dit, dit_tree, "LongCat DiT", device,
-                 rope_interleaved=rope_interleaved)
+                 mesh, "longcat", rope_interleaved=rope_interleaved)
 
 
-def load_mmdit_checkpoint(folder: str, cfg: MMDiTConfig, device="cuda") -> MMDiT:
-    """The Open-Sora v2 MMDiT of a checkpoint's ``dit/`` shard folder."""
-    return _load(folder, MMDiT, cfg, _fill_mmdit, mmdit_tree, "Open-Sora MMDiT", device)
+def load_mmdit_checkpoint(folder: str, cfg: MMDiTConfig, device="cuda",
+                          mesh=None) -> MMDiT:
+    """The Open-Sora v2 MMDiT of a checkpoint's ``dit/`` shard folder (with
+    a ``mesh``, this rank's)."""
+    return _load(folder, MMDiT, cfg, _fill_mmdit, mmdit_tree, "Open-Sora MMDiT", device,
+                 mesh, "mmdit")
 
 
 def load_cogvideox_checkpoint(folder: str, cfg: CogVideoXConfig,
-                              device="cuda") -> CogVideoX:
+                              device="cuda", mesh=None) -> CogVideoX:
     """The CogVideoX of a checkpoint's ``dit/`` shard folder (a diffusers
-    ``CogVideoXTransformer3DModel`` state dict). A ``pos_embedding`` in the
-    folder is applied, as the reference's converter applies it: the module
-    gets a learned table of its length when the config has none."""
+    ``CogVideoXTransformer3DModel`` state dict; with a ``mesh``, this
+    rank's). A ``pos_embedding`` in the folder is applied, as the
+    reference's converter applies it: the module gets a learned table of
+    its length when the config has none."""
     import dataclasses
 
     sd = ShardIndex(folder)
@@ -441,7 +451,7 @@ def load_cogvideox_checkpoint(folder: str, cfg: CogVideoXConfig,
     if cfg.learned_pos_embed_len == 0 and key in sd:
         cfg = dataclasses.replace(cfg, learned_pos_embed_len=sd[key].shape[-2])
     return _load(folder, CogVideoX, cfg, _fill_cogvideox, cogvideox_tree, "CogVideoX",
-                 device)
+                 device, mesh, "cogvideox")
 
 
 def load_clip_text_checkpoint(folder: str, cfg: CLIPTextConfig, device="cuda"):

@@ -36,11 +36,23 @@ block when ``cfg.remat``.
 Parameter names follow the reference's parameter tree (``x_embed``,
 ``blocks[i].attn.qkv`` ...) so ``models/weights.py`` maps one onto the
 other. Linear weights are stored [out, in] (``nn.Linear``).
+
+Under a mesh (``self.mesh``, ``parallel/``): with a context axis the
+flattened video tokens (S = nt * nh * nw) shard contiguously over its
+ranks from the patch embedding to the final layer (a shard is held as
+[B, S / P, 1, D], the RoPE tables and the per-frame modulation taken at
+its global token range), self-attention runs the ring
+(``parallel/context_attention.py``), cross-attention takes the shard's
+queries against the whole text, and the tokens are gathered once, at
+unpatchify: every rank returns the whole output. With a tensor axis the
+block linears are Megatron-sharded (``parallel/sharding.py``) and the
+attentions run at heads / T. BSA does not compose with a context axis,
+as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,8 +61,12 @@ from torch import nn
 from ..config import BSAConfig, DiTConfig, resolve_dtype
 from ..ops.attention import attention
 from ..ops.bsa import bsa_attention, decode_top_k
+from ..parallel.collectives import gather_from_group, group_rank, group_size
+from ..parallel.context_attention import ring_self_attention
+from ..parallel.sharding import tp_size
 from ..ops.layers import (
     apply_rope,
+    shared_in_group,
     lane_rows,
     layer_norm,
     linear,
@@ -73,6 +89,36 @@ def block_slice(t: torch.Tensor, ndim: int, i: int) -> torch.Tensor:
     """Block ``i`` of a per-block stack of rank ``ndim`` ([depth, ...]),
     or of its lane form ([V, depth, ...] -> [V, ...])."""
     return t[i] if t.ndim == ndim else t[:, i]
+
+
+class TokenShard(NamedTuple):
+    """This rank's contiguous share of the flattened tokens under a context
+    group: global tokens [start, start + length), ``nhw`` tokens per latent
+    frame."""
+
+    group: object
+    start: int
+    length: int
+    nhw: int
+
+
+def _per_token(tokens: Optional[TokenShard]):
+    """m [B, nt, X] -> its broadcast over the block's token layout:
+    [B, nt, 1, X], or per token of the shard [B, S / P, 1, X]: the shard's
+    frames broadcast over their tokens and sliced, so that the backward
+    sums each frame's tokens in one reduction (an index gather's backward
+    would add them one by one in the 16-bit dtype)."""
+    if tokens is None:
+        return lambda m: m[:, :, None, :]
+    f0 = tokens.start // tokens.nhw
+    f1 = (tokens.start + tokens.length - 1) // tokens.nhw + 1
+    off = tokens.start - f0 * tokens.nhw
+
+    def expand(m):
+        B, X = m.shape[0], m.shape[-1]
+        per = m[:, f0:f1, None, :].expand(B, f1 - f0, tokens.nhw, X)
+        return per.reshape(B, (f1 - f0) * tokens.nhw, X)[:, off:off + tokens.length, None]
+    return expand
 
 
 def patchify(x: torch.Tensor, patch: Tuple[int, int, int]) -> torch.Tensor:
@@ -117,23 +163,26 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, rope_cos, rope_sin, num_cond_tokens: int,
                 kv_cache: Optional[KVCache] = None, kv_valid: Optional[int] = None,
-                bsa_cfg: Optional[BSAConfig] = None, lora=None, lora_scale=None):
+                bsa_cfg: Optional[BSAConfig] = None, lora=None, lora_scale=None,
+                cp=None):
         """x: [B, nt, nhw, D]. ``kv_cache``: optional (k, v)
         [B, S_c, nH, dh] prepended to the keys (decode path). Keys at
         index >= ``kv_valid`` are masked. With ``bsa_cfg`` the decode path
         runs block-sparse attention (``ops/bsa.py``): the cached
-        conditioning blocks stay exact. Returns (out, (k, v) of this
-        call's tokens)."""
+        conditioning blocks stay exact. ``cp``: the context group; x is
+        this rank's token shard, the cache its shard of the cache, and
+        the attention runs the ring. Returns (out, (k, v) of this call's
+        tokens)."""
         cfg = self.cfg
         lora = lora or {}
         B, nt, nhw, D = x.shape
-        nH, dh = cfg.num_heads, cfg.head_dim
+        nH, dh = cfg.num_heads // tp_size(self.qkv), cfg.head_dim
         qkv = linear(self.qkv, x, lora.get("qkv"), lora_scale).reshape(
             B, nt, nhw, 3, nH, dh)
         q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
         if cfg.qk_norm:
-            q = rms_norm(q, self.q_norm)
-            k = rms_norm(k, self.k_norm)
+            q = rms_norm(q, shared_in_group(self.q_norm, self.qkv))
+            k = rms_norm(k, shared_in_group(self.k_norm, self.qkv))
         q = apply_rope(q, rope_cos, rope_sin)
         k = apply_rope(k, rope_cos, rope_sin)
         S = nt * nhw
@@ -141,6 +190,14 @@ class SelfAttention(nn.Module):
         k = k.reshape(B, S, nH, dh)
         v = v.reshape(B, S, nH, dh)
         kv_out = (k, v)
+        if cp is not None:
+            if bsa_cfg is not None:
+                raise ValueError("bsa_cfg does not compose with context parallelism: "
+                                 "block selection is local to one rank")
+            o = ring_self_attention(q, k, v, cp, num_cond_tokens=num_cond_tokens,
+                                    kv_valid=kv_valid, cache=kv_cache)
+            return linear(self.proj, o.reshape(B, nt, nhw, nH * dh), lora.get("attn_proj"),
+                          lora_scale), kv_out
         if kv_cache is not None:
             k = torch.cat([kv_cache[0].to(k.dtype), k], dim=1)
             v = torch.cat([kv_cache[1].to(v.dtype), v], dim=1)
@@ -154,7 +211,7 @@ class SelfAttention(nn.Module):
         else:
             o = attention(q, k, v, num_cond_tokens=num_cond_tokens,
                           kv_valid_len=kv_valid)
-        return linear(self.proj, o.reshape(B, nt, nhw, D), lora.get("attn_proj"),
+        return linear(self.proj, o.reshape(B, nt, nhw, nH * dh), lora.get("attn_proj"),
                       lora_scale), kv_out
 
 
@@ -176,7 +233,7 @@ class CrossAttention(nn.Module):
         cfg = self.cfg
         lora = lora or {}
         B, nt, nhw, D = x.shape
-        nH, dh = cfg.num_heads, cfg.head_dim
+        nH, dh = cfg.num_heads // tp_size(self.q), cfg.head_dim
         L = y.shape[1]
         q = linear(self.q, x, lora.get("xattn_q"), lora_scale).reshape(
             B, nt * nhw, nH, dh)
@@ -184,10 +241,10 @@ class CrossAttention(nn.Module):
             B, L, 2, nH, dh)
         k, v = kv[:, :, 0], kv[:, :, 1]
         if cfg.cross_qk_norm:
-            q = rms_norm(q, self.q_norm)
-            k = rms_norm(k, self.k_norm)
+            q = rms_norm(q, shared_in_group(self.q_norm, self.q))
+            k = rms_norm(k, shared_in_group(self.k_norm, self.q))
         o = attention(q, k, v)
-        return linear(self.proj, o.reshape(B, nt, nhw, D), lora.get("xattn_proj"),
+        return linear(self.proj, o.reshape(B, nt, nhw, nH * dh), lora.get("xattn_proj"),
                       lora_scale)
 
 
@@ -220,7 +277,7 @@ class DiTBlock(nn.Module):
                 kv_cache: Optional[KVCache] = None, kv_valid: Optional[int] = None,
                 bsa_cfg: Optional[BSAConfig] = None,
                 pab_cached: Optional[torch.Tensor] = None,
-                ad: Optional[Dict] = None):
+                ad: Optional[Dict] = None, tokens: Optional["TokenShard"] = None):
         """One block. Returns (x_out, (k, v) of this call's tokens or None,
         the self-attention output). ``ad``: this block's slice of the
         adapter dict (``_block_adapters``), applied in the reference's
@@ -230,7 +287,10 @@ class DiTBlock(nn.Module):
         ``pab_cached`` (Pyramid Attention Broadcast, arXiv:2408.12588):
         when given, it is taken as the self-attention output and the
         attention is skipped; the caller's cache holds the output of the
-        block's last computed step. Cross-attention is never broadcast."""
+        block's last computed step. Cross-attention is never broadcast.
+
+        ``tokens``: this rank's token shard under a context group (x is
+        [B, S / P, 1, D]; the per-frame modulation is taken per token)."""
         ad = ad or {}
         B = x.shape[0]
         if ad.get("delta_t_blocks") is not None:
@@ -241,7 +301,8 @@ class DiTBlock(nn.Module):
         lora, lora_scale = ad.get("lora") or {}, ad.get("lora_scale", 1.0)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
             mod.chunk(6, dim=-1)
-        e = lambda m: m[:, :, None, :]  # per-latent-frame, broadcast over hw
+        e = _per_token(tokens)  # per-latent-frame, broadcast over hw
+        cp = None if tokens is None else tokens.group
 
         h = modulate(layer_norm(x), e(shift_msa), e(scale_msa))
         if pab_cached is not None:
@@ -249,7 +310,8 @@ class DiTBlock(nn.Module):
         else:
             attn_out, kv = self.attn(h, rope_cos, rope_sin, num_cond_tokens,
                                      kv_cache=kv_cache, kv_valid=kv_valid,
-                                     bsa_cfg=bsa_cfg, lora=lora, lora_scale=lora_scale)
+                                     bsa_cfg=bsa_cfg, lora=lora, lora_scale=lora_scale,
+                                     cp=cp)
         x = x + e(gate_msa) * attn_out
 
         h = layer_norm(x, self.pre_crs_norm.weight, self.pre_crs_norm.bias)
@@ -289,11 +351,42 @@ class LongCatDiT(nn.Module):
             "adaln": nn.Linear(Ct, 2 * D, dtype=pdtype),
             "proj": nn.Linear(D, out_dim, dtype=pdtype),
         })
+        self.mesh = None  # parallel.Mesh: context / tensor axes (module docstring)
+
+    def _shard(self, nt: int, nhw: int) -> Optional[TokenShard]:
+        """This rank's token shard under the mesh's context axis, or None."""
+        mesh = self.mesh
+        group = None if mesh is None else mesh.group("context")
+        if group is None:
+            return None
+        S, n = nt * nhw, group_size(group)
+        if S % n:
+            raise ValueError(f"{S} video tokens do not shard over {n} context ranks "
+                             f"(the spatial token count must divide by {n})")
+        m = S // n
+        return TokenShard(group, group_rank(group) * m, m, nhw)
+
+    @staticmethod
+    def _local(x: torch.Tensor, tokens: Optional[TokenShard]) -> torch.Tensor:
+        """[B, nt, nhw, ...] -> this rank's tokens [B, S / P, 1, ...] (a view
+        when ``x`` is contiguous)."""
+        if tokens is None:
+            return x
+        B, nt, nhw = x.shape[:3]
+        flat = x.reshape((B, nt * nhw) + tuple(x.shape[3:]))
+        return flat[:, tokens.start:tokens.start + tokens.length, None]
+
+    def _local_rope(self, cos, sin, tokens: Optional[TokenShard]):
+        if tokens is None:
+            return cos, sin
+        return (self._local(cos[None], tokens)[0], self._local(sin[None], tokens)[0])
 
     # ------------------------------------------------------------------
     def _embed_inputs(self, latents, timesteps, text_emb, text_mask,
                       adapters: AdapterDict = None):
-        """Returns (x [B,nt,nhw,D], t_emb fp32 [B,nt,Ct], y [B,L,D], dims)."""
+        """Returns (x [B,nt,nhw,D], t_emb fp32 [B,nt,Ct], y [B,L,D], dims,
+        token shard). Under a context group x is this rank's shard
+        [B, S / P, 1, D] (``_shard``)."""
         cfg = self.cfg
         unported = sorted(set(adapters or {}) - set(PORTED_ADAPTERS))
         if unported:
@@ -308,7 +401,9 @@ class LongCatDiT(nn.Module):
                              f"{cfg.patch_size}")
         nt, nh, nw = T // pt, H // ph, W // pw
 
-        x = linear(self.x_embed, patchify(latents.to(cdtype), cfg.patch_size))
+        tokens = self._shard(nt, nh * nw)
+        x = linear(self.x_embed, self._local(patchify(latents.to(cdtype), cfg.patch_size),
+                                             tokens))
         if timesteps.ndim == 1:
             timesteps = timesteps[:, None].expand(B, nt)
         feats = timestep_embedding(timesteps, cfg.t_embed_freq_dim)
@@ -323,11 +418,13 @@ class LongCatDiT(nn.Module):
         y = linear(self.y_embed["out"], y)
         if cfg.text_tokens_zero_pad and text_mask is not None:
             y = y * text_mask.to(y.dtype)[:, :, None]
-        return x, t_emb, y, (nt, nh, nw)
+        return x, t_emb, y, (nt, nh, nw), tokens
 
-    def _final_layer(self, x, t_emb, nt, nh, nw, adapters: AdapterDict = None):
+    def _final_layer(self, x, t_emb, nt, nh, nw, adapters: AdapterDict = None,
+                     tokens: Optional[TokenShard] = None):
         """delta_h_final before the final adaLN layer, delta_out after
-        unpatchify in the compute dtype, then the cast to fp32."""
+        unpatchify in the compute dtype, then the cast to fp32. Under a
+        context group the shards are gathered before unpatchify."""
         cfg = self.cfg
         adapters = adapters or {}
         B = x.shape[0]
@@ -335,8 +432,11 @@ class LongCatDiT(nn.Module):
             x = x + lane_rows(adapters["delta_h_final"].to(x.dtype), 1, B)[:, None, None, :]
         mod = linear(self.final["adaln"], F.silu(t_emb).to(x.dtype))
         shift, scale = mod.chunk(2, dim=-1)
-        h = modulate(layer_norm(x), shift[:, :, None, :], scale[:, :, None, :])
+        e = _per_token(tokens)
+        h = modulate(layer_norm(x), e(shift), e(scale))
         h = linear(self.final["proj"], h)
+        if tokens is not None:
+            h = gather_from_group(h.reshape(B, tokens.length, -1), tokens.group, 1)
         out = unpatchify(h, cfg.patch_size, nt, nh, nw, cfg.out_channels)
         if "delta_out" in adapters:
             out = out + lane_rows(adapters["delta_out"].to(out.dtype), 1, B)[
@@ -369,7 +469,7 @@ class LongCatDiT(nn.Module):
     # ------------------------------------------------------------------
     def _decode_blocks(self, x, t_emb, y, cos, sin, num_cond_tokens, *,
                        kv_cache, kv_valid, bsa_cfg, pab_reuse, pab_cache,
-                       cache_cond_half, block_ads):
+                       cache_cond_half, block_ads, tokens=None):
         """The block loop of the sampling forwards (no autograd).
 
         ``pab_cache`` ([depth, B_cache, nt, nhw, D]) is read when
@@ -377,17 +477,18 @@ class LongCatDiT(nn.Module):
         ``cache_cond_half`` the inputs carry the conditional half of the
         CFG batch only, and each block reads the last ``B`` rows of its
         KV-cache and PAB-cache entries: ``a[-B:]`` is a view, so no
-        half-batch copy of either cache is made."""
+        half-batch copy of either cache is made. Under a context group each
+        rank reads and writes its tokens' view of the PAB cache."""
         nb = x.shape[0]
         half = (lambda a: a[a.shape[0] - nb:]) if cache_cond_half else (lambda a: a)
         for i, blk in enumerate(self.blocks):
             kv = None if kv_cache is None else (half(kv_cache[0][i]),
                                                 half(kv_cache[1][i]))
-            slot = None if pab_cache is None else half(pab_cache[i])
+            slot = None if pab_cache is None else self._local(half(pab_cache[i]), tokens)
             x, _, attn_out = blk(x, t_emb, y, cos, sin, num_cond_tokens,
                                  kv_cache=kv, kv_valid=kv_valid, bsa_cfg=bsa_cfg,
                                  pab_cached=slot if pab_reuse else None,
-                                 ad=block_ads[i])
+                                 ad=block_ads[i], tokens=tokens)
             if slot is not None and not pab_reuse:
                 slot.copy_(attn_out)
         return x
@@ -405,9 +506,9 @@ class LongCatDiT(nn.Module):
         ``pab_cache`` / ``cache_cond_half``: PAB on this path (t2v
         sampling), as in ``forward_with_cache``."""
         cfg = self.cfg
-        x, t_emb, y, (nt, nh, nw) = self._embed_inputs(
+        x, t_emb, y, (nt, nh, nw), tokens = self._embed_inputs(
             latents, timesteps, text_emb, text_mask, adapters)
-        cos, sin = self._rope(nt, nh, nw, latents.device)
+        cos, sin = self._local_rope(*self._rope(nt, nh, nw, latents.device), tokens)
         num_cond_tokens = (num_cond_latents // cfg.patch_size[0]) * nh * nw
         kv_valid = None
         if num_valid_latents is not None:
@@ -418,18 +519,18 @@ class LongCatDiT(nn.Module):
                                     kv_cache=None, kv_valid=kv_valid, bsa_cfg=None,
                                     pab_reuse=pab_reuse, pab_cache=pab_cache,
                                     cache_cond_half=cache_cond_half,
-                                    block_ads=block_ads)
-            return self._final_layer(x, t_emb, nt, nh, nw, adapters)
+                                    block_ads=block_ads, tokens=tokens)
+            return self._final_layer(x, t_emb, nt, nh, nw, adapters, tokens)
 
         def block(blk, x, t_emb, ad):
             return blk(x, t_emb, y, cos, sin, num_cond_tokens, kv_valid=kv_valid,
-                       ad=ad)[0]
+                       ad=ad, tokens=tokens)[0]
 
         body = remat_wrap(block, cfg.remat and torch.is_grad_enabled(),
                           cfg.remat_policy)
         for blk, ad in zip(self.blocks, block_ads):
             x = body(blk, x, t_emb, ad)
-        return self._final_layer(x, t_emb, nt, nh, nw, adapters)
+        return self._final_layer(x, t_emb, nt, nh, nw, adapters, tokens)
 
     def precompute_cond_cache(self, cond_latents, text_emb, text_mask=None, *,
                               adapters: AdapterDict = None) -> KVCache:
@@ -438,13 +539,14 @@ class LongCatDiT(nn.Module):
         [depth, B, S_cond, heads, head_dim]."""
         B = cond_latents.shape[0]
         t0 = torch.zeros((B,), dtype=torch.float32, device=cond_latents.device)
-        x, t_emb, y, (nt, nh, nw) = self._embed_inputs(
+        x, t_emb, y, (nt, nh, nw), tokens = self._embed_inputs(
             cond_latents, t0, text_emb, text_mask, adapters)
-        cos, sin = self._rope(nt, nh, nw, cond_latents.device)
+        cos, sin = self._local_rope(*self._rope(nt, nh, nw, cond_latents.device), tokens)
         num_cond_tokens = nt * nh * nw  # every token is conditioning here
         k_all = v_all = None
         for i, (blk, ad) in enumerate(zip(self.blocks, self._block_adapters(adapters))):
-            x, (k, v), _ = blk(x, t_emb, y, cos, sin, num_cond_tokens, ad=ad)
+            x, (k, v), _ = blk(x, t_emb, y, cos, sin, num_cond_tokens, ad=ad,
+                               tokens=tokens)
             if k_all is None:
                 k_all = k.new_empty((len(self.blocks),) + tuple(k.shape))
                 v_all = v.new_empty((len(self.blocks),) + tuple(v.shape))
@@ -475,21 +577,24 @@ class LongCatDiT(nn.Module):
         place. ``cache_cond_half``: the CFG-reuse conditional-only forward;
         ``kv_cache`` and ``pab_cache`` carry the full CFG batch and each
         block uses their second (conditional) half."""
-        x, t_emb, y, (nt, nh, nw) = self._embed_inputs(
+        x, t_emb, y, (nt, nh, nw), tokens = self._embed_inputs(
             noise_latents, timesteps, text_emb, text_mask, adapters)
         nt_cond = num_cond_latents // self.cfg.patch_size[0]
         # noise-frame tokens sit after the conditioning frames in RoPE space
-        cos, sin = self._rope(nt, nh, nw, noise_latents.device, t_offset=nt_cond)
+        cos, sin = self._local_rope(
+            *self._rope(nt, nh, nw, noise_latents.device, t_offset=nt_cond), tokens)
         kv_valid = None
         if num_valid_latents is not None:
-            kv_valid = kv_cache[0].shape[2] + \
-                (int(num_valid_latents) // self.cfg.patch_size[0]) * nh * nw
+            # a global key index: each rank's cache is its shard of the cache
+            n_cache = kv_cache[0].shape[2] * (1 if tokens is None
+                                              else group_size(tokens.group))
+            kv_valid = n_cache + (int(num_valid_latents) // self.cfg.patch_size[0]) * nh * nw
         x = self._decode_blocks(x, t_emb, y, cos, sin, 0, kv_cache=kv_cache,
                                 kv_valid=kv_valid, bsa_cfg=bsa_cfg,
                                 pab_reuse=pab_reuse, pab_cache=pab_cache,
                                 cache_cond_half=cache_cond_half,
-                                block_ads=self._block_adapters(adapters))
-        return self._final_layer(x, t_emb, nt, nh, nw, adapters)
+                                block_ads=self._block_adapters(adapters), tokens=tokens)
+        return self._final_layer(x, t_emb, nt, nh, nw, adapters, tokens)
 
 
 def pab_init_cache(cfg: DiTConfig, batch: int, t_noise: int, lat_h: int, lat_w: int,

@@ -45,12 +45,14 @@ from ..ops.layers import (
     layer_norm,
     linear,
     mlp_embedder,
+    shared_in_group,
     modulate,
     remat_wrap,
     rms_norm,
     rope_3d_angles,
     timestep_embedding,
 )
+from ..parallel.sharding import tp_size
 from .dit import block_slice
 
 PORTED_ADAPTERS = ("delta_t", "lora_double", "lora_single", "lora_scale")
@@ -130,7 +132,8 @@ def _qkv_heads(attn: _Attn, x, nH: int, dh: int, lora=None, scale=None):
     B, S, _ = x.shape
     qkv = linear(attn.qkv, x, lora, scale).reshape(B, S, 3, nH, dh)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    return rms_norm(q, attn.q_norm), rms_norm(k, attn.k_norm), v
+    return (rms_norm(q, shared_in_group(attn.q_norm, attn.qkv)),
+            rms_norm(k, shared_in_group(attn.k_norm, attn.qkv)), v)
 
 
 class DoubleBlock(nn.Module):
@@ -153,7 +156,7 @@ class DoubleBlock(nn.Module):
         cfg = self.cfg
         B, L = txt.shape[:2]
         S = img.shape[1]
-        nH, dh = cfg.num_heads, cfg.head_dim
+        nH, dh = cfg.num_heads // tp_size(self.img_attn.qkv), cfg.head_dim
         lora = lora or {}
         svec = F.silu(vec).to(img.dtype)
         i_sh1, i_sc1, i_g1, i_sh2, i_sc2, i_g2 = \
@@ -204,8 +207,9 @@ class SingleBlock(nn.Module):
         ``linear1``'s output (token stride 3D + mlp), which the kernels
         take as they are."""
         cfg = self.cfg
-        B, S, D = x.shape
-        nH, dh = cfg.num_heads, cfg.head_dim
+        B, S, _ = x.shape
+        nH, dh = cfg.num_heads // tp_size(self.linear1), cfg.head_dim
+        D = nH * dh  # this rank's attention features (all of them on one rank)
         lora = lora or {}
         shift, scale, gate = linear(self.mod, F.silu(vec).to(x.dtype))[:, None, :].chunk(
             3, dim=-1)
@@ -217,8 +221,10 @@ class SingleBlock(nn.Module):
         else:
             qkv = qkv.reshape(B, S, 3, nH, dh)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            q = apply_rope_flat(rms_norm(q, self.q_norm), cos, sin)
-            k = apply_rope_flat(rms_norm(k, self.k_norm), cos, sin)
+            q = apply_rope_flat(rms_norm(q, shared_in_group(self.q_norm, self.linear1)),
+                                cos, sin)
+            k = apply_rope_flat(rms_norm(k, shared_in_group(self.k_norm, self.linear1)),
+                                cos, sin)
             o = attention(q, k, v).reshape(B, S, D).to(x.dtype)
         out = linear(self.linear2,
                      torch.cat([o, F.gelu(mlp_h, approximate="tanh")], dim=-1),
@@ -306,10 +312,15 @@ class MMDiT(nn.Module):
         lora_d, lora_s = adapters.get("lora_double"), adapters.get("lora_single")
         nb = latents.shape[0]
 
+        # under a tensor axis a block's attention output holds this rank's
+        # features: its slot is that many leading features of the cache
+        n_feat = cfg.hidden_size // tp_size(self.single_blocks[0].linear1) \
+            if len(self.single_blocks) else cfg.hidden_size
+
         def slot(cache, i):
             if cache is None:
                 return None
-            return cache[i][:nb] if cache_cond_first else cache[i]
+            return (cache[i][:nb] if cache_cond_first else cache[i])[..., :n_feat]
 
         dbl_cache, sgl_cache = pab_cache if pab_cache is not None else (None, None)
         reuse = pab_cache is not None and pab_reuse

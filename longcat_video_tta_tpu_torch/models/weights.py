@@ -103,10 +103,21 @@ def _kernel(weight, get, path, index=None, init=("normal", 0.02)):
 
 def _dense(layer: nn.Linear, get, path, index=None, std=0.02,
            zero_kernel: bool = False):
-    _kernel(layer.weight, get, path + ("kernel",), index,
-            ("zeros",) if zero_kernel else ("normal", std))
+    """A linear's kernel and bias. A tensor-parallel linear (``layer.tp``,
+    ``parallel/sharding.py``) holds a slice: the whole tensor is drawn (or
+    read) as for one rank, sliced and dropped, one tensor at a time."""
+    init = ("zeros",) if zero_kernel else ("normal", std)
+    tp = getattr(layer, "tp", None)
+    if tp is None:
+        _kernel(layer.weight, get, path + ("kernel",), index, init)
+        if layer.bias is not None:
+            _vec(layer.bias, get, path + ("bias",), index)
+        return
+    out_f, in_f = tp.full_shape
+    _set(layer.weight, tp.slice_weight(get(path + ("kernel",), index, (in_f, out_f),
+                                           init).t()))
     if layer.bias is not None:
-        _vec(layer.bias, get, path + ("bias",), index)
+        _set(layer.bias, tp.slice_bias(get(path + ("bias",), index, (out_f,), ("zeros",))))
 
 
 def _conv(p, get, path, index=None):
@@ -314,10 +325,16 @@ def _fill_vae(m: WanVAE, get: Getter) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _empty(cls, cfg, device) -> nn.Module:
-    """Build a module without running any init (parameters unset)."""
+def _empty(cls, cfg, device, mesh=None, arch: str = "longcat") -> nn.Module:
+    """Build a module without running any init (parameters unset). With a
+    ``mesh`` that has a tensor axis the linears are sliced on the meta
+    device first, so only this rank's shares are allocated."""
     with torch.device("meta"):
         m = cls(cfg)
+    if mesh is not None:
+        from ..parallel.sharding import parallelize
+
+        parallelize(m, mesh, arch)
     return m.to_empty(device=device).eval().requires_grad_(False)
 
 
@@ -360,18 +377,20 @@ def load_umt5_from_numpy(tree, cfg: TextEncoderConfig, device="cuda") -> UMT5Enc
     return m
 
 
-def init_random(cfg: ModelConfig, device, generator: torch.Generator):
+def init_random(cfg: ModelConfig, device, generator: torch.Generator, mesh=None):
     """Random (dit, vae, text) modules drawn on ``device`` from
     ``generator`` (which must live on that device), with the reference
-    inits' distributions; the DiT is ``cfg.arch``'s (``archs.py``)."""
+    inits' distributions; the DiT is ``cfg.arch``'s (``archs.py``). With a
+    ``mesh`` the DiT is this rank's (``parallel.sharding.parallelize``),
+    its draws those of one rank."""
     from ..archs import get_arch
 
     arch = get_arch(cfg.arch)
     out = []
-    for cls, sub, fill in ((arch.dit_cls, cfg.dit, arch.fill),
-                           (WanVAE, cfg.vae, _fill_vae),
-                           (UMT5Encoder, cfg.text, _fill_umt5)):
-        m = _empty(cls, sub, device)
+    for cls, sub, fill, m_mesh in ((arch.dit_cls, cfg.dit, arch.fill, mesh),
+                                   (WanVAE, cfg.vae, _fill_vae, None),
+                                   (UMT5Encoder, cfg.text, _fill_umt5, None)):
+        m = _empty(cls, sub, device, m_mesh, cfg.arch)
         fill(m, random_getter(generator, device))
         out.append(m)
     return tuple(out)

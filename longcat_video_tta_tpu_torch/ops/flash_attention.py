@@ -586,6 +586,74 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, num_cond_tokens: int = 0
                             scale=scale, q_offset=q_offset, k_offset=k_offset)
 
 
+# ---------------------------------------------------------------------------
+# Chunk entry points for ring context parallelism
+# ---------------------------------------------------------------------------
+#
+# The ring (parallel/context_attention.py) runs one (local q x K/V chunk)
+# pass per step with global offsets, so that the prefix rule and the key
+# bound hold across shards: the reference's flash_chunk_fwd / _dq / _dkv
+# (:640, :673, :705). They are the B1-B3 launches above with q_offset and
+# k_offset set; the ring owns the autograd. A query row that sees no key
+# of a chunk gives o = 0 and lse = -1e30, which the ring's logaddexp
+# combine treats as an empty partial.
+
+
+def _chunk_ncond(q, k, num_cond_tokens: int) -> int:
+    ncond = int(num_cond_tokens)
+    if ncond > 0 and q.shape[1] != k.shape[1]:
+        raise ValueError(f"flash chunks: the prefix rule needs square chunks, got Sq "
+                         f"{q.shape[1]} and Sk {k.shape[1]} with {ncond} cond tokens "
+                         f"(decode chunks run with num_cond_tokens=0)")
+    return ncond
+
+
+def flash_chunk_fwd(q, k, v, q_offset: int, k_offset: int, *, num_cond_tokens: int,
+                    scale: Optional[float] = None, kv_valid: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ring step: local q [B, Sq, H, D] against a K/V chunk
+    [B, Sk, H, D] whose global indices start at ``k_offset`` (the
+    queries' at ``q_offset``) -> (o normalised [B, Sq, H, D], lse
+    [B, Sq, H] fp32). ``kv_valid``: the global key bound. CUDA tensors
+    launch csrc/flash_fwd.cu, CPU tensors run ``attention_reference``."""
+    ncond = _chunk_ncond(q, k, num_cond_tokens)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return attention_reference(q, k, v, num_cond_tokens=ncond, kv_valid_len=kv_valid,
+                                   scale=scale, q_offset=q_offset, k_offset=k_offset)
+    return _kernel_forward(q, k, v, ncond, kv_valid, q_offset, k_offset, scale)
+
+
+def flash_chunk_dq(q, k, v, do, lse, delta, q_offset: int, k_offset: int, *,
+                   num_cond_tokens: int, scale: Optional[float] = None,
+                   kv_valid: Optional[int] = None) -> torch.Tensor:
+    """dq [B, Sq, H, D] of the local queries against one chunk, from the
+    globally combined ``lse`` and ``delta`` [B, Sq, H] fp32 (laid out as
+    ``backward_rows`` for the dQ kernel). CPU tensors run the plain
+    version."""
+    ncond = _chunk_ncond(q, k, num_cond_tokens)
+    kw = dict(num_cond_tokens=ncond, kv_valid_len=kv_valid, scale=scale,
+              q_offset=q_offset, k_offset=k_offset)
+    if not q.is_cuda:
+        return _backward_reference_from_delta(q, k, v, do, lse, delta, **kw)[0]
+    return _kernel_backward(False, q, k, v, do, *backward_rows(lse, delta), **kw)[0]
+
+
+def flash_chunk_dkv(q, k, v, do, lse, delta, q_offset: int, k_offset: int, *,
+                    num_cond_tokens: int, scale: Optional[float] = None,
+                    kv_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's (dk, dv) [B, Sk, H, D] contribution to one chunk, from
+    the globally combined ``lse`` and ``delta``. CPU tensors run the plain
+    version."""
+    ncond = _chunk_ncond(q, k, num_cond_tokens)
+    kw = dict(num_cond_tokens=ncond, kv_valid_len=kv_valid, scale=scale,
+              q_offset=q_offset, k_offset=k_offset)
+    if not q.is_cuda:
+        return _backward_reference_from_delta(q, k, v, do, lse, delta, **kw)[1:]
+    return _kernel_backward(True, q, k, v, do, *backward_rows(lse, delta), **kw)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable ``flash_attention`` (the reference's ``_flash_core``
     custom VJP, :490-526). The forward saves q, k, v, o and lse; the

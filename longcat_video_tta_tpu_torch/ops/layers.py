@@ -95,7 +95,12 @@ def linear(layer: nn.Module, x: torch.Tensor,
     """Dense layer computed in x's dtype (weights cast as in the
     reference's ``linear``), plus the LoRA side branch when ``lora`` is
     given; an ``Int8Linear`` runs W8A8 (the reference dispatches on its
-    'kernel_i8' key). Lane weights and lane LoRA pairs apply per row."""
+    'kernel_i8' key). Lane weights and lane LoRA pairs apply per row. A
+    tensor-parallel linear (``layer.tp``, ``parallel/sharding.py``) runs
+    its collectives here."""
+    tp = getattr(layer, "tp", None)
+    if tp is not None:
+        return _tp_linear(layer, tp, x, lora, lora_scale)
     if isinstance(layer, Int8Linear):
         return int8_linear(layer, x, lora=lora, lora_scale=lora_scale)
     w = layer.weight.to(x.dtype)
@@ -104,6 +109,59 @@ def linear(layer: nn.Module, x: torch.Tensor,
     if lora is not None:
         y = y + lora_term(x, lora, lora_scale)
     return y
+
+
+def shared_in_group(t: Optional[torch.Tensor], layer: nn.Module):
+    """``t`` through f over ``layer``'s tensor group (``layer.tp``): a
+    replicated tensor used on head-sharded activations (a per-head norm
+    scale) gets its gradient summed over the group. ``t`` as it is when
+    ``layer`` is whole."""
+    tp = getattr(layer, "tp", None)
+    if t is None or tp is None:
+        return t
+    from ..parallel.collectives import copy_to_group
+
+    return copy_to_group(t, tp.group)
+
+
+def _tp_linear(layer, tp, x, lora, lora_scale):
+    """A column- or row-parallel linear (Megatron's f and g): column
+    modes take x whole through f and give this rank's output features
+    (gathered whole for "col_gather"); "row" takes this rank's input
+    features and sums the partial products over the group, adding the
+    bias after the sum. A LoRA pair stays whole on every rank and passes
+    through f: column modes keep b's columns of this rank's features, row
+    adds (x_r a_r) b to the partial sum (sum_r x_r a_r = x a)."""
+    from ..parallel.collectives import copy_to_group, gather_from_group, reduce_from_group
+
+    g, idx = tp.group, tp.index.to(x.device)
+    if lora is not None:
+        a, b = copy_to_group(lora["a"], g), copy_to_group(lora["b"], g)
+        lora = ({"a": a, "b": b.index_select(b.ndim - 1, idx)} if tp.mode != "row"
+                else {"a": a.index_select(a.ndim - 2, idx), "b": b})
+    if tp.mode == "row":
+        if isinstance(layer, Int8Linear):  # the fp32 partials summed, then the bias
+            y = reduce_from_group(int8_linear(layer, x, amax_group=g), g)
+            if layer.bias is not None:
+                y = y + layer.bias.float()
+            y = y.to(x.dtype)
+            if lora is not None:
+                y = y + reduce_from_group(lora_term(x, lora, lora_scale), g)
+            return y
+        y = lane_linear(x, layer.weight.to(x.dtype), None)
+        if lora is not None:
+            y = y + lora_term(x, lora, lora_scale)
+        y = reduce_from_group(y, g)
+        return y if layer.bias is None else y + layer.bias.to(y.dtype)
+    x = copy_to_group(x, g)
+    if isinstance(layer, Int8Linear):
+        y = int8_linear(layer, x, lora=lora, lora_scale=lora_scale)
+    else:
+        w = layer.weight.to(x.dtype)
+        y = lane_linear(x, w, None if layer.bias is None else layer.bias.to(x.dtype))
+        if lora is not None:
+            y = y + lora_term(x, lora, lora_scale)
+    return gather_from_group(y, g, -1) if tp.mode == "col_gather" else y
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0):

@@ -33,11 +33,19 @@ _BLOCK_LINEARS: Dict[str, Tuple[str, ...]] = {
 _INT_MM_MIN_ROWS = 17  # cuBLASLt int8 GEMM needs M > 16
 
 
-def quantize_linear_params(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_linear_params(weight: torch.Tensor, amax_group=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """weight [N, K] -> (int8 [N, K], fp32 scale [N]): symmetric
-    per-output-channel scales over the contraction axis."""
+    per-output-channel scales over the contraction axis. ``amax_group``:
+    the tensor group a row-parallel weight's K is split over; the channel
+    max is then reduced over it (the scale of the whole K)."""
     w = weight.float()
-    s = (w.abs().amax(dim=1) / 127.0).clamp_min(1e-8)
+    amax = w.abs().amax(dim=1)
+    if amax_group is not None:
+        from ..parallel.collectives import all_reduce
+
+        amax = all_reduce(amax, amax_group, "max")
+    s = (amax / 127.0).clamp_min(1e-8)
     wi = torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8)
     return wi, s
 
@@ -54,8 +62,15 @@ class Int8Linear(nn.Module):
 
     @classmethod
     def from_linear(cls, layer: nn.Linear) -> "Int8Linear":
-        wi, s = quantize_linear_params(layer.weight.detach())
-        return cls(wi, s, layer.bias)
+        """The int8 form of ``layer``; a tensor-parallel layer keeps its
+        ``tp`` (a row-parallel one's channel scales over the whole K)."""
+        tp = getattr(layer, "tp", None)
+        group = tp.group if tp is not None and tp.mode == "row" else None
+        wi, s = quantize_linear_params(layer.weight.detach(), group)
+        new = cls(wi, s, layer.bias)
+        if tp is not None:
+            new.tp = tp
+        return new
 
 
 def lora_term(x: torch.Tensor, lora: Dict[str, torch.Tensor],
@@ -76,21 +91,32 @@ def lora_term(x: torch.Tensor, lora: Dict[str, torch.Tensor],
 
 def int8_linear(layer: Int8Linear, x: torch.Tensor,
                 lora: Optional[Dict[str, torch.Tensor]] = None,
-                lora_scale=None) -> torch.Tensor:
+                lora_scale=None, amax_group=None) -> torch.Tensor:
     """W8A8 dense in x's dtype: per-token abs-max activation quantization
     (1e-8 floor), int32 accumulation, y = (int32 * x_scale) * w_scale + b
     in fp32. A LoRA side branch is added after the cast, in x's dtype
-    (the adapter stays 16-bit, as in the reference)."""
+    (the adapter stays 16-bit, as in the reference). Row-parallel
+    (``amax_group``: x holds this rank's slice of K): the per-token max is
+    reduced over the group before rounding, and the fp32 partial product
+    comes back without bias, cast or LoRA (the caller sums it over the
+    group first)."""
     dtype = x.dtype
     K = x.shape[-1]
     xf = x.float().reshape(-1, K)
-    sx = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax_group is not None:
+        from ..parallel.collectives import all_reduce
+
+        amax = all_reduce(amax, amax_group, "max")
+    sx = (amax / 127.0).clamp_min(1e-8)
     xi = torch.round(xf / sx).to(torch.int8)
     M = xi.shape[0]
     if xi.is_cuda and M < _INT_MM_MIN_ROWS:
         xi = torch.cat([xi, xi.new_zeros((_INT_MM_MIN_ROWS - M, K))])
     yi = torch._int_mm(xi, layer.weight_i8.t())[:M]
     y = yi.float() * sx * layer.scale
+    if amax_group is not None:
+        return y.reshape(*x.shape[:-1], -1)
     if layer.bias is not None:
         y = y + layer.bias.float()
     y = y.to(dtype).reshape(*x.shape[:-1], -1)

@@ -136,11 +136,13 @@ class ModelBundle:
 
     @classmethod
     def init_random(cls, cfg: ModelConfig, seed: int = 0,
-                    device="cuda") -> "ModelBundle":
-        """Random-weight bundle drawn on ``device`` from ``seed``."""
+                    device="cuda", mesh=None) -> "ModelBundle":
+        """Random-weight bundle drawn on ``device`` from ``seed``; with a
+        ``mesh``, this rank's DiT (each sharded tensor drawn whole, as one
+        rank would, and sliced)."""
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        dit, vae, text = init_random(cfg, device, gen)
+        dit, vae, text = init_random(cfg, device, gen, mesh)
         clip = (None if cfg.clip is None
                 else init_random_clip_text(cfg.clip, device, gen))
         return cls(cfg, dit, vae, text,
@@ -165,11 +167,13 @@ class ModelBundle:
 
     @classmethod
     def from_checkpoint_dir(cls, cfg: ModelConfig, ckpt_dir: str,
-                            device="cuda") -> "ModelBundle":
+                            device="cuda", mesh=None) -> "ModelBundle":
         """Bundle from a checkpoint folder in the upstream torch layout:
         ``<ckpt_dir>/{dit,vae,text_encoder}`` (an MMDiT's also ``clip``, a
         HF CLIPTextModel) as ``.safetensors`` (or ``.bin``) shards,
-        converted tensor by tensor onto ``device`` (``models/convert.py``),
+        converted tensor by tensor onto ``device`` (``models/convert.py``;
+        with a ``mesh``, each DiT tensor sliced to this rank's share as it
+        is read: no rank holds the whole DiT),
         and the tokenizer of ``load_tokenizer`` (an MMDiT's CLIP tokenizer
         from ``load_hf_clip_tokenizer``, with a warning when there is none).
         The VAE's latent statistics come from ``vae/config.json``'s
@@ -207,9 +211,9 @@ class ModelBundle:
                       "y_vec conditioning will use hash ids capped into the CLIP vocab "
                       "(meaningless with real CLIP weights). Copy the checkpoint's CLIP "
                       f"tokenizer to {os.path.join(ckpt_dir, 'tokenizer_2')}.")
-        return cls(cfg,
-                   get_arch(cfg.arch).from_checkpoint(os.path.join(ckpt_dir, "dit"),
-                                                      cfg.dit, device),
+        dit = get_arch(cfg.arch).from_checkpoint(os.path.join(ckpt_dir, "dit"), cfg.dit,
+                                                 device, mesh=mesh)
+        return cls(cfg, dit,
                    load_vae_checkpoint(os.path.join(ckpt_dir, "vae"), cfg.vae, device),
                    load_umt5_checkpoint(os.path.join(ckpt_dir, "text_encoder"),
                                         cfg.text, device),
@@ -295,9 +299,12 @@ def generate_vc(
     cfgr_cfg: Optional[CFGReuseConfig] = None,
     on_phase: Optional[Callable[[str], None]] = None,
     init_x: Optional[torch.Tensor] = None,
-) -> np.ndarray:
+    decode: bool = True,
+) -> Optional[np.ndarray]:
     """Video continuation. Returns the generated frames [N, H, W, 3] in
-    [0, 1] (N = num_frames rounded up to 4k+1).
+    [0, 1] (N = num_frames rounded up to 4k+1); with ``decode`` False the
+    sampler runs and nothing is decoded (None: a mesh rank whose rank 0
+    decodes the same latents).
 
     On an MMDiT bundle (``cfg.arch == "mmdit"``) the triple-CFG sampler
     (``sample_latents_mmdit``), on a CogVideoX bundle the 2-row CFG DDIM
@@ -361,7 +368,7 @@ def generate_vc(
             init_x=init_x, adapters=adapters, bsa_cfg=bsa_cfg,
             quantize_decode=quantize_decode, bucket_gen=bucket_gen,
             gen_segment_steps=gen_segment_steps, pab_cfg=pab_cfg, cfgr_cfg=cfgr_cfg,
-            mark=mark, on_phase=on_phase)
+            mark=mark, on_phase=on_phase, decode=decode)
     if quantize_decode == "int8qk":
         bsa_cfg = dataclasses.replace(
             bsa_cfg if bsa_cfg is not None else BSAConfig(keep_ratio=1.0),
@@ -398,6 +405,8 @@ def generate_vc(
     else:
         gen_latents = sample_latents(decode_dit, cfg.scheduler, emb, mask, nemb,
                                      nmask, guidance_scale, **kw)
+    if not decode:
+        return None
     return _decode_generated(bundle, cond_latents, gen_latents[:, :, :n_gen_latents],
                              nf, mark)
 
@@ -421,7 +430,7 @@ def _generate_vc_joint(bundle: ModelBundle, decode_dit, adapted: bool, cond_late
                        emb, aux, nemb, naux, *, nf, n_gen_latents,
                        num_inference_steps, guidance_scale, seed, init_noise, init_x,
                        adapters, bsa_cfg, quantize_decode, bucket_gen, gen_segment_steps,
-                       pab_cfg, cfgr_cfg, mark, on_phase) -> np.ndarray:
+                       pab_cfg, cfgr_cfg, mark, on_phase, decode=True) -> Optional[np.ndarray]:
     """``generate_vc``'s Open-Sora v2 and CogVideoX branches: the MMDiT's
     triple-CFG batch [prompt, neg, neg] (``aux`` its CLIP y_vec) or
     CogVideoX's [neg, pos] (``aux`` the mask, unread), the sampler's whole
@@ -460,6 +469,8 @@ def _generate_vc_joint(bundle: ModelBundle, decode_dit, adapted: bool, cond_late
         fn = sample_latents_cogvideox_segmented if seg else sample_latents_cogvideox
         full = fn(decode_dit, torch.cat([nemb, emb], dim=0), **seg, **kw)
     n_cond = cond_latents.shape[2]
+    if not decode:
+        return None
     return _decode_generated(bundle, cond_latents, full[:, :, n_cond:], nf, mark)
 
 

@@ -56,6 +56,7 @@ phases, "video_end"), so a profiler can time the code that serves.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -298,9 +299,21 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="train V videos' adapters as one batch (their lanes folded into "
                         "the batch axis; generation stays per video). Results match "
                         "the sequential runs")
-    for flag in ("--data-mesh", "--context-mesh", "--tensor-mesh"):
-        p.add_argument(flag, type=int, default=0,
-                       help="multi-device mesh: not yet ported to the PyTorch runner")
+    # the mesh (parallel/): one rank per point, launched with
+    #   torchrun --standalone --nproc-per-node N -m longcat_video_tta_tpu_torch.runners.run_tta
+    p.add_argument("--data-mesh", type=int, default=0,
+                   help="spread the --video-parallel lanes over N ranks (each trains "
+                        "and generates its own lanes; rank 0 writes the outputs)")
+    p.add_argument("--context-mesh", type=int, default=0,
+                   help="ring context parallelism over N ranks: video tokens shard in "
+                        "the TTA train step and the KV-cache decode "
+                        "(parallel/context_attention.py). LongCat only; not with "
+                        "--video-parallel, --bsa-keep-ratio or --quantize-decode int8qk")
+    p.add_argument("--tensor-mesh", type=int, default=0,
+                   help="Megatron-style tensor parallelism over N ranks: the DiT's "
+                        "linears shard (parallel/sharding.py), attention runs at heads "
+                        "/ N. Any backbone; composes with --context-mesh; not with "
+                        "--video-parallel, --bsa-keep-ratio or --quantize-decode int8qk")
     # the reference's debugging and profiling flags
     p.add_argument("--attn-impl", default=None, choices=[None, "xla", "pallas"],
                    help="attention implementation: unset = the kernels on the card and "
@@ -320,16 +333,52 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
+def mesh_shape(args) -> Tuple[int, int, int]:
+    """(data, context, tensor) of the flags; 0 and 1 both mean no mesh."""
+    return (max(1, args.data_mesh), max(1, args.context_mesh), max(1, args.tensor_mesh))
+
+
+def check_mesh(args, model_cfg) -> None:
+    """The reference runner's mesh refusals (:746-794, :1009), before any
+    weight is loaded."""
+    n_data, n_ctx, n_tp = mesh_shape(args)
+    if n_ctx > 1 or n_tp > 1:
+        if args.video_parallel > 1:
+            raise SystemExit("--context-mesh/--tensor-mesh and --video-parallel are "
+                             "mutually exclusive (one mesh per run)")
+        if args.bsa_keep_ratio > 0:
+            raise SystemExit("--context-mesh/--tensor-mesh do not compose with "
+                             "--bsa-keep-ratio (the BSA kernel is local to one rank)")
+        if args.quantize_decode == "int8qk":
+            raise SystemExit("--context-mesh/--tensor-mesh do not compose with "
+                             "--quantize-decode int8qk (it rides the BSA kernel, local to "
+                             "one rank); use --quantize-decode int8")
+        if n_ctx > 1:
+            if model_cfg.arch != "longcat":
+                raise SystemExit("--context-mesh is wired for the LongCat backbone only "
+                                 "(ring decode needs the cond-KV/noise split)")
+            sf = model_cfg.vae.spatial_factor * model_cfg.dit.patch_size[1]
+            nhw = (args.height // sf) * (args.width // sf)
+            if nhw % n_ctx:
+                raise SystemExit(
+                    f"--context-mesh {n_ctx} needs the spatial token count per latent "
+                    f"frame ({nhw} at {args.height}x{args.width}) to be divisible by the "
+                    "ring size; adjust --height/--width (480p's 1560 tokens divide by "
+                    "2/4/8)")
+        heads = getattr(model_cfg.dit, "num_heads", 0)
+        if n_tp > 1 and heads and heads % n_tp:
+            raise SystemExit(f"--tensor-mesh {n_tp} must divide num_heads ({heads})")
+    if n_data > 1 and args.video_parallel <= 1:
+        raise SystemExit("--data-mesh requires --video-parallel > 1")
+
+
 def check_composition(args, arch: str = "longcat") -> None:
     """Refuse at start-up the flag combinations the reference refuses
-    (its runner :722-726, :825-836 and :1001-1022), and the mesh flags,
-    before any weight is loaded."""
-    meshes = [f for f, n in (("--data-mesh", args.data_mesh),
-                              ("--context-mesh", args.context_mesh),
-                              ("--tensor-mesh", args.tensor_mesh)) if n > 0]
-    if meshes:
-        raise SystemExit(f"{', '.join(meshes)}: multi-device meshes are not yet ported "
-                         "to the PyTorch runner (ROADMAP Queue A, step A5)")
+    (its runner :722-726, :746-794, :825-840 and :1001-1022), before any
+    weight is loaded."""
+    from ..config import get_model_config
+
+    check_mesh(args, get_model_config(args.preset))
     if args.video_parallel > 1:
         if args.method in ("none", "dno"):
             raise SystemExit(f"--video-parallel requires an adapter TTA method, not "
@@ -348,6 +397,8 @@ def check_composition(args, arch: str = "longcat") -> None:
     if args.method == "dno":
         bad = [name for on, name in ((args.aug_enabled, "augmentation"),
                                      (args.batch_videos > 1, "--batch-videos"),
+                                     (args.context_mesh > 1, "--context-mesh"),
+                                     (args.tensor_mesh > 1, "--tensor-mesh"),
                                      (args.bucket_shapes, "--bucket-shapes"),
                                      (args.save_adapters, "--save-adapters")) if on]
         if bad:
@@ -402,8 +453,9 @@ def adapter_config(args):
 def apply_fast_decode_defaults(args) -> None:
     """--fast-decode: fill the UNSET decode-lever flags with the
     reference's recommended stack (flags set by hand win). BSA keep ratio
-    0.15 at >= 16 gen latents, else 0.35. The port has no mesh flags, so
-    BSA is on for every LongCat preset on the KV-cache path."""
+    0.15 at >= 16 gen latents, else 0.35, for LongCat presets on the
+    KV-cache path without a context or tensor mesh (BSA is local to one
+    rank)."""
     if not args.fast_decode:
         return
     from ..pipeline.pipeline import round_frames_4k1
@@ -419,7 +471,8 @@ def apply_fast_decode_defaults(args) -> None:
         if args.gen_segment_steps <= 0 and long_horizon:
             args.gen_segment_steps = 5
         return
-    if args.bsa_keep_ratio <= 0 and args.preset.startswith("longcat"):
+    if (args.bsa_keep_ratio <= 0 and args.preset.startswith("longcat")
+            and args.context_mesh <= 1 and args.tensor_mesh <= 1):
         args.bsa_keep_ratio = 0.15 if n_gen_latents >= 16 else 0.35
     if args.pab_every <= 0:
         args.pab_every = 4
@@ -574,9 +627,68 @@ def make_synthetic_dataset(out_dir: str, n: int, height: int, width: int,
     return out_dir
 
 
-def load_bundle(args):
+def runner_mesh(args, device: torch.device):
+    """The run's mesh from the mesh flags, or None for one rank. More
+    than one rank needs the process group torchrun starts; its world size
+    must be data x context x tensor."""
+    n_data, n_ctx, n_tp = mesh_shape(args)
+    n = n_data * n_ctx * n_tp
+    if n == 1 or args.preflight_only:  # a preflight loads no model
+        return None
+    import torch.distributed as dist
+
+    from ..config import MeshConfig
+    from ..parallel.mesh import build_mesh, init_distributed, rank_device
+
+    if not init_distributed(device=device.type):
+        raise SystemExit(
+            f"a mesh of {n} ranks (data {n_data} x context {n_ctx} x tensor {n_tp}) runs "
+            f"one process per rank: launch with torchrun --standalone --nproc-per-node "
+            f"{n} -m longcat_video_tta_tpu_torch.runners.run_tta ...")
+    if dist.get_world_size() != n:
+        raise SystemExit(f"the mesh data {n_data} x context {n_ctx} x tensor {n_tp} needs "
+                         f"{n} ranks; this launch has {dist.get_world_size()}")
+    return build_mesh(MeshConfig(n_data, n_ctx, n_tp), rank_device(device.type))
+
+
+@contextlib.contextmanager
+def card_turn(on: bool):
+    """With ``on``, one rank of this launch at a time in the enclosed code
+    (an exclusive lock on a file named after the launch's port in the
+    temporary folder), and the allocator's cache returned before the next
+    rank's turn: data-mesh ranks that share a card take turns in
+    generation, whose VAE decode peaks at about 15 GiB at 480x832 (the
+    lanes' generations have no collective)."""
+    if not on:
+        yield
+        return
+    import fcntl
+    import tempfile
+
+    path = os.path.join(tempfile.gettempdir(),
+                        f"lc_card_turn_{os.environ.get('MASTER_PORT', 'local')}.lock")
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            torch.cuda.empty_cache()
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def own_lanes(lanes: List[int], mesh) -> List[int]:
+    """This rank's contiguous share of a group's lanes under a data mesh
+    (the reference shards the video axis over "data" in order)."""
+    n, d = mesh.size("data"), mesh.index("data")
+    per, extra = divmod(len(lanes), n)
+    start = d * per + min(d, extra)
+    return lanes[start:start + per + (d < extra)]
+
+
+def load_bundle(args, mesh=None):
     """The preset's bundle (with ``--remat-policy`` applied) from
-    ``--checkpoint-dir``, else drawn at random from ``--seed``."""
+    ``--checkpoint-dir``, else drawn at random from ``--seed``; with a
+    ``mesh`` the DiT is this rank's (``parallel.sharding.parallelize``)."""
     import dataclasses
 
     from ..config import get_model_config
@@ -589,9 +701,10 @@ def load_bundle(args):
     if args.checkpoint_dir:
         print(f"[runner] weights from {args.checkpoint_dir} (preset {args.preset}) "
               f"on {args.device}")
-        return ModelBundle.from_checkpoint_dir(cfg, args.checkpoint_dir, args.device)
+        return ModelBundle.from_checkpoint_dir(cfg, args.checkpoint_dir, args.device,
+                                               mesh=mesh)
     print(f"[runner] random-init weights (preset {args.preset}) on {args.device}")
-    return ModelBundle.init_random(cfg, seed=args.seed, device=args.device)
+    return ModelBundle.init_random(cfg, seed=args.seed, device=args.device, mesh=mesh)
 
 
 def gate_config(args):
@@ -758,10 +871,28 @@ def _run(args, arch: str, on_phase, build_dir: str) -> Dict[str, Any]:
     )
     from ..utils.device import resolve_device
 
+    from ..parallel.collectives import all_gather_object, broadcast_object
+
     device = resolve_device(args.device)
     if args.attn_impl == "pallas" and device.type != "cuda":
         raise SystemExit("--attn-impl pallas runs the Hopper kernels: it needs a CUDA "
                          "device")
+    # under a mesh every rank runs this function; rank 0 alone writes the
+    # run's files; under a data mesh each rank trains and generates its
+    # lanes, and rank 0 writes every video's outputs in order
+    mesh = runner_mesh(args, device)
+    if mesh is not None:
+        device = mesh.device
+    main_rank = mesh is None or mesh.is_main
+    defer = mesh is not None and mesh.size("data") > 1
+    # ranks that share a card (gloo on CUDA) return their allocator's
+    # cached blocks between the TTA and the generation: one rank's cache
+    # is memory the others cannot use
+    shared_card = mesh is not None and mesh.backend == "gloo" and device.type == "cuda"
+    # under a context or tensor mesh every rank holds the same generated
+    # latents: rank 0 alone decodes and scores them
+    scoring = main_rank or defer
+    model_mesh = mesh if mesh is not None and not defer else None
     t_start = time.time()
     os.makedirs(args.output_dir, exist_ok=True)
 
@@ -787,9 +918,12 @@ def _run(args, arch: str, on_phase, build_dir: str) -> Dict[str, Any]:
                                 context=args.method, clip_gate=gatecfg)
 
     if args.synthetic:
-        data_dir = make_synthetic_dataset(
-            os.path.join(args.output_dir, "synthetic_data"),
-            args.synthetic, args.height, args.width, seed=args.seed)
+        data_dir = os.path.join(args.output_dir, "synthetic_data")
+        if main_rank:
+            make_synthetic_dataset(data_dir, args.synthetic, args.height, args.width,
+                                   seed=args.seed)
+        if mesh is not None:  # the other ranks read it once it is written
+            broadcast_object(None)
     elif args.data_dir:
         data_dir = args.data_dir
     else:
@@ -809,7 +943,7 @@ def _run(args, arch: str, on_phase, build_dir: str) -> Dict[str, Any]:
               f"ctx={frames.tta_context_frames}")
         return {"preflight": True, "num_videos": len(videos)}
 
-    bundle = load_bundle(args)
+    bundle = load_bundle(args) if model_mesh is None else load_bundle(args, model_mesh)
     dit_cfg = bundle.cfg.dit
     scheme = opt = stopper = None
     if is_adapter:
@@ -834,14 +968,16 @@ def _run(args, arch: str, on_phase, build_dir: str) -> Dict[str, Any]:
 
     ckpt_path = os.path.join(args.output_dir, "checkpoint.json")
     # a fresh (re)launch clears the sentinel of an earlier drain
-    if os.path.exists(os.path.join(args.output_dir, "DRAINED")):
+    if main_rank and os.path.exists(os.path.join(args.output_dir, "DRAINED")):
         os.remove(os.path.join(args.output_dir, "DRAINED"))
     ckpt = load_checkpoint(ckpt_path)
     start_idx = ckpt["next_idx"] if ckpt else 0
     results: List[Dict] = ckpt["results"] if ckpt else []
     if start_idx > 0 and fvd.enabled:
         restore_online_eval(fvd, fvd_state_path, start_idx)
-    save_config(os.path.join(args.output_dir, "config.json"), vars(args))
+    if main_rank:
+        save_config(os.path.join(args.output_dir, "config.json"),
+                    {**vars(args), "mesh": None if mesh is None else mesh.describe()})
     videos_dir = os.path.join(args.output_dir, "videos")
     levers = decode_levers(args)
     # resume-safe: the verified count carries over from the checkpoint
@@ -886,30 +1022,105 @@ def _run(args, arch: str, on_phase, build_dir: str) -> Dict[str, Any]:
 
     def record_adapter_result(res, tp, idx, vid_id):
         """The adapter's fields, the same on the sequential and the
-        video-parallel path."""
-        res["adapter_norm"] = adapter_norm(tp)
-        res["trainable_params"] = scheme.num_params(tp)
+        video-parallel path (a tensor-parallel state counted and saved
+        whole)."""
+        from ..parallel.sharding import unshard
+
+        whole = unshard(bundle.dit, tp)
+        res["adapter_norm"] = adapter_norm(whole)
+        res["trainable_params"] = scheme.num_params(whole)
         if args.save_adapters:
-            res["adapter_path"] = save_adapter_state(os.path.join(
-                args.output_dir, "adapters", f"{idx:04d}_{vid_id}.pt"), tp)
+            path = os.path.join(args.output_dir, "adapters", f"{idx:04d}_{vid_id}.pt")
+            if defer:
+                res["_adapter"] = (path, {k: v.detach().cpu() for k, v in whole.items()})
+            elif main_rank:
+                res["adapter_path"] = save_adapter_state(path, whole)
+
+    def write_outputs(res):
+        """Rank 0 writes what a data-mesh rank left in ``res`` (its adapter,
+        its clip, its FVD pair); the other ranks drop it."""
+        adapter, clip, pair = (res.pop(k, None) for k in ("_adapter", "_video", "_fvd"))
+        if not main_rank:
+            return
+        if adapter is not None:
+            res["adapter_path"] = save_adapter_state(*adapter)
+        if clip is not None:
+            res["video_path"] = save_video(*clip)
+        if pair is not None:
+            fvd.update(*pair)
+
+    def commit(done: List[Dict]):
+        """Record finished videos in index order; rank 0 checkpoints."""
+        for r in sorted(done, key=lambda r: r["index"]):
+            write_outputs(r)
+            results.append(r)
+        if not main_rank or not done:
+            return
+        save_checkpoint(ckpt_path, results[-1]["index"] + 1, results)
+        if fvd.enabled:
+            # after the checkpoint, so a crash between the two writes leaves
+            # the moments behind it (reported on resume, never counted
+            # twice); with Inception the moments are ~67 MB, so every 5th
+            # video, and always the last
+            n = results[-1]["index"] + 1
+            every = 5 if fvd.frame_feature_fn is not None else 1
+            if n % every == 0 or n == len(videos) or len(done) > 1:
+                try:
+                    fvd.save_state(fvd_state_path, next_idx=n)
+                except OSError as e:  # a full disk must not end the run
+                    print(f"  WARNING: fvd_state save failed: {e}")
+
+    pending: List[Dict] = []  # a data-mesh group's finished videos on this rank
+    group_next, mine = start_idx, set()
+
+    def flush():
+        """The end of a data-mesh group: every rank's videos to every rank
+        (rank 0 writes them)."""
+        done = [r for part in all_gather_object(pending) for r in part]
+        pending.clear()
+        commit(done)
 
     for idx in range(start_idx, len(videos)):
-        stop_f = _drain_file(args)
+        stop_f = _drain_file(args) if main_rank else None
+        if mesh is not None:  # rank 0 reads the stop file; every rank stops
+            stop_f = broadcast_object(stop_f)
         if stop_f:
+            if defer:
+                flush()
             # no summary.json: a drained run resumes from checkpoint.json;
             # DRAINED tells a sweep this exit was a drain
-            save_checkpoint(ckpt_path, idx, results)
-            with open(os.path.join(args.output_dir, "DRAINED"), "w") as f:
-                json.dump({"next_idx": idx, "stop_file": stop_f}, f)
+            if main_rank:
+                save_checkpoint(ckpt_path, idx, results)
+                with open(os.path.join(args.output_dir, "DRAINED"), "w") as f:
+                    json.dump({"next_idx": idx, "stop_file": stop_f}, f)
             print(f"\n[drain] stop file {stop_f} present: exiting at "
                   f"{idx}/{len(videos)} videos (checkpointed; run again to resume)")
             return {"drained": True, "next_idx": idx, "num_videos": len(results)}
+        if defer:
+            if idx >= group_next:  # a group starts: each rank trains its lanes
+                lanes = list(range(idx, min(idx + args.video_parallel, len(videos))))
+                group_next, mine = lanes[-1] + 1, set(own_lanes(lanes, mesh))
+                try:
+                    pretrained.update(group.train(sorted(mine)))
+                except Exception as exc:  # every lane of this rank fails
+                    pretrained.update({i: {"error": exc} for i in mine})
+                if shared_card:
+                    # no rank generates while another still trains: one
+                    # rank's VAE decode beside another's TTA peak ran out
+                    # of an 80 GB card at 24 of LongCat-13.6B's 48 blocks
+                    torch.cuda.empty_cache()
+                    torch.distributed.barrier(group=mesh.group("data"))
+            if idx not in mine:  # another rank's lane
+                if idx == group_next - 1:
+                    flush()
+                continue
         entry = videos[idx]
         vid_id = os.path.basename(entry["path"])
         print(f"\n[{idx + 1}/{len(videos)}] {vid_id}")
         mark("video")
         t_vid = time.time()
-        profiler = _start_profile(args, device) if idx == start_idx else None
+        profiler = (_start_profile(args, device) if idx == start_idx and main_rank
+                    else None)
         res: Dict[str, Any] = {"video": vid_id, "path": entry["path"],
                                "caption": entry["caption"], "index": idx,
                                "success": True}
@@ -965,8 +1176,10 @@ def _run(args, arch: str, on_phase, build_dir: str) -> Dict[str, Any]:
             if tp is not None:
                 record_adapter_result(res, tp, idx, vid_id)
 
-            gen_time = 0.0
+            gen_time, gen = 0.0, None
             if not args.skip_generation:
+                if shared_card:  # the TTA's cached blocks, for the other ranks' use
+                    torch.cuda.empty_cache()
                 mark("generation")
                 adapters = adapted = None
                 if tp is not None:
@@ -986,9 +1199,20 @@ def _run(args, arch: str, on_phase, build_dir: str) -> Dict[str, Any]:
                               dit=adapted, init_noise=dno_noise,
                               gen_segment_steps=args.gen_segment_steps)
                 t0 = time.time()
-                gen = generate_vc(bundle, cond_px, entry["caption"],
-                                  on_phase=on_phase, **gen_kw, **levers)
+                with card_turn(shared_card and defer):
+                    gen = generate_vc(bundle, cond_px, entry["caption"], on_phase=on_phase,
+                                      decode=scoring, **gen_kw, **levers)
                 gen_time = time.time() - t0
+                if not scoring:
+                    # a context or tensor rank other than 0: the same latents
+                    # as rank 0, which decodes and scores them; the dense
+                    # verify generation's sampler needs every rank
+                    if fd_verified < args.fast_decode_verify:
+                        generate_vc(bundle, cond_px, entry["caption"], decode=False,
+                                    **gen_kw)
+                        fd_verified += 1
+                    gen = None
+            if gen is not None:
                 gt = load_gt_frames(entry["path"], len(gen), frames.height,
                                     frames.width, frames.gen_start_frame,
                                     target_fps=args.load_fps)
@@ -1000,12 +1224,13 @@ def _run(args, arch: str, on_phase, build_dir: str) -> Dict[str, Any]:
                         gen_kw, args.bucket_gen, device, lpips_fn)
                     fd_verified += 1
                 if fvd.enabled:
-                    fvd.update(gen, gt)
+                    res["_fvd"] = (gen, gt)
                 if not args.no_save_videos:
                     # the baseline artifact has a green GENERATED border
-                    res["video_path"] = save_video(
-                        gen if is_tta else annotate_borders(gen, (0, 200, 0)),
-                        os.path.join(videos_dir, f"{idx:04d}_{vid_id}.mp4"))
+                    res["_video"] = (gen if is_tta else annotate_borders(gen, (0, 200, 0)),
+                                     os.path.join(videos_dir, f"{idx:04d}_{vid_id}.mp4"))
+                if not defer:  # written now (rank 0); a data mesh's at its group's end
+                    write_outputs(res)
             res["train_time"] = train_time
             res["gen_time"] = gen_time
             res["es_check_time"] = es_time
@@ -1022,21 +1247,16 @@ def _run(args, arch: str, on_phase, build_dir: str) -> Dict[str, Any]:
             # stopped even when the profiled video failed
             _stop_profile(profiler, args.profile_dir)
         mark("video_end")
-        results.append(res)
-        save_checkpoint(ckpt_path, idx + 1, results)
-        if fvd.enabled:
-            # after the checkpoint, so a crash between the two writes leaves
-            # the moments behind it (reported on resume, never counted
-            # twice); with Inception the moments are ~67 MB, so every 5th
-            # video, and always the last
-            every = 5 if fvd.frame_feature_fn is not None else 1
-            if (idx + 1) % every == 0 or idx + 1 == len(videos):
-                try:
-                    fvd.save_state(fvd_state_path, next_idx=idx + 1)
-                except OSError as e:  # a full disk must not end the run
-                    print(f"  WARNING: fvd_state save failed: {e}")
+        if defer:
+            pending.append(res)
+            if idx == group_next - 1:
+                flush()
+            continue
+        commit([res])
 
     summary = _summary(args, results, caption_stats, t_start, fvd)
+    if not main_rank:
+        return summary
     if args.compute_vbench:
         from ..eval.vbench import run_vbench
 

@@ -15,9 +15,11 @@ every row.
 
 Every key of the reference's table reaches the port's runner under the
 same flag (``compile_cache_dir`` names the kernels' build folder there,
-``attn_impl`` the attention implementation) except the multi-device
-mesh keys ``data_mesh``, ``context_mesh`` and ``tensor_mesh``, which
-raise, as not yet ported.
+``attn_impl`` the attention implementation). A row whose mesh keys
+(``data_mesh``, ``context_mesh``, ``tensor_mesh``) ask for N > 1 ranks
+runs as N processes through ``torchrun`` (``python -m
+torch.distributed.run --standalone --nproc-per-node N``), and under
+--jobs takes N entries of the device pool.
 
 CLI:
   python -m longcat_video_tta_tpu_torch.sweep.run_sweep configs/smoke_tiny.yaml \
@@ -167,9 +169,16 @@ _BOOL_FLAGS = {
     "fast_decode": "--fast-decode",
 }
 
+_MESH_KEYS = ("data_mesh", "context_mesh", "tensor_mesh")
 
-# keys of runner paths the port does not have yet (ROADMAP Queue A, step A5)
-_NOT_PORTED = ("data_mesh", "context_mesh", "tensor_mesh")
+
+def row_ranks(params: Dict[str, Any]) -> int:
+    """The ranks a row's mesh needs: data x context x tensor (0 and 1
+    both mean no mesh)."""
+    n = 1
+    for key in _MESH_KEYS:
+        n *= max(1, int(params.get(key) or 0))
+    return n
 
 
 def load_config(path: str) -> Dict[str, Any]:
@@ -192,16 +201,12 @@ def load_config(path: str) -> Dict[str, Any]:
 
 def build_argv(method: str, params: Dict[str, Any], output_dir: str,
                data_dir: Optional[str]) -> List[str]:
-    """The runner's argv of one row (the reference's mapping, with the
-    port's refusals)."""
+    """The runner's argv of one row (the reference's mapping)."""
     argv = ["--method", method, "--output-dir", output_dir]
     if data_dir:
         argv += ["--data-dir", data_dir]
     for key, val in params.items():
         key = _REF_ALIASES.get(key, key)
-        if key in _NOT_PORTED:
-            raise ValueError(f"sweep config key '{key}' is not yet ported to the PyTorch "
-                             "runner (ROADMAP Queue A)")
         if key == "resolution":
             # reference: "480p" (832x480 bucket)
             if str(val) not in ("480p", "480"):
@@ -309,19 +314,29 @@ def _release_device_memory() -> None:
         torch.cuda.empty_cache()
 
 
+def launch_command(argv: List[str], ranks: int = 1) -> List[str]:
+    """The command of one row: the runner module, through torchrun with
+    ``ranks`` processes when its mesh has more than one rank."""
+    import sys
+
+    if ranks > 1:
+        return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", str(ranks), "-m", RUNNER_MODULE, *argv]
+    return [sys.executable, "-m", RUNNER_MODULE, *argv]
+
+
 def _execute_row(info: Dict[str, Any], argv: List[str],
                  subprocess_mode: bool, max_retries: int,
-                 extra_env: Optional[Dict[str, str]] = None) -> None:
-    """Run one sweep row (with requeue-on-failure), mutating ``info``."""
+                 extra_env: Optional[Dict[str, str]] = None, ranks: int = 1) -> None:
+    """Run one sweep row (with requeue-on-failure), mutating ``info``. A
+    row of several ranks always runs as torchrun's processes."""
     t0 = time.time()
     for attempt in range(max_retries + 1):
-        if subprocess_mode or extra_env:
+        if subprocess_mode or extra_env or ranks > 1:
             import subprocess
-            import sys
 
             env = {**os.environ, **extra_env} if extra_env else None
-            r = subprocess.run(
-                [sys.executable, "-m", RUNNER_MODULE, *argv], env=env)
+            r = subprocess.run(launch_command(argv, ranks), env=env)
             info["returncode"] = r.returncode
             # the runner writes an explicit DRAINED sentinel on a
             # stop-file drain (checkpoint left for resume) — other
@@ -388,6 +403,7 @@ def run_sweep(config_path: str, output_base: str,
 
     launched = []
     pending = []   # (info, argv) rows that actually execute
+    ranks: Dict[str, int] = {}  # run_id -> the ranks of its mesh
     for row in rows:
         run_id = str(row["run_id"])
         params = dict(cfg["fixed"])
@@ -406,6 +422,7 @@ def run_sweep(config_path: str, output_base: str,
         info = {"run_id": run_id, "series": series, "method": method,
                 "output_dir": out_dir, "argv": argv,
                 "estimated_minutes": round(est, 1)}
+        ranks[run_id] = row_ranks(params)
         launched.append(info)
         if os.path.exists(os.path.join(out_dir, "summary.json")):
             info["status"] = "skipped (summary.json exists)"
@@ -460,17 +477,26 @@ def run_sweep(config_path: str, output_base: str,
                 continue
             print(f"[sweep] RUN {info['run_id']} "
                   f"(~{info['estimated_minutes']:.0f} min)")
-            _execute_row(info, argv, subprocess_mode, max_retries)
+            _execute_row(info, argv, subprocess_mode, max_retries,
+                         ranks=ranks[info["run_id"]])
     elif pending:
         # concurrent rows, each its own subprocess; a card from the pool
-        # travels with the worker slot, not the row
+        # travels with the worker slot, not the row; a row of N ranks
+        # takes N slots (one lock: a row collects its slots whole)
         import queue
+        import threading
         from concurrent.futures import ThreadPoolExecutor
 
+        n_slots = max(jobs, len(device_pool or ()))
         devq: "queue.Queue[Optional[str]]" = queue.Queue()
-        for i in range(jobs):
+        for i in range(n_slots):
             devq.put(device_pool[i % len(device_pool)]
                      if device_pool else None)
+        too_big = [i["run_id"] for i, _ in pending if ranks[i["run_id"]] > n_slots]
+        if too_big:
+            raise ValueError(f"rows {too_big} need more ranks than the {n_slots} device "
+                             "slots of --jobs / --device-pool")
+        take = threading.Lock()
 
         def worker(item):
             info, argv = item
@@ -480,17 +506,20 @@ def run_sweep(config_path: str, output_base: str,
                 print(f"[sweep] {info['run_id']}: stop file {sf} "
                       f"present, not launching")
                 return
-            dev = devq.get()
+            with take:
+                devs = [devq.get() for _ in range(ranks[info["run_id"]])]
             try:
+                dev = ",".join(d for d in devs if d) or None
                 env = {"CUDA_VISIBLE_DEVICES": dev} if dev else {}
                 info["device"] = dev
                 print(f"[sweep] RUN {info['run_id']} "
                       f"(~{info['estimated_minutes']:.0f} min"
                       f"{', card ' + dev if dev else ''})")
                 _execute_row(info, argv, True, max_retries,
-                             extra_env=env or None)
+                             extra_env=env or None, ranks=ranks[info["run_id"]])
             finally:
-                devq.put(dev)
+                for d in devs:
+                    devq.put(d)
 
         with ThreadPoolExecutor(max_workers=jobs) as ex:
             list(ex.map(worker, pending))

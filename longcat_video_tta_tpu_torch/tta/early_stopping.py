@@ -10,6 +10,10 @@ The fixed noises come from ``torch.Generator``s seeded with seed + d
 differ); ``setup`` takes them as an argument so tests can inject the
 reference's draws.
 
+Under a mesh every rank's anchor is rank 0's (``engine.agree``), so the
+ranks keep one history and decide alike (a rank that decided otherwise
+would hang the next collective).
+
 Snapshots are plain references: the engine's updates make new tensors
 and never write into old ones, so the best state stays as it was when
 recorded, for a few adapter tensors and for ``full``'s whole DiT alike.
@@ -30,7 +34,7 @@ import torch
 
 from ..config import DiTConfig, EarlyStoppingConfig
 from .adapters import AdapterScheme
-from .engine import anchor_loss
+from .engine import agree, anchor_loss
 from .losses import flow_matching_loss_conditioned_fixed
 
 
@@ -100,10 +104,10 @@ class AnchoredEarlyStopper:
         self.loss_history.append((0, self.best_loss))
 
     def anchor_loss(self, train_params) -> float:
-        return float(anchor_loss(
+        return float(agree(anchor_loss(
             self.scheme, self.dit, train_params, self.cond_latents,
             self.val_latents, self.text_emb, self.text_mask, self.fixed_noises,
-            self.cfg.anchor_sigmas, anchor_fn=self.anchor_fn))
+            self.cfg.anchor_sigmas, anchor_fn=self.anchor_fn), self.dit))
 
     # ------------------------------------------------------------------
     def step(self, current_step: int, train_params) -> Tuple[bool, Dict[str, Any]]:

@@ -12,6 +12,19 @@ runs at lr 0; AdamW adds eps outside the square root (no eps_root) and
 decays weights after the Adam scaling, before the learning rate. With
 eps 1e-15 the first Adam step is lr * sign(g) in every coordinate.
 
+Under a mesh (the DiT's ``mesh``, ``parallel/``) every rank draws the
+whole sigma and noise from the same generator and the DiT gathers its
+output, so every rank computes the same loss. A trainable tensor then
+holds only its rank's share of the gradient (from its tokens under the
+context axis, its batch rows under the data axis): ``train_step`` sums
+the gradients over the context group (averages them over the data
+group) before the update. Tensor-parallel linears return whole
+gradients through Megatron's f (``ops/layers.py``); a sharded tensor's
+gradient is its shard's. The clip norm is global: a sharded tensor
+counts once per shard, a replicated one once. The losses and the anchor
+that leave a chunk are rank 0's, so every rank's early stopper decides
+alike.
+
 Updates are functional: a step returns new tensors and never writes into
 the old ones, so the early stopper keeps plain references as snapshots.
 For the adapter methods the trainable state is a few small tensors. For
@@ -31,6 +44,7 @@ import torch
 
 from ..config import OptimConfig
 from ..models.dit import LongCatDiT
+from ..parallel.collectives import all_reduce, all_reduce_grads, broadcast
 from .adapters import AdapterScheme, TrainParams
 from .losses import (
     flow_matching_loss_conditioned,
@@ -39,9 +53,49 @@ from .losses import (
 )
 
 
-def global_norm(tree: TrainParams) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor (optax.global_norm)."""
-    return torch.sqrt(sum((x.float() ** 2).sum() for x in tree.values()))
+def global_norm(tree: TrainParams, sharded=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor (optax.global_norm).
+    ``sharded``: (tensor group, names) of tensors that hold a
+    tensor-parallel slice: their squares are summed over the group, the
+    rest counted once."""
+    if sharded is None or sharded[0] is None:
+        return torch.sqrt(sum((x.float() ** 2).sum() for x in tree.values()))
+    group, names = sharded
+    sq = lambda keys: sum(((tree[k].float() ** 2).sum() for k in keys),
+                          torch.zeros((), device=next(iter(tree.values())).device))
+    local = sq([k for k in tree if k in names])
+    return torch.sqrt(sq([k for k in tree if k not in names]) + all_reduce(local, group))
+
+
+def mesh_of(dit):
+    """The DiT's mesh when it splits the tokens or the linears, else None
+    (a data-only mesh splits lanes, which train on their own)."""
+    mesh = getattr(dit, "mesh", None)
+    if mesh is None or mesh.size("context") * mesh.size("tensor") == 1:
+        return None
+    return mesh
+
+
+def sharded_leaves(dit, tree: TrainParams):
+    """(tensor group, names of ``tree``'s tensor-parallel slices) for the
+    global clip norm, or None."""
+    mesh = getattr(dit, "mesh", None)
+    if mesh is None or mesh.size("tensor") == 1:
+        return None
+    from ..parallel.sharding import sharded_names
+
+    names = sharded_names(dit)
+    return mesh.group("tensor"), {k for k in tree if k in names}
+
+
+def agree(x: torch.Tensor, dit) -> torch.Tensor:
+    """Rank 0's ``x`` on every rank of the DiT's mesh (losses and anchors
+    the early stopper reads), ``x`` without one."""
+    if mesh_of(dit) is None:
+        return x
+    import torch.distributed as dist
+
+    return broadcast(x, dist.group.WORLD)
 
 
 def lane_norms(tree: TrainParams) -> torch.Tensor:
@@ -81,7 +135,7 @@ class Optimizer:
         return (0.0 - c.lr) * frac + c.lr
 
     def update(self, grads: TrainParams, state: Dict, params: TrainParams,
-               lanes: bool = False) -> Tuple[TrainParams, Dict]:
+               lanes: bool = False, sharded=None) -> Tuple[TrainParams, Dict]:
         """One step -> (new params, new state). Tensor by tensor: clip by
         the global norm (optax.clip_by_global_norm: t / norm * max_norm
         when norm >= max_norm, t otherwise), then the AdamW or SGD update;
@@ -89,10 +143,11 @@ class Optimizer:
         ``lanes`` every tensor has a leading lane axis and each lane is
         clipped by its own norm; AdamW and SGD are elementwise, so the rest
         is per lane as it stands, and the lanes share the step count (they
-        always step together)."""
+        always step together). ``sharded``: the tensor-parallel slices
+        among the tensors (``sharded_leaves``), for the global norm."""
         c = self.cfg
         max_norm = c.grad_clip_norm
-        norm = lane_norms(grads) if lanes else global_norm(grads)
+        norm = lane_norms(grads) if lanes else global_norm(grads, sharded)
         keep = norm < max_norm
         lr = self.learning_rate(state["count"])
         count = state["count"] + 1
@@ -165,8 +220,18 @@ def train_step(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
     grads = {k: torch.zeros_like(v) if g is None else g
              for (k, v), g in zip(leaves.items(), grads)}
     del leaves
-    train_params, opt_state = opt.update(grads, opt_state, train_params)
-    return train_params, opt_state, loss.detach()
+    mesh = getattr(dit, "mesh", None)
+    loss = loss.detach()
+    if mesh is not None:
+        # each rank's share of a replicated tensor's gradient: its tokens
+        # (context), its batch rows (data: the loss is a mean over rows)
+        grads = all_reduce_grads(grads, mesh.group("context"))
+        grads = all_reduce_grads(grads, mesh.group("data"), mean=True)
+        if mesh.group("data") is not None:
+            loss = all_reduce(loss, mesh.group("data")) / mesh.size("data")
+    train_params, opt_state = opt.update(grads, opt_state, train_params,
+                                         sharded=sharded_leaves(dit, train_params))
+    return train_params, opt_state, loss
 
 
 def anchor_loss(scheme: AdapterScheme, dit: LongCatDiT, train_params: TrainParams,
@@ -231,10 +296,10 @@ def train_chunk(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
     anchor = None
     if val_latents is not None:
         mark("anchor_check")
-        anchor = anchor_loss(scheme, dit, train_params, cond_latents, val_latents,
-                             text_emb, text_mask, fixed_noises, anchor_sigmas,
-                             anchor_fn=anchor_fn)
-    return train_params, opt_state, torch.stack(losses), anchor
+        anchor = agree(anchor_loss(scheme, dit, train_params, cond_latents, val_latents,
+                                   text_emb, text_mask, fixed_noises, anchor_sigmas,
+                                   anchor_fn=anchor_fn), dit)
+    return train_params, opt_state, agree(torch.stack(losses), dit), anchor
 
 
 def train_chunk_batched(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,

@@ -162,9 +162,10 @@ def test_runner_summary_keys_match_jax_runner(tmp_path):
 
 
 def test_runner_rejects_unported_method(tmp_path):
-    """Every --method runs; an option that is not ported (a multi-device
-    mesh) still raises before any work."""
-    with pytest.raises(SystemExit, match="not yet ported"):
+    """Every --method runs, and every option is ported: a flag combination
+    the reference refuses (--data-mesh without --video-parallel) still
+    raises before any work."""
+    with pytest.raises(SystemExit, match="--data-mesh requires --video-parallel"):
         run_tta.main(["--method", "film", "--data-mesh", "2", "--output-dir",
                       str(tmp_path), "--device", "cpu", "--synthetic", "1"])
     assert not os.listdir(tmp_path)

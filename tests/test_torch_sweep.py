@@ -2,8 +2,9 @@
 
 - Every row of every configs/*.yaml builds the JAX sweep's argv, with
   compile_cache_dir and attn_impl forwarded, and the port runner's parser
-  takes it; the not-yet-ported mesh keys raise, and video_parallel,
-  native_prefetch and debug_nans give the runner's flags.
+  takes it; video_parallel, native_prefetch, debug_nans and the three
+  mesh keys give the runner's flags (a mesh row of N ranks launches
+  through torchrun).
 - The campaign YAMLs pass the port runner's --preflight-only.
 - Dry-run, resume-skip, --jobs with a CUDA_VISIBLE_DEVICES pool, the
   fleet STOP file and the subprocess drain sentinel, as tests/test_sweep.py
@@ -31,8 +32,8 @@ torch.set_num_threads(2)
 
 CONFIGS = sorted(glob.glob("configs/*.yaml"))
 FORWARDED = {"compile_cache_dir": "--compile-cache-dir", "attn_impl": "--attn-impl"}
-# the six keys the port refused before video_parallel, native_prefetch and
-# debug_nans were ported; the three mesh keys still raise
+# the six keys the port refused before video_parallel, native_prefetch,
+# debug_nans and the three mesh keys were ported
 ONCE_REFUSED = ("video_parallel", "data_mesh", "context_mesh", "tensor_mesh",
                 "native_prefetch", "debug_nans")
 MESH_KEYS = ("data_mesh", "context_mesh", "tensor_mesh")
@@ -67,13 +68,12 @@ def test_build_argv_matches_jax_and_parses(path):
 
 @pytest.mark.parametrize("key", ONCE_REFUSED)
 def test_not_ported_keys_raise(key):
-    """The mesh keys raise; the three ported keys give the runner's flag,
-    and the port's parser takes it."""
-    params = {key: 2 if key == "video_parallel" else True}
+    """Each once-refused key gives the runner's flag, as the JAX sweep
+    builds it, and the port's parser takes it; a mesh key's row needs
+    its ranks."""
+    params = {key: 2 if key == "video_parallel" or key in MESH_KEYS else True}
     if key in MESH_KEYS:
-        with pytest.raises(ValueError, match="not yet ported"):
-            tsw.build_argv("delta_a", params, "/out", None)
-        return
+        assert tsw.row_ranks(params) == 2
     argv = tsw.build_argv("delta_a", params, "/out", None)
     assert argv == jsw.build_argv("delta_a", params, "/out", None)
     args = build_arg_parser().parse_args(argv)

@@ -495,7 +495,8 @@ def test_runner_rejects_unported_options(tmp_path):
         run_tta.main(["--method", "lora", "--video-parallel"] + base)
     with pytest.raises(SystemExit):
         run_tta.main(["--method", "delta_a", "--data-mesh", "2"] + base)
-    with pytest.raises(SystemExit, match="not yet ported"):
+    # a 2-rank data mesh in one process: ported, launched through torchrun
+    with pytest.raises(SystemExit, match="launch with torchrun"):
         run_tta.main(["--method", "delta_a", "--video-parallel", "2", "--data-mesh", "2"]
                      + base)
     assert run_tta.build_arg_parser().parse_args(base).method == "delta_a"

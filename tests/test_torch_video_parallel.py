@@ -352,7 +352,7 @@ def test_group_attention_calls_match_the_launch_derivation(tmp_path, monkeypatch
     (["--aug-enabled", "--aug-hflip"], "does not compose with augmentation"),
     (["--bucket-shapes"], "does not compose with --bucket-shapes"),
     (["--batch-videos", "2", "--retrieval-pool-dir", "/x"], "--batch-videos"),
-    (["--data-mesh", "2"], "not yet ported"),
+    (["--data-mesh", "2"], "launch with torchrun"),
 ], ids=["dno", "none", "aug", "bucket", "batch", "data_mesh"])
 def test_video_parallel_refusals(tmp_path, extra, match):
     with pytest.raises(SystemExit, match=match):
