@@ -245,6 +245,26 @@ Phases (each one fails the run when it fails):
      rank's; (c) in the 2-rank world, the small MMDiT and CogVideoX under
      tensor parallelism against one rank: forward relative L2 <= 1e-2,
      one delta_a step's loss within 1e-2 and gradient cosine >= 0.99.
+     The ranks start twice: the 4-rank ring, then one 2-rank world for
+     the 2-rank ring, (c) and the three runs of (b), one after another
+     (the one-rank runs of (b) go first, in this process).
+ 21. demo (``--only demo``): the science loop at longcat_demo's full
+     width (DiT 768, 8 blocks, 6 heads of 128; WAN VAE base 32) and
+     192x320. (a) One VAE step and one DiT pretraining step (every DiT
+     parameter) at pretraining's shapes (batch 2; 9-frame clips; 4 + 8
+     latents) on the card against the CPU, same weights and draws, under
+     the step agreement's gates (the CPU side runs in a background thread
+     from before the main path on); (b) ``scripts.pretrain_demo`` cut to
+     ``DEMO["vae_steps"]`` and ``DEMO["dit_steps"]`` (batch 2, 4 + 8
+     latent windows): the last logged recon MSE and flow
+     loss each at most half of step 0's, launches as
+     ``pretrain_launches``; (c) the checkpoint it writes, loaded as
+     ``run_tta --checkpoint-dir`` loads it, equal to the trained modules
+     tensor for tensor; (d) ``scripts.run_demo_campaign`` on it, rows
+     baseline and full, the NOTTA and FULL entries, on 2 distribution-B
+     videos each with the synthetic towers and the YAMLs' 50 denoising
+     steps: every row ok, every metric finite (PSNR, SSIM, LPIPS, FVD,
+     FID, the five VBench dimensions), launches as ``demo_row_launches``.
 
 The lever runs (7), the checkpoint path (9), [eval], [t2v], [vbench] and
 [vp] run LongCat-13.6B at 12 of its 48 blocks (``CUT_DEPTH``, full
@@ -269,6 +289,21 @@ import subprocess
 import sys
 import time
 import zlib
+
+# the tower files' layouts and writers: the package's synthetic-tower
+# script, one writer for both (the port's tests read the CLIP and
+# InceptionV3 layouts through this module too)
+from longcat_video_tta_tpu_torch.scripts.make_synth_towers import (  # noqa: E402
+    CLIP_GEOMETRY,
+    clip_hf_config,
+    clip_state_shapes,
+    i3d_state_shapes,
+    inception_state_shapes,
+    lpips_state_shapes,
+    tower_value,
+    write_tower_files,
+    write_vbench_tower_files,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(ROOT, ".chip_smoke")
@@ -1414,7 +1449,8 @@ def train_step_launches(graph: str, depth: int, policy: str = "full"):
     attention's q, and self-attention's k and v. Under the "dots" policy
     the attention forward is recomputed as under "full"; under
     "dots_attn" its o and lse are kept, so each attention runs forward
-    once (2 x depth) and the backward counts do not change."""
+    once (2 x depth) and the backward counts do not change; so it does
+    without remat ("none": longcat_demo's remat=False)."""
     d = depth
     fwd, dq, dkv = {
         "t_embed": (4 * d, 2 * d, d),
@@ -1423,7 +1459,7 @@ def train_step_launches(graph: str, depth: int, policy: str = "full"):
         "hidden": (2 * d + 2 * (d - 1), 2 * (d - 1), d - 1),
         "output": (2 * d, 0, 0),
     }[graph]
-    if policy == "dots_attn":
+    if policy in ("dots_attn", "none"):
         fwd = 2 * d
     return {"flash_fwd": fwd, "flash_bwd_dq": dq, "flash_bwd_dkv": dkv}
 
@@ -2313,334 +2349,9 @@ def phase_bucket_path(fa):
 # ---------------------------------------------------------------------------
 
 # openai/clip-vit-base-patch32 and microsoft/xclip-base-patch32
-CLIP_GEOMETRY = dict(vocab=49408, max_len=77, text_width=512, text_layers=12, text_heads=8,
-                     vision_width=768, vision_layers=12, vision_heads=12, patch=32,
-                     image=224, proj=512, frames=8, mit_layers=1, mit_heads=8,
-                     prompt_layers=2, prompt_heads=8)
-# lpips.LPIPS(net='alex'): (torchvision features index, cout, cin, kernel)
-LPIPS_CONVS = ((0, 64, 3, 11), (3, 192, 64, 5), (6, 384, 192, 3), (8, 256, 384, 3),
-               (10, 256, 256, 3))
-# pytorch-i3d InceptionI3d: module -> (cin, b0, b1 reduce, b1, b2 reduce, b2, b3)
-I3D_MODULES = {"Mixed_3b": (192, 64, 96, 128, 16, 32, 32),
-               "Mixed_3c": (256, 128, 128, 192, 32, 96, 64),
-               "Mixed_4b": (480, 192, 96, 208, 16, 48, 64),
-               "Mixed_4c": (512, 160, 112, 224, 24, 64, 64),
-               "Mixed_4d": (512, 128, 128, 256, 24, 64, 64),
-               "Mixed_4e": (512, 112, 144, 288, 32, 64, 64),
-               "Mixed_4f": (528, 256, 160, 320, 32, 128, 128),
-               "Mixed_5b": (832, 256, 160, 320, 32, 128, 128),
-               "Mixed_5c": (832, 384, 192, 384, 48, 128, 128)}
 EVAL = dict(seed=41, frames=16, clip_frames=4, lpips_pairs=8, height=480, width=832,
             cos_min=0.99999, rel_max=1e-4, gate_steps=3, check_every=3,
             inference_steps=4, videos=2)
-
-
-def clip_hf_config(g, xclip: bool) -> dict:
-    """config.json of the published checkpoint (the keys the loaders read)."""
-    text = {"vocab_size": g["vocab"], "hidden_size": g["text_width"],
-            "intermediate_size": 4 * g["text_width"], "num_hidden_layers": g["text_layers"],
-            "num_attention_heads": g["text_heads"], "max_position_embeddings": g["max_len"],
-            "hidden_act": "quick_gelu"}
-    vision = {"hidden_size": g["vision_width"], "intermediate_size": 4 * g["vision_width"],
-              "num_hidden_layers": g["vision_layers"],
-              "num_attention_heads": g["vision_heads"], "patch_size": g["patch"],
-              "image_size": g["image"], "hidden_act": "quick_gelu"}
-    cfg = {"projection_dim": g["proj"], "text_config": text, "vision_config": vision}
-    if not xclip:
-        return dict(cfg, architectures=["CLIPModel"], model_type="clip")
-    vision.update(num_frames=g["frames"], mit_hidden_size=g["proj"],
-                  mit_intermediate_size=4 * g["proj"],
-                  mit_num_hidden_layers=g["mit_layers"],
-                  mit_num_attention_heads=g["mit_heads"])
-    return dict(cfg, architectures=["XCLIPModel"], model_type="xclip",
-                prompt_layers=g["prompt_layers"],
-                prompt_num_attention_heads=g["prompt_heads"])
-
-
-def _hf_layer(prefix: str, width: int, table) -> dict:
-    out = {}
-    for name, dims in table:
-        if dims == "ln":
-            out.update({f"{prefix}.{name}.weight": (width,), f"{prefix}.{name}.bias": (width,)})
-        else:
-            i, o, bias = dims
-            out[f"{prefix}.{name}.weight"] = (o * width, i * width)
-            if bias:
-                out[f"{prefix}.{name}.bias"] = (o * width,)
-    return out
-
-
-_HF_ATTN = [(f"self_attn.{n}_proj", (1, 1, True)) for n in "kvq"] + [
-    ("self_attn.out_proj", (1, 1, True)), ("layer_norm1", "ln"),
-    ("mlp.fc1", (1, 4, True)), ("mlp.fc2", (4, 1, True)), ("layer_norm2", "ln")]
-_HF_MSG = [("message_fc", (1, 1, True)), ("message_ln", "ln")] + [
-    (f"message_attn.{n}_proj", (1, 1, True)) for n in ("k", "v", "q", "out")]
-
-
-def clip_state_shapes(g, xclip: bool) -> dict:
-    """key -> shape of a Hugging Face CLIPModel / XCLIPModel checkpoint."""
-    T, V, P = g["text_width"], g["vision_width"], g["proj"]
-    n_patch = (g["image"] // g["patch"]) ** 2 + 1
-    sh = {"logit_scale": (),
-          "text_model.embeddings.token_embedding.weight": (g["vocab"], T),
-          "text_model.embeddings.position_embedding.weight": (g["max_len"], T),
-          "text_model.embeddings.position_ids": (1, g["max_len"]),
-          "text_model.final_layer_norm.weight": (T,), "text_model.final_layer_norm.bias": (T,),
-          "vision_model.embeddings.class_embedding": (V,),
-          "vision_model.embeddings.patch_embedding.weight": (V, 3, g["patch"], g["patch"]),
-          "vision_model.embeddings.position_embedding.weight": (n_patch, V),
-          "vision_model.embeddings.position_ids": (1, n_patch),
-          "vision_model.post_layernorm.weight": (V,), "vision_model.post_layernorm.bias": (V,),
-          "visual_projection.weight": (P, V), "text_projection.weight": (P, T)}
-    pre = "pre_layernorm" if xclip else "pre_layrnorm"
-    sh.update({f"vision_model.{pre}.weight": (V,), f"vision_model.{pre}.bias": (V,)})
-    for i in range(g["text_layers"]):
-        sh.update(_hf_layer(f"text_model.encoder.layers.{i}", T, _HF_ATTN))
-    for i in range(g["vision_layers"]):
-        sh.update(_hf_layer(f"vision_model.encoder.layers.{i}", V,
-                            (_HF_MSG if xclip else []) + _HF_ATTN))
-    if not xclip:
-        return sh
-    sh.update({"prompts_visual_projection": (V, P),
-               "prompts_visual_layernorm.weight": (V,), "prompts_visual_layernorm.bias": (V,),
-               "mit.position_embedding": (1, g["frames"], P),
-               "prompts_generator.alpha": (P,),
-               "prompts_generator.layernorm.weight": (P,),
-               "prompts_generator.layernorm.bias": (P,)})
-    for i in range(g["mit_layers"]):
-        sh.update(_hf_layer(f"mit.encoder.layers.{i}", P, _HF_ATTN))
-    for i in range(g["prompt_layers"]):
-        sh.update(_hf_layer(f"prompts_generator.decoder.{i}", P, [
-            ("cross_attn.q_proj", (1, 1, False)), ("cross_attn.k_proj", (1, 1, False)),
-            ("cross_attn.v_proj", (1, 1, False)), ("cross_attn.proj", (1, 1, True)),
-            ("norm1", "ln"), ("norm3", "ln"), ("mlp.0", (1, 4, True)),
-            ("mlp.3", (4, 1, True))]))
-    return sh
-
-
-def lpips_state_shapes() -> dict:
-    sh = {"scaling_layer.shift": (1, 3, 1, 1), "scaling_layer.scale": (1, 3, 1, 1)}
-    for i, (idx, cout, cin, k) in enumerate(LPIPS_CONVS):
-        sh[f"net.slice{i + 1}.{idx}.weight"] = (cout, cin, k, k)
-        sh[f"net.slice{i + 1}.{idx}.bias"] = (cout,)
-        sh[f"lin{i}.model.1.weight"] = (1, cout, 1, 1)
-    return sh
-
-
-def _bn_unit(prefix: str, conv: str, cout: int, kernel: tuple, cin: int) -> dict:
-    sh = {f"{prefix}.{conv}.weight": (cout, cin) + kernel,
-          f"{prefix}.bn.num_batches_tracked": ()}
-    sh.update({f"{prefix}.bn.{k}": (cout,)
-               for k in ("weight", "bias", "running_mean", "running_var")})
-    return sh
-
-
-def i3d_state_shapes() -> dict:
-    """The pytorch-i3d InceptionI3d state dict (Kinetics-400 logits)."""
-    sh = {}
-    for name, cin, cout, k in (("Conv3d_1a_7x7", 3, 64, 7), ("Conv3d_2b_1x1", 64, 64, 1),
-                               ("Conv3d_2c_3x3", 64, 192, 3)):
-        sh.update(_bn_unit(name, "conv3d", cout, (k,) * 3, cin))
-    for name, (cin, b0, b1r, b1, b2r, b2, b3) in I3D_MODULES.items():
-        for unit, i, o, k in (("b0", cin, b0, 1), ("b1a", cin, b1r, 1), ("b1b", b1r, b1, 3),
-                              ("b2a", cin, b2r, 1), ("b2b", b2r, b2, 3), ("b3b", cin, b3, 1)):
-            sh.update(_bn_unit(f"{name}.{unit}", "conv3d", o, (k,) * 3, i))
-    sh.update({"logits.conv3d.weight": (400, 1024, 1, 1, 1), "logits.conv3d.bias": (400,)})
-    return sh
-
-
-def inception_state_shapes() -> dict:
-    """torchvision's inception_v3 state dict, AuxLogits and fc included."""
-    units = [("Conv2d_1a_3x3", 3, 32, (3, 3)), ("Conv2d_2a_3x3", 32, 32, (3, 3)),
-             ("Conv2d_2b_3x3", 32, 64, (3, 3)), ("Conv2d_3b_1x1", 64, 80, (1, 1)),
-             ("Conv2d_4a_3x3", 80, 192, (3, 3))]
-    for name, cin, pool in (("Mixed_5b", 192, 32), ("Mixed_5c", 256, 64),
-                            ("Mixed_5d", 288, 64)):
-        units += [(f"{name}.{b}", i, o, k) for b, i, o, k in (
-            ("branch1x1", cin, 64, (1, 1)), ("branch5x5_1", cin, 48, (1, 1)),
-            ("branch5x5_2", 48, 64, (5, 5)), ("branch3x3dbl_1", cin, 64, (1, 1)),
-            ("branch3x3dbl_2", 64, 96, (3, 3)), ("branch3x3dbl_3", 96, 96, (3, 3)),
-            ("branch_pool", cin, pool, (1, 1)))]
-    units += [(f"Mixed_6a.{b}", i, o, k) for b, i, o, k in (
-        ("branch3x3", 288, 384, (3, 3)), ("branch3x3dbl_1", 288, 64, (1, 1)),
-        ("branch3x3dbl_2", 64, 96, (3, 3)), ("branch3x3dbl_3", 96, 96, (3, 3)))]
-    for name, c7 in (("Mixed_6b", 128), ("Mixed_6c", 160), ("Mixed_6d", 160),
-                     ("Mixed_6e", 192)):
-        units += [(f"{name}.{b}", i, o, k) for b, i, o, k in (
-            ("branch1x1", 768, 192, (1, 1)), ("branch7x7_1", 768, c7, (1, 1)),
-            ("branch7x7_2", c7, c7, (1, 7)), ("branch7x7_3", c7, 192, (7, 1)),
-            ("branch7x7dbl_1", 768, c7, (1, 1)), ("branch7x7dbl_2", c7, c7, (7, 1)),
-            ("branch7x7dbl_3", c7, c7, (1, 7)), ("branch7x7dbl_4", c7, c7, (7, 1)),
-            ("branch7x7dbl_5", c7, 192, (1, 7)), ("branch_pool", 768, 192, (1, 1)))]
-    units += [(f"Mixed_7a.{b}", i, o, k) for b, i, o, k in (
-        ("branch3x3_1", 768, 192, (1, 1)), ("branch3x3_2", 192, 320, (3, 3)),
-        ("branch7x7x3_1", 768, 192, (1, 1)), ("branch7x7x3_2", 192, 192, (1, 7)),
-        ("branch7x7x3_3", 192, 192, (7, 1)), ("branch7x7x3_4", 192, 192, (3, 3)))]
-    for name, cin in (("Mixed_7b", 1280), ("Mixed_7c", 2048)):
-        units += [(f"{name}.{b}", i, o, k) for b, i, o, k in (
-            ("branch1x1", cin, 320, (1, 1)), ("branch3x3_1", cin, 384, (1, 1)),
-            ("branch3x3_2a", 384, 384, (1, 3)), ("branch3x3_2b", 384, 384, (3, 1)),
-            ("branch3x3dbl_1", cin, 448, (1, 1)), ("branch3x3dbl_2", 448, 384, (3, 3)),
-            ("branch3x3dbl_3a", 384, 384, (1, 3)), ("branch3x3dbl_3b", 384, 384, (3, 1)),
-            ("branch_pool", cin, 192, (1, 1)))]
-    units += [("AuxLogits.conv0", 768, 128, (1, 1)), ("AuxLogits.conv1", 128, 768, (5, 5))]
-    sh = {}
-    for name, cin, cout, k in units:
-        sh.update(_bn_unit(name, "conv", cout, k, cin))
-    sh.update({"AuxLogits.fc.weight": (1000, 768), "AuxLogits.fc.bias": (1000,),
-               "fc.weight": (1000, 2048), "fc.bias": (1000,)})
-    return sh
-
-
-def tower_value(key: str, shape, gen, device):
-    """A drawn value for one checkpoint tensor, by its role: integer
-    buffers count, norm scales near 1, running variances in [1, 1.1),
-    biases and running means small, convolutions He-scaled, linears
-    1/sqrt(fan-in), embeddings 0.02, LPIPS' 1x1 weights non-negative."""
-    import torch
-
-    if key.endswith("position_ids"):
-        return torch.arange(shape[-1], device=device).view(shape)
-    if key.endswith("num_batches_tracked"):
-        return torch.zeros(shape, dtype=torch.long, device=device)
-    if key == "logit_scale":
-        return torch.full(shape, math.log(1 / 0.07), device=device)
-    if key.startswith("scaling_layer."):
-        c = (-0.030, -0.088, -0.188) if key.endswith("shift") else (0.458, 0.448, 0.450)
-        return torch.tensor(c, device=device).view(shape)
-    r = torch.randn(shape, generator=gen, device=device)
-    if key.endswith("running_var"):
-        return 1.0 + 0.1 * torch.rand(shape, generator=gen, device=device)
-    if key.endswith(("running_mean", ".bias")):
-        return 0.02 * r
-    if key.startswith("lin") or key == "prompts_generator.alpha":
-        return 0.1 * r.abs()
-    if "embedding" in key:
-        return 0.02 * r
-    if len(shape) == 1:  # layer / batch norm scales
-        return 1.0 + 0.02 * r
-    fan_in = math.prod(shape[1:]) if key != "prompts_visual_projection" else shape[0]
-    return r * math.sqrt((2.0 if len(shape) > 2 else 1.0) / fan_in)
-
-
-def write_tower_files(folder: str, seed: int, device="cuda", clip_geometry=None) -> dict:
-    """The five tower checkpoints, drawn from ``seed`` on ``device`` in
-    their published layouts: CLIP and X-CLIP as Hugging Face folders
-    (config.json + model.safetensors, no tokenizer), LPIPS, I3D and
-    InceptionV3 as torch state-dict files. Returns {tower: path}."""
-    import torch
-
-    from longcat_video_tta_tpu_torch.utils.safetensors import save_file
-
-    g = clip_geometry or CLIP_GEOMETRY
-    gen = torch.Generator(device=device).manual_seed(seed)
-    draw = lambda shapes: {k: tower_value(k, s, gen, device) for k, s in shapes.items()}
-    paths = {}
-    for name, xclip in (("clip", False), ("xclip", True)):
-        d = os.path.join(folder, name)
-        os.makedirs(d, exist_ok=True)
-        with open(os.path.join(d, "config.json"), "w") as f:
-            json.dump(clip_hf_config(g, xclip), f)
-        save_file(draw(clip_state_shapes(g, xclip)), os.path.join(d, "model.safetensors"))
-        paths[name] = d
-    for name, file, shapes in (("lpips", "lpips_alex.pth", lpips_state_shapes()),
-                               ("i3d", "i3d_pytorch.pt", i3d_state_shapes()),
-                               ("inception", "inception_v3.pth", inception_state_shapes())):
-        paths[name] = os.path.join(folder, file)
-        torch.save({k: v.cpu() for k, v in draw(shapes).items()}, paths[name])
-    return paths
-
-
-# the VBench towers at their published geometry: DINO ViT-S/16, CLIP
-# ViT-L/14 with the LAION aesthetic head, MUSIQ-SPAQ
-CLIP_L14_GEOMETRY = dict(vocab=49408, max_len=77, text_width=768, text_layers=12,
-                         text_heads=12, vision_width=1024, vision_layers=24,
-                         vision_heads=16, patch=14, image=224, proj=768)
-# the predictor's widths after the 768-d CLIP-L/14 embed; its nn.Sequential
-# holds the Linears at 0, 2, 4, 6, 7 (Dropouts between)
-AESTHETIC_DIMS = (1024, 128, 64, 16, 1)
-AESTHETIC_LAYERS = (0, 2, 4, 6, 7)
-
-
-def _vit_block_shapes(prefix: str, W: int) -> dict:
-    sh = {}
-    for name, shape in (("norm1", (W,)), ("norm2", (W,))):
-        sh.update({f"{prefix}.{name}.weight": shape, f"{prefix}.{name}.bias": shape})
-    for name, o, i in (("attn.qkv", 3 * W, W), ("attn.proj", W, W),
-                       ("mlp.fc1", 4 * W, W), ("mlp.fc2", W, 4 * W)):
-        sh.update({f"{prefix}.{name}.weight": (o, i), f"{prefix}.{name}.bias": (o,)})
-    return sh
-
-
-def dino_state_shapes(d: dict) -> dict:
-    """key -> shape of the facebookresearch/dino ``dino_vits16`` state dict
-    at geometry ``d`` (width, num_layers, num_heads, patch_size, image_size)."""
-    W, p = d["width"], d["patch_size"]
-    sh = {"cls_token": (1, 1, W), "pos_embed": (1, (d["image_size"] // p) ** 2 + 1, W),
-          "patch_embed.proj.weight": (W, 3, p, p), "patch_embed.proj.bias": (W,),
-          "norm.weight": (W,), "norm.bias": (W,)}
-    for i in range(d["num_layers"]):
-        sh.update(_vit_block_shapes(f"blocks.{i}", W))
-    return sh
-
-
-def musiq_state_shapes(m: dict) -> dict:
-    """key -> shape of a MUSIQ state dict in the reference's layout at
-    geometry ``m`` (MUSIQConfig.as_dict())."""
-    W, G, p = m["width"], m["grid_size"], m["patch_size"]
-    sh = {"patch_embedding.weight": (W, 3 * p * p), "patch_embedding.bias": (W,),
-          "cls_token": (1, 1, W), "hash_pos_embed": (G, G, W),
-          "scale_embed": (1 + len(m["longer_sides"]), W),
-          "norm.weight": (W,), "norm.bias": (W,), "head.weight": (1, W), "head.bias": (1,)}
-    for i in range(m["num_layers"]):
-        sh.update(_vit_block_shapes(f"blocks.{i}", W))
-    return sh
-
-
-def write_vbench_tower_files(folder: str, seed: int, device="cuda", dino=None, musiq=None,
-                             clip_geometry=None, aesthetic_dims=AESTHETIC_DIMS) -> dict:
-    """The VBench towers' files, drawn from ``seed`` on ``device``:
-    dino_vits16.pth and musiq_spaq.pth (each with its config sidecar),
-    aesthetic_l14.pth (the predictor's Sequential keys) and clip_l14/ (a
-    Hugging Face CLIPModel folder without a tokenizer). ``dino`` /
-    ``musiq`` / ``clip_geometry`` override the published geometries (the
-    CPU tests' tiny towers; ``aesthetic_dims`` the head's widths after
-    the CLIP embed). Returns {tower: path}."""
-    import dataclasses
-
-    import torch
-
-    from longcat_video_tta_tpu_torch.eval.musiq import MUSIQConfig
-    from longcat_video_tta_tpu_torch.eval.vbench_native import DINOViTConfig
-    from longcat_video_tta_tpu_torch.utils.safetensors import save_file
-
-    dino = dino or dataclasses.asdict(DINOViTConfig())
-    musiq = musiq or MUSIQConfig().as_dict()
-    g = clip_geometry or CLIP_L14_GEOMETRY
-    gen = torch.Generator(device=device).manual_seed(seed)
-    draw = lambda shapes: {k: tower_value(k, s, gen, device).cpu() for k, s in shapes.items()}
-    os.makedirs(folder, exist_ok=True)
-    paths = {}
-    for name, file, shapes, side in (("dino", "dino_vits16.pth", dino_state_shapes(dino),
-                                      ("dino_config.json", dino)),
-                                     ("musiq", "musiq_spaq.pth", musiq_state_shapes(musiq),
-                                      ("musiq_config.json", musiq))):
-        paths[name] = os.path.join(folder, file)
-        torch.save(draw(shapes), paths[name])
-        with open(os.path.join(folder, side[0]), "w") as f:
-            json.dump(side[1], f)
-    dims = (g["proj"],) + tuple(aesthetic_dims)
-    paths["aesthetic"] = os.path.join(folder, "aesthetic_l14.pth")
-    torch.save(draw({f"layers.{i}.{n}": ((o, a) if n == "weight" else (o,))
-                     for i, a, o in zip(AESTHETIC_LAYERS, dims[:-1], dims[1:])
-                     for n in ("weight", "bias")}), paths["aesthetic"])
-    paths["clip_l14"] = os.path.join(folder, "clip_l14")
-    os.makedirs(paths["clip_l14"], exist_ok=True)
-    with open(os.path.join(paths["clip_l14"], "config.json"), "w") as f:
-        json.dump(clip_hf_config(g, False), f)
-    save_file(draw(clip_state_shapes(g, False)),
-              os.path.join(paths["clip_l14"], "model.safetensors"))
-    return paths
 
 
 def _agreement(tag: str, card, cpu) -> dict:
@@ -4642,8 +4353,8 @@ def mesh_ring_worker(case, out_path: str):
         return ring_self_attention(ql_, kl_, vl_, mesh, num_cond_tokens=ncond, kv_valid=kv,
                                    cache=cl)
 
-    rec["ring_fwd_ms"] = _events_ms(ring_fwd, iters=2)
-    rec["single_fwd_ms"] = _events_ms(lambda: fa.flash_attention(q, kf, vf, **kw), iters=2)
+    rec["ring_fwd_ms"] = _events_ms(ring_fwd, iters=1)
+    rec["single_fwd_ms"] = _events_ms(lambda: fa.flash_attention(q, kf, vf, **kw), iters=1)
     if case["bwd"]:
         def ring_step():
             a, b, c = (x.detach().requires_grad_(True) for x in (ql_, kl_, vl_))
@@ -4752,10 +4463,33 @@ def check_chunk_row(fa, row):
     return fwd, out_bwd
 
 
+def check_ring_world(world: int, cases, out_dir: str) -> None:
+    """Each rank's record of each ring case of one world: its launches (P
+    forward, 2P for the decode's two pieces; P dQ and P dK/dV) and every
+    gate against one launch and the plain version."""
+    for case in cases:
+        pieces = 2 if case["cache"] else 1
+        for r in range(world):
+            with open(os.path.join(out_dir, f"{case['name']}.rank{r}.json")) as f:
+                rec = json.load(f)
+            want = {"fwd_launches": world * pieces}
+            if case["bwd"]:
+                want.update(dq_launches=world, dkv_launches=world)
+            got = {key: rec[key] for key in want}
+            gates = [rec[g] for g in rec if g.startswith(("vs_", "dq_", "dk_", "dv_"))
+                     and isinstance(rec[g], dict)]
+            bad = [g for g in gates if not g["ok"]]
+            if got != want or bad:
+                raise AssertionError(f"ring case {case['name']} rank {r}: launches "
+                                     f"{got} (want {want}); {json.dumps(rec)}")
+            print(f"[mesh-ring] {json.dumps(rec)}")
+
+
 def phase_mesh_kernels(fa, dit_cfg, tokens_per_frame):
-    """[mesh] (a): the chunk rows in this process, then the ring in 2 and
-    4 ranks on the card against one launch over the whole sequence and
-    the plain version, with each rank's launches."""
+    """[mesh] (a): the chunk rows in this process, then the ring in 4 ranks
+    on the card against one launch over the whole sequence and the plain
+    version, with each rank's launches (the 2-rank ring runs in the 2-rank
+    world of ``phase_mesh_runs``)."""
     fwd_rows, bwd_rows = [], []
     for row in mesh_chunk_rows(fa, dit_cfg, tokens_per_frame):
         f, b = check_chunk_row(fa, row)
@@ -4765,29 +4499,13 @@ def phase_mesh_kernels(fa, dit_cfg, tokens_per_frame):
         for r in b:
             print(f"[mesh-chunk] {json.dumps(r)}")
     out_dir = os.path.join(RUN_DIR, "mesh_ring")
-    for world in (2, 4):
-        cases = mesh_ring_cases(dit_cfg, tokens_per_frame, world)
-        t0 = time.time()
-        spawn_ranks(world, [os.path.abspath(__file__), "--mesh-worker", "ring",
-                            "--mesh-out", out_dir], out_dir, MESH["timeout_s"],
-                    {"CHIP_SMOKE_CASES": json.dumps(cases)})
-        for case in cases:
-            pieces = 2 if case["cache"] else 1
-            for r in range(world):
-                with open(os.path.join(out_dir, f"{case['name']}.rank{r}.json")) as f:
-                    rec = json.load(f)
-                want = {"fwd_launches": world * pieces}
-                if case["bwd"]:
-                    want.update(dq_launches=world, dkv_launches=world)
-                got = {key: rec[key] for key in want}
-                gates = [rec[g] for g in rec if g.startswith(("vs_", "dq_", "dk_", "dv_"))
-                         and isinstance(rec[g], dict)]
-                bad = [g for g in gates if not g["ok"]]
-                if got != want or bad:
-                    raise AssertionError(f"ring case {case['name']} rank {r}: launches "
-                                         f"{got} (want {want}); {json.dumps(rec)}")
-                print(f"[mesh-ring] {json.dumps(rec)}")
-        print(f"[mesh-ring] {world} ranks on one card over gloo: {time.time() - t0:.1f} s")
+    cases = mesh_ring_cases(dit_cfg, tokens_per_frame, 4)
+    t0 = time.time()
+    spawn_ranks(4, [os.path.abspath(__file__), "--mesh-worker", "ring",
+                    "--mesh-out", out_dir], out_dir, MESH["timeout_s"],
+                {"CHIP_SMOKE_CASES": json.dumps(cases)})
+    check_ring_world(4, cases, out_dir)
+    print(f"[mesh-ring] 4 ranks on one card over gloo: {time.time() - t0:.1f} s")
     return fwd_rows, bwd_rows
 
 
@@ -4828,6 +4546,7 @@ def mesh_runner(fa, argv, out_json: str):
 
     probe = PhaseProbe(fa, "cuda")
     metrics.evaluate_generation_metrics = keep
+    t0 = time.time()
     try:
         with preset_depth(MESH["depth"], "longcat_13b"):
             fa.reset_launches()  # the main path starts here
@@ -4840,7 +4559,7 @@ def mesh_runner(fa, argv, out_json: str):
     peak, held = probe.tta_peak()
     rec = dict(rank=rank, launches=launches, summary=summary, clips=clips, step_s=step_s,
                anchor_s=anchor_s, peak_gib=peak, held_gib=held,
-               wall_s=probe.events[-1]["t"] - probe.events[0]["t"])
+               wall_s=probe.events[-1]["t"] - probe.events[0]["t"], run_s=time.time() - t0)
     with open(f"{out_json}.rank{rank}", "w") as f:
         json.dump(rec, f)
     return rec
@@ -4921,12 +4640,16 @@ def _clip_for(ranks, i: int) -> str:
     return [p for r in ranks for p in r["clips"]][i]
 
 
-def phase_mesh_runs(fa):
+def phase_mesh_runs(fa, ring_cases=()):
     """[mesh] (b): the runner at LongCat-13.6B width, [mesh]'s depth cut,
     2 ranks sharing the card over gloo: --context-mesh 2 and --tensor-mesh
     2 against the one-rank run of 1 video, --video-parallel 2 --data-mesh 2
-    against the one-rank --video-parallel 2 run of 2 videos. Returns each
-    run's launches summed over its ranks (main-path launches)."""
+    against the one-rank --video-parallel 2 run of 2 videos. The one-rank
+    runs go first, in this process; then one 2-rank world runs
+    ``ring_cases`` ((a)'s 2-rank ring), (c) the small MMDiT and CogVideoX
+    under tensor parallelism when there are ring cases, and the three mesh
+    runs, one after the other (the ranks start once). Returns each run's
+    launches summed over its ranks (main-path launches)."""
     import gc
 
     import torch
@@ -4949,29 +4672,45 @@ def phase_mesh_runs(fa):
     checks = MESH["steps"] // MESH["check_every"]
     common = dict(steps=MESH["steps"], anchors=1 + checks,
                   inference_steps=MESH["inference_steps"])
+    meshes = [("context", "context", 1, ["--context-mesh", "2"], refs["one"]),
+              ("tensor", "tensor", 1, ["--tensor-mesh", "2"], refs["one"]),
+              ("data", "data", MESH["videos"], ["--video-parallel", "2", "--data-mesh", "2"],
+               refs["vp"])]
+    runs = [(os.path.join(base, tag) + ".json",
+             _mesh_argv(os.path.join(base, tag), videos, *flags))
+            for tag, _, videos, flags, _ in meshes]
+    ring_dir = os.path.join(RUN_DIR, "mesh_ring")
+    t0 = time.time()
+    spawn_ranks(2, [os.path.abspath(__file__), "--mesh-worker", "ring",
+                    "--mesh-out", ring_dir], os.path.join(base, "logs"),
+                MESH["timeout_s"] * (1 + len(runs)),
+                {"CHIP_SMOKE_CASES": json.dumps(list(ring_cases)),
+                 "CHIP_SMOKE_RUNS": json.dumps(runs)})
+    print(f"[mesh] the 2-rank world: {time.time() - t0:.1f} s with the ranks' start")
+    if ring_cases:
+        check_ring_world(2, ring_cases, ring_dir)
+        bad = []
+        for r in range(2):
+            with open(os.path.join(ring_dir, f"tp_small.rank{r}.json")) as f:
+                for rec in json.load(f):
+                    print(f"[mesh-tp-small] {json.dumps(rec)}")
+                    bad += [] if rec["ok"] else [rec]
+        if bad:
+            raise AssertionError(f"tensor parallelism disagrees with one rank: {bad}")
     totals = {}
-    for tag, kind, videos, flags, ref in (
-            ("context", "context", 1, ["--context-mesh", "2"], refs["one"]),
-            ("tensor", "tensor", 1, ["--tensor-mesh", "2"], refs["one"]),
-            ("data", "data", MESH["videos"], ["--video-parallel", "2", "--data-mesh", "2"],
-             refs["vp"])):
-        out = os.path.join(base, tag)
-        t0 = time.time()
-        spawn_ranks(2, [os.path.abspath(__file__), "--mesh-worker", "runner",
-                        "--mesh-out", out + ".json"], out + "_logs", MESH["timeout_s"],
-                    {"CHIP_SMOKE_ARGV": json.dumps(_mesh_argv(out, videos, *flags))})
+    for (tag, kind, videos, flags, ref), (out_json, _) in zip(meshes, runs):
         ranks = []
         for r in range(2):
-            with open(f"{out}.json.rank{r}") as f:
+            with open(f"{out_json}.rank{r}") as f:
                 ranks.append(json.load(f))
             for res in ranks[-1]["summary"]["results"]:
                 if not res["success"]:  # the traceback is in the rank's log
-                    with open(os.path.join(out + "_logs", f"rank{r}.log")) as f:
+                    with open(os.path.join(base, "logs", f"rank{r}.log")) as f:
                         print(f"[mesh {tag}] rank {r} log tail:\n" + "".join(f.readlines()[-60:]))
         expected = (mesh_launches("data", d, 2, lanes=1, checks=checks, **common)
                     if kind == "data" else mesh_launches(kind, d, 2, **common))
         check_mesh_run(tag, ranks, ref, expected)
-        print(f"[mesh {tag}] {time.time() - t0:.1f} s with the ranks' start")
+        print(f"[mesh {tag}] {max(r['run_s'] for r in ranks):.1f} s in the 2-rank world")
         for r in ranks:
             for k, n in r["launches"].items():
                 totals[k] = totals.get(k, 0) + n
@@ -5042,27 +4781,35 @@ def mesh_worker(task: str, out_dir: str) -> int:
     from longcat_video_tta_tpu_torch.parallel import init_distributed
 
     assert init_distributed(device="cuda")
+    import torch.distributed as dist
+
     rank = int(os.environ["RANK"])
-    if task == "ring":
-        for case in json.loads(os.environ["CHIP_SMOKE_CASES"]):
-            mesh_ring_worker(case, os.path.join(out_dir, f"{case['name']}.rank{rank}.json"))
+    if task != "ring":
+        raise ValueError(f"unknown mesh task {task!r}")
+    cases = json.loads(os.environ["CHIP_SMOKE_CASES"])
+    for case in cases:
+        mesh_ring_worker(case, os.path.join(out_dir, f"{case['name']}.rank{rank}.json"))
+    if cases and int(os.environ["WORLD_SIZE"]) == 2:
         # (c): the small MMDiT and CogVideoX under --tensor-mesh 2
         from longcat_video_tta_tpu_torch.config import MeshConfig
         from longcat_video_tta_tpu_torch.parallel import build_mesh
 
-        if int(os.environ["WORLD_SIZE"]) == 2:
-            mesh = build_mesh(MeshConfig(tensor=2), device="cuda")
-            recs = [tp_small_check(cfg, 17, mesh)
-                    for cfg in (opensora_small_config(), cogvideox_small_config())]
-            with open(os.path.join(out_dir, f"tp_small.rank{rank}.json"), "w") as f:
-                json.dump(recs, f)
-    elif task == "runner":
-        from longcat_video_tta_tpu_torch.ops import flash_attention as fa
+        mesh = build_mesh(MeshConfig(tensor=2), device="cuda")
+        recs = [tp_small_check(cfg, 17, mesh)
+                for cfg in (opensora_small_config(), cogvideox_small_config())]
+        with open(os.path.join(out_dir, f"tp_small.rank{rank}.json"), "w") as f:
+            json.dump(recs, f)
+    # (b): the runner's meshes, one after the other; each starts once both
+    # ranks have let go of the last one's memory
+    import gc
 
-        mesh_runner(fa, json.loads(os.environ["CHIP_SMOKE_ARGV"]), out_dir)
-    else:
-        raise ValueError(f"unknown mesh task {task!r}")
-    import torch.distributed as dist
+    from longcat_video_tta_tpu_torch.ops import flash_attention as fa
+
+    for out_json, argv in json.loads(os.environ.get("CHIP_SMOKE_RUNS", "[]")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        mesh_runner(fa, argv, out_json)
 
     dist.barrier()
     dist.destroy_process_group()
@@ -5070,21 +4817,333 @@ def mesh_worker(task: str, out_dir: str) -> int:
 
 
 def phase_mesh(fa, dit_cfg, tokens_per_frame):
-    """[mesh]: (a) the chunk rows and the ring in 2 and 4 ranks, with (c)
-    the small MMDiT and CogVideoX under tensor parallelism in the 2-rank
-    world; (b) the runner's three meshes at 13.6B width. Returns (forward
-    rows, backward rows, the runner runs' launches)."""
+    """[mesh]: (a) the chunk rows and the ring in 4 ranks; (b) the runner's
+    three meshes at 13.6B width in one 2-rank world, which first runs (a)'s
+    2-rank ring and (c) the small MMDiT and CogVideoX under tensor
+    parallelism. Returns (forward rows, backward rows, the runner runs'
+    launches)."""
     fwd_rows, bwd_rows = phase_mesh_kernels(fa, dit_cfg, tokens_per_frame)
-    out_dir = os.path.join(RUN_DIR, "mesh_ring")
-    bad = []
-    for r in range(2):
-        with open(os.path.join(out_dir, f"tp_small.rank{r}.json")) as f:
-            for rec in json.load(f):
-                print(f"[mesh-tp-small] {json.dumps(rec)}")
-                bad += [] if rec["ok"] else [rec]
-    if bad:
-        raise AssertionError(f"tensor parallelism disagrees with one rank: {bad}")
-    return fwd_rows, bwd_rows, phase_mesh_runs(fa)
+    runs = phase_mesh_runs(fa, mesh_ring_cases(dit_cfg, tokens_per_frame, 2))
+    return fwd_rows, bwd_rows, runs
+
+
+# ---------------------------------------------------------------------------
+# The science loop: the longcat_demo stack pretrained on the card, its
+# checkpoint through --checkpoint-dir, and the demo campaign on it
+# ---------------------------------------------------------------------------
+
+# [demo] at longcat_demo's full width (DiT 768, 8 blocks, 6 heads of 128,
+# ffn 2048; WAN VAE base 32; the small UMT5) and 192x320 frames: (a) one
+# VAE step and one DiT pretraining step at pretraining's own shapes (batch
+# 2; a 9-frame clip; 4 cond + 8 target latents, 2880 tokens a row) on the
+# card against the CPU (the CPU side runs in a background thread while
+# earlier phases use the card); (b) pretrain_demo cut to ``vae_steps`` and
+# ``dit_steps`` (batch 2, 4 + 8 latent windows); (c) its checkpoint through
+# the runner's loader; (d) run_demo_campaign's rows baseline and full, the
+# FULL entry alone of the latter (``run_ids``), on 2 videos each with the
+# synthetic towers and the YAMLs' 50 denoising steps
+DEMO = dict(seed=111, height=192, width=320, vae_steps=20, dit_steps=80,
+            rows="baseline,full", run_ids=("NOTTA", "FULL"), videos=2, learn_ratio=0.5,
+            batch=2, cond_lat=4, target_lat=8)
+DEMO_GRAPHS = {"none": None, "full": "cross_kv"}  # a row's method -> its train graph
+
+
+def pretrain_launches(depth: int, dit_steps: int) -> dict:
+    """Launches of pretrain_demo: every DiT step is a FullScheme ("cross_kv")
+    train step without remat (longcat_demo); the VAE and UMT5 attend in
+    plain PyTorch."""
+    return {k: dit_steps * n for k, n in train_step_launches("cross_kv", depth, "none").items()}
+
+
+def demo_row_launches(method: str, results, depth: int, inference_steps: int) -> dict:
+    """Launches of one demo-campaign row from its summary's results: per
+    video its train steps (``losses``) and anchor evals (the early
+    stopper's ``total_checks``; none under --es-disable), then one
+    generation (``method_launches`` without remat). The counts follow
+    this run's data: the early stopper decides how many steps run."""
+    graph = DEMO_GRAPHS[method]
+    out = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for r in results:
+        es = r.get("early_stopping_info") or {}
+        got = method_launches(graph or "t_embed", depth,
+                              steps=len(r.get("losses", [])) if graph else 0,
+                              anchors=es.get("total_checks", 0),
+                              inference_steps=inference_steps, policy="none")
+        for k in out:
+            out[k] += got[k]
+    return out
+
+
+def _loss_grad_of(module, loss_of):
+    """(loss, the gradient over every parameter of ``module`` as one
+    float64 CPU vector) of ``loss_of(module with those tensors)``."""
+    import torch
+
+    from longcat_video_tta_tpu_torch.tta.adapters import with_tensors
+
+    leaves = {k: p.detach().requires_grad_(True) for k, p in module.named_parameters()}
+    with torch.enable_grad():
+        loss = loss_of(with_tensors(module, leaves))
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    flat = torch.cat([(torch.zeros_like(p) if g is None else g).double().flatten().cpu()
+                      for p, g in zip(leaves.values(), grads)])
+    return float(loss.detach()), flat
+
+
+def demo_step_reference() -> dict:
+    """[demo] (a)'s CPU side: longcat_demo drawn on the CPU, one VAE step's
+    inputs (a batch of 9-frame distribution-A clips and the KL draw) and
+    one DiT pretraining step's (4 cond + 8 target latents, the first
+    caption, sigma and noise), each at pretraining's batch, and the loss
+    and gradient of each on the CPU (with their seconds)."""
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import longcat_demo
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle
+    from longcat_video_tta_tpu_torch.scripts import pretrain_demo as pd
+    from longcat_video_tta_tpu_torch.tta.losses import draw_sigma_noise
+
+    cfg = longcat_demo()
+    B, H, W = DEMO["batch"], DEMO["height"], DEMO["width"]
+    cpu = ModelBundle.init_random(cfg, seed=DEMO["seed"], device="cpu")
+    rng = np.random.RandomState(DEMO["seed"])
+    x = pd.make_clip_gen(2 * cfg.vae.temporal_factor + 1, H, W, "cpu")(*pd.draw_params(rng, B))
+    g = torch.Generator().manual_seed(DEMO["seed"])
+    kl_noise = torch.randn(pd.latent_shape(cfg.vae, x.shape), generator=g)
+    lat = (B, cfg.vae.z_dim, 0, H // cfg.vae.spatial_factor, W // cfg.vae.spatial_factor)
+    cond = torch.randn(lat[:2] + (DEMO["cond_lat"],) + lat[3:], generator=g)
+    tgt = torch.randn(lat[:2] + (DEMO["target_lat"],) + lat[3:], generator=g)
+    sigma, noise = draw_sigma_noise(tgt, g)
+    with torch.no_grad():
+        emb, mask = cpu.encode_prompt(pd.CAPTIONS[0])
+    emb = emb.expand((B,) + tuple(emb.shape[1:])).contiguous()
+    mask = mask.expand((B,) + tuple(mask.shape[1:])).contiguous()
+    steps = {"vae": (cpu.vae, (x, kl_noise)),
+             "dit": (cpu.dit, (cond, tgt, emb, mask, sigma, noise))}
+    out = {"steps": steps}
+    for name, (module, args) in steps.items():
+        t0 = time.time()
+        out[name] = _loss_grad_of(module, lambda m: DEMO_LOSSES[name](m, *args))
+        out[name + "_s"] = time.time() - t0
+    return out
+
+
+def _demo_vae_loss(m, x, n):
+    from longcat_video_tta_tpu_torch.scripts.pretrain_demo import vae_loss
+
+    return vae_loss(m, x, n)[0]
+
+
+def _demo_dit_loss(m, c, t, e, k, s, n):
+    from longcat_video_tta_tpu_torch.tta.losses import flow_matching_loss_conditioned
+
+    return flow_matching_loss_conditioned(m, c, t, e, k, sigma=s, noise=n)
+
+
+DEMO_LOSSES = {"vae": _demo_vae_loss, "dit": _demo_dit_loss}
+
+
+def start_demo_reference():
+    """Start ``demo_step_reference`` in a background thread on half the
+    host's cores (at these shapes the CPU side takes minutes, which the
+    card phases that run meanwhile leave to the host). Returns a function
+    that waits for it and returns its result, or raises its error."""
+    import threading
+
+    import torch
+
+    box = {}
+    threads = torch.get_num_threads()
+
+    def work():
+        torch.set_num_threads(max(1, threads // 2))
+        try:
+            box["out"] = demo_step_reference()
+        except BaseException as e:  # raised where the result is read
+            box["err"] = e
+        finally:
+            torch.set_num_threads(threads)
+
+    thread = threading.Thread(target=work, name="demo-cpu-reference", daemon=True)
+    thread.start()
+
+    def result():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return result
+
+
+def phase_demo_step_agreement(ref: dict, card: str = "cuda"):
+    """[demo] (a): one VAE step's loss and gradient and one DiT pretraining
+    step's (``FullScheme``: every DiT parameter) on ``card`` against the
+    CPU's in ``ref`` (``demo_step_reference``), on the same weights (copied
+    from the CPU) and the same draws; the step agreement's gates."""
+    import copy
+
+    out = {}
+    for name, (module, args) in ref["steps"].items():
+        loss_c, grad_c = ref[name]
+        on_card = copy.deepcopy(module).to(card)
+        t0 = time.time()
+        loss_g, grad_g = _loss_grad_of(on_card, lambda m: DEMO_LOSSES[name](
+            m, *(a.to(card) for a in args)))
+        card_s = time.time() - t0
+        del on_card
+        rel = abs(loss_g - loss_c) / abs(loss_c)
+        cos = float((grad_g @ grad_c) / (grad_g.norm() * grad_c.norm()))
+        shapes = [tuple(a.shape) for a in args[:2]]
+        print(f"[demo] {name} step card vs cpu, inputs {shapes}: loss {loss_g:.6g} vs "
+              f"{loss_c:.6g} (rel {rel:.3g}, max {STEP_LOSS_RTOL}); grad cosine {cos:.6f} "
+              f"(min {STEP_GRAD_COS_MIN}) over {grad_c.numel()} parameters; |grad| "
+              f"{float(grad_c.norm()):.4g}; cpu {ref[name + '_s']:.1f} s (in the "
+              f"background), card {card_s:.1f} s")
+        if not (rel <= STEP_LOSS_RTOL and cos >= STEP_GRAD_COS_MIN):
+            raise AssertionError(f"[demo] card and CPU {name} steps disagree")
+        out[name] = dict(loss_rel=rel, grad_cos=cos)
+    return out
+
+
+def phase_demo(fa, card: str = "cuda", reference=None):
+    """[demo]: (a) the step agreement (``reference``: what
+    ``start_demo_reference`` returned; started here when None); (b)
+    pretrain_demo on the card, cut
+    to DEMO's steps, gated on learning (the last logged recon MSE and flow
+    loss each at most ``learn_ratio`` of step 0's) with its B1-B3 launches
+    against ``pretrain_launches``; (c) the written checkpoint loaded as
+    ``run_tta --checkpoint-dir`` loads it, equal to the trained modules
+    tensor for tensor; (d) run_demo_campaign on it (rows baseline and full,
+    the sweep entries ``DEMO["run_ids"]``, 2 videos each): every row ok,
+    every metric finite, launches against ``demo_row_launches``. Returns
+    the launches of (b) + (d)."""
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.eval.vbench import VBENCH_DIMENSIONS
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle
+    from longcat_video_tta_tpu_torch.scripts import pretrain_demo, run_demo_campaign
+
+    reference = reference or start_demo_reference()
+    base = os.path.join(RUN_DIR, "demo")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    try:
+        t0 = time.time()
+        ref = reference()
+        wait_s = time.time() - t0
+        phase_demo_step_agreement(ref, card)
+        del ref
+        print(f"[time] demo step agreement {time.time() - t0:.1f} s ({wait_s:.1f} s of it "
+              f"waiting for the CPU side)")
+
+        ckpt = os.path.join(base, "ckpt")
+        trained = {}
+        count = lambda: {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+                         "flash_bwd_dkv": fa.bwd_dkv_launches}
+        fa.reset_launches()
+        if card == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        hist = pretrain_demo.main(
+            ["--out-dir", ckpt, "--vae-steps", str(DEMO["vae_steps"]),
+             "--dit-steps", str(DEMO["dit_steps"]), "--height", str(DEMO["height"]),
+             "--width", str(DEMO["width"]), "--seed", str(DEMO["seed"]), "--device", card],
+            on_phase=lambda name, bundle: trained.update(bundle=bundle))
+        pre_s = time.time() - t0
+        pre = count()
+        bundle = trained["bundle"]
+        depth = bundle.cfg.dit.depth
+        want = pretrain_launches(depth, DEMO["dit_steps"])
+        ratios = {}
+        for phase, key in (("vae", "mse"), ("dit", "loss")):
+            h = [e for e in hist if e["phase"] == phase]
+            ratios[phase] = h[-1][key] / h[0][key]
+            print(f"[demo] pretrain {phase}: {[(e['step'], round(e[key], 5), e['wall_s']) for e in h]}; "
+                  f"last / first {ratios[phase]:.4f} (max {DEMO['learn_ratio']})")
+        peak = torch.cuda.max_memory_allocated() / 2**30 if card == "cuda" else 0.0
+        print(f"[demo] pretrain {pre_s:.1f} s (VAE {DEMO['vae_steps']}, DiT {DEMO['dit_steps']} "
+              f"steps, batch 2, {DEMO['height']}x{DEMO['width']}); launches {pre} (expected "
+              f"{want}); max_memory_allocated {peak:.2f} GiB")
+        if not all(np.isfinite(e.get("mse", e.get("loss"))) for e in hist):
+            raise AssertionError(f"[demo] non-finite pretraining loss: {hist}")
+        if any(r > DEMO["learn_ratio"] for r in ratios.values()):
+            raise AssertionError(f"[demo] pretraining did not learn: {ratios}")
+        if pre != want:
+            raise AssertionError(f"[demo] pretrain launches {pre}, expected {want}")
+
+        t0 = time.time()
+        loaded = ModelBundle.from_checkpoint_dir(bundle.cfg, ckpt, device=card)
+        n_equal = 0
+        for part in ("dit", "vae", "text"):
+            a = dict(getattr(bundle, part).named_parameters())
+            b = dict(getattr(loaded, part).named_parameters())
+            bad = [k for k in a if not torch.equal(a[k], b[k])]
+            if set(a) != set(b) or bad:
+                raise AssertionError(f"[demo] checkpoint {part}: {bad[:5]} differ")
+            n_equal += len(a)
+        if (loaded.cfg.vae.latents_mean != bundle.cfg.vae.latents_mean
+                or loaded.cfg.vae.latents_std != bundle.cfg.vae.latents_std):
+            raise AssertionError("[demo] checkpoint: the latent statistics differ")
+        print(f"[demo] checkpoint: {n_equal} tensors equal to the trained modules, latent "
+              f"statistics equal; loaded in {time.time() - t0:.1f} s")
+        del trained, bundle, loaded
+
+        out = os.path.join(base, "campaign")
+        towers = os.path.join(base, "towers")
+        fa.reset_launches()
+        t0 = time.time()
+        rc = run_demo_campaign.main(["--output-base", out, "--rows", DEMO["rows"],
+                                     "--max-videos", str(DEMO["videos"]),
+                                     "--towers-dir", towers, "--ckpt-dir", ckpt,
+                                     "--device", card], run_ids=DEMO["run_ids"])
+        camp_s = time.time() - t0
+        got = count()
+        with open(os.path.join(out, "sweep_campaign_demo.json")) as f:
+            record = json.load(f)
+        want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        for row in record:
+            with open(os.path.join(row["output_dir"], "summary.json")) as f:
+                summary = json.load(f)
+            with open(os.path.join(row["output_dir"], "config.json")) as f:
+                steps = json.load(f)["num_inference_steps"]
+            res = summary["results"]
+            row_want = demo_row_launches(row["method"], res, depth, steps)
+            for k in want:
+                want[k] += row_want[k]
+            metrics = [r.get(m, np.nan) for r in res for m in ("psnr", "ssim", "lpips")]
+            online = summary.get("online_eval", {})
+            vb = online.get("vbench", {}).get("results", {})
+            metrics += [online.get("fvd", np.nan), online.get("fid", np.nan)] + [
+                vb.get(d, np.nan) for d in VBENCH_DIMENSIONS]
+            print(f"[demo] row {row['run_id']}: {row['status']} in "
+                  f"{60 * row.get('wall_minutes', float('nan')):.1f} s; videos "
+                  f"{summary['num_success']}/{summary['num_videos']}; psnr "
+                  f"{[round(r.get('psnr', np.nan), 4) for r in res]} ssim "
+                  f"{[round(r.get('ssim', np.nan), 4) for r in res]} lpips "
+                  f"{[round(r.get('lpips', np.nan), 4) for r in res]}; train_time "
+                  f"{[round(r.get('train_time', 0.0), 2) for r in res]} s gen_time "
+                  f"{[round(r.get('gen_time', 0.0), 2) for r in res]} s steps "
+                  f"{[len(r.get('losses', [])) for r in res]}; fvd {online.get('fvd')} fid "
+                  f"{online.get('fid')} vbench {vb}; launches expected {row_want}")
+            if row["status"] != "ok" or summary["num_success"] != len(res) or not res:
+                raise AssertionError(f"[demo] row {row['run_id']}: {row['status']}")
+            if not np.isfinite(metrics).all():
+                raise AssertionError(f"[demo] row {row['run_id']}: a metric is not finite: "
+                                     f"{metrics}")
+        print(f"[demo] run_demo_campaign rc {rc} in {camp_s:.1f} s; launches {got} "
+              f"(expected {want})")
+        with open(os.path.join(out, "timing_table.md")) as f:
+            print("[demo] " + f.read().replace("\n", "\n[demo] ").rstrip())
+        if rc != 0 or [r["run_id"] for r in record] != list(DEMO["run_ids"]):
+            raise AssertionError(f"[demo] run_demo_campaign rc {rc}, rows {record}")
+        if got != want:
+            raise AssertionError(f"[demo] campaign launches {got}, expected {want}")
+        return {k: pre[k] + got[k] for k in got}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
 
 
 def print_build(fa):
@@ -5111,7 +5170,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="development: run the build and these comma-separated phases "
                          "(checkpoint, remat, bucket, eval, kernel, bwd, opensora, cogvideox, "
-                         "t2v, vbench, vp, flags, tools, mesh; tools runs after vp) "
+                         "t2v, vbench, vp, flags, tools, mesh, demo; tools runs after vp) "
                          "and print no result")
     ap.add_argument("--mesh-worker", default="", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", default="", help=argparse.SUPPRESS)
@@ -5177,6 +5236,8 @@ def main(argv=None) -> int:
                   "vp": (at_cut_depth(phase_vp), fa, cut, tokens_per_frame),
                   "flags": (phase_flags, fa),
                   "mesh": (phase_mesh, fa, cfg.dit, tokens_per_frame),
+                  "demo": (phase_demo, fa, "cuda",
+                           start_demo_reference() if "demo" in only else None),
                   "mesh_runs": (phase_mesh_runs, fa)}
         done = {}
         for name in only:
@@ -5194,6 +5255,7 @@ def main(argv=None) -> int:
     timed_phase("small-input agreement", phase_small_agreement)
     timed_phase("step agreement", phase_step_agreement)
     timed_phase("scheme step agreement", phase_scheme_step_agreement)
+    demo_reference = start_demo_reference()  # [demo] (a)'s CPU side, meanwhile
     serving_launches, serving_gen = timed_phase("main path", phase_main_path, fa,
                                                 cfg.dit.depth)
     tta = timed_phase("delta_a path", phase_tta_path, fa, cfg.dit.depth)
@@ -5221,6 +5283,7 @@ def main(argv=None) -> int:
     timed_phase("tools", phase_tools, vp_runs)
     mesh_fwd, mesh_bwd, mesh_run = timed_phase("mesh", phase_mesh, fa, cfg.dit,
                                                tokens_per_frame)
+    demo_run = timed_phase("demo", phase_demo, fa, "cuda", demo_reference)
     cases += os_fwd + cv_fwd + t2v_cases + vp_fwd + mesh_fwd
     bwd_cases += os_bwd + cv_bwd + vp_bwd + mesh_bwd
     print(f"[time] all phases {time.time() - t_start:.1f} s")
@@ -5243,7 +5306,7 @@ def main(argv=None) -> int:
     train_sum = lambda name: (tta[name] + sum(m[name] for m in methods.values())
                               + remat_run[name] + bucket_run[name] + eval_run[name]
                               + os_run[name] + cv_run[name] + vp_run[name]
-                              + flags_run[name] + mesh_run[name])
+                              + flags_run[name] + mesh_run[name] + demo_run[name])
     kernels = [
         entry("flash_fwd", "flash_fwd.cu", "flash_attention.py:133",
               serving_launches + ckpt_launches + t2v_fwd + train_sum("flash_fwd")

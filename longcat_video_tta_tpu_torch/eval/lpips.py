@@ -59,10 +59,13 @@ class LPIPSAlex(nn.Module):
         x = ((x - self.shift) / self.scale).permute(0, 3, 1, 2)
         feats = []
         for i, conv in enumerate(self.convs):
-            x = F.relu(conv(x))
+            # a map the VALID pooling emptied stays empty, and its
+            # distance is the mean of nothing (NaN), as in the reference
+            x = F.relu(conv(x)) if x.numel() else x.new_zeros(
+                x.shape[0], conv.out_channels, 0, 0)
             feats.append(x)
             if i in _POOL_AFTER:
-                x = F.max_pool2d(x, 3, 2)
+                x = F.max_pool2d(x, 3, 2) if min(x.shape[2:]) >= 3 else x[:, :, :0, :0]
         return feats
 
     def forward(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,11 @@ understand: a missing key raises ``KeyError``, a key left unread raises
 its CogVideoX converter applies, here for the DiT, the MMDiT and UMT5
 too; the reference's MMDiT converter does not track its reads).
 
+``save_checkpoint_dir`` goes the other way for a LongCat bundle (the
+counterpart of the reference's ``save_bundle``, which writes orbax
+trees): ``dit_state_dict``, ``vae_state_dict`` and ``umt5_state_dict``
+undo the trees' transforms, so a written folder loads back bit for bit.
+
 The CLIP part (the reference's :761-1023) maps Hugging Face ``CLIPModel``,
 ``CLIPTextModel`` and ``XCLIPModel`` state dicts onto the port's towers
 (``models/clip.py``, ``models/xclip.py``) through ``load_mapped``, which
@@ -664,6 +669,212 @@ MMDIT_STATE_SHAPES = {"dit": lambda cfg: mmdit_state_shapes(cfg.dit),
                       "vae": lambda cfg: vae_state_shapes(cfg.vae),
                       "text_encoder": lambda cfg: umt5_state_shapes(cfg.text),
                       "clip": lambda cfg: clip_text_state_shapes(cfg.clip)}
+
+
+# ---------------------------------------------------------------------------
+# The port's modules -> the upstream layouts (the inverse of the trees above)
+# ---------------------------------------------------------------------------
+
+
+def _in_layout(sd: Dict[str, torch.Tensor], shapes: Dict[str, tuple], what: str,
+               optional=()) -> Dict[str, torch.Tensor]:
+    """``sd`` in the order of the layout table ``shapes``, each tensor
+    checked against its shape; a key the table does not list raises unless
+    it is in ``optional``."""
+    out = {}
+    for key, shape in shapes.items():
+        if tuple(sd[key].shape) != tuple(shape):
+            raise ValueError(f"{what} {key}: shape {tuple(sd[key].shape)} != "
+                             f"{tuple(shape)}")
+        out[key] = sd[key]
+    extra = set(sd) - set(out) - set(optional)
+    if extra:
+        raise ValueError(f"{what}: keys outside the layout: {sorted(extra)[:8]}")
+    out.update({k: sd[k] for k in optional if k in sd})
+    return out
+
+
+def _refuse_sharded(m: torch.nn.Module, what: str) -> None:
+    if any(getattr(layer, "tp", None) is not None for layer in m.modules()):
+        raise ValueError(f"{what}: a tensor-parallel module holds one rank's slices; "
+                         "write the checkpoint from an unsharded model")
+
+
+def dit_state_dict(dit: LongCatDiT, patch_conv: bool = True) -> Dict[str, torch.Tensor]:
+    """The LongCat DiT as the state dict ``dit_tree`` reads (without
+    RoPE row permutations, so the checkpoint loads with
+    ``rope_interleaved=False``): Linear weights as they are; the patch
+    embedding as the Conv3d [D, C, pt, ph, pw], or with ``patch_conv=False``
+    as the Linear [D, (pt ph pw C)]. Keys in ``dit_state_shapes`` order."""
+    _refuse_sharded(dit, "LongCat DiT")
+    cfg = dit.cfg
+    sd: Dict[str, torch.Tensor] = {}
+
+    def lin(key, layer):
+        sd[key + ".weight"] = layer.weight
+        if layer.bias is not None:
+            sd[key + ".bias"] = layer.bias
+
+    w = dit.x_embed.weight
+    if patch_conv:  # [D, (pt ph pw C)] -> [D, C, pt, ph, pw]
+        w = w.reshape((w.shape[0],) + tuple(cfg.patch_size) + (cfg.in_channels,))
+        w = w.permute(0, 4, 1, 2, 3)
+    sd["x_embedder.proj.weight"], sd["x_embedder.proj.bias"] = w, dit.x_embed.bias
+    lin("t_embedder.mlp.0", dit.t_embed["w1"])
+    lin("t_embedder.mlp.2", dit.t_embed["w2"])
+    lin("y_embedder.y_proj.0", dit.y_embed["in"])
+    lin("y_embedder.y_proj.2", dit.y_embed["out"])
+    for i, blk in enumerate(dit.blocks):
+        b = f"blocks.{i}."
+        lin(b + "adaLN_modulation.1", blk.adaln)
+        lin(b + "attn.qkv", blk.attn.qkv)
+        lin(b + "attn.proj", blk.attn.proj)
+        ca = blk.cross_attn
+        lin(b + "cross_attn.q_linear", ca.q)
+        lin(b + "cross_attn.kv_linear", ca.kv)
+        lin(b + "cross_attn.proj", ca.proj)
+        for name, a in (("attn", blk.attn), ("cross_attn", ca)):
+            sd[b + name + ".q_norm.weight"] = a.q_norm
+            sd[b + name + ".k_norm.weight"] = a.k_norm
+        sd[b + "pre_crs_attn_norm.weight"] = blk.pre_crs_norm.weight
+        sd[b + "pre_crs_attn_norm.bias"] = blk.pre_crs_norm.bias
+        for name in ("w1", "w3", "w2"):
+            sd[b + f"ffn.{name}.weight"] = getattr(blk.ffn, name).weight
+    lin("final_layer.adaLN_modulation.1", dit.final["adaln"])
+    lin("final_layer.linear", dit.final["proj"])
+    return _in_layout(sd, dit_state_shapes(cfg, patch_conv), "LongCat DiT")
+
+
+def umt5_state_dict(text: UMT5Encoder) -> Dict[str, torch.Tensor]:
+    """UMT5 as the HF ``UMT5EncoderModel`` state dict ``umt5_tree`` reads
+    (one relative-attention-bias table per layer; no tied
+    ``encoder.embed_tokens``)."""
+    sd = {"shared.weight": text.embed, "encoder.final_layer_norm.weight": text.final_ln}
+    for i, blk in enumerate(text.blocks):
+        a, f = f"encoder.block.{i}.layer.0.", f"encoder.block.{i}.layer.1."
+        for name in "qkvo":
+            sd[a + f"SelfAttention.{name}.weight"] = getattr(blk, name).weight
+        sd[a + "SelfAttention.relative_attention_bias.weight"] = blk.rel_bias
+        sd[a + "layer_norm.weight"] = blk.ln1
+        for ours, theirs in (("wi0", "wi_0"), ("wi1", "wi_1"), ("wo", "wo")):
+            sd[f + f"DenseReluDense.{theirs}.weight"] = getattr(blk, ours).weight
+        sd[f + "layer_norm.weight"] = blk.ln2
+    return _in_layout(sd, umt5_state_shapes(text.cfg), "UMT5EncoderModel")
+
+
+def vae_state_dict(vae: WanVAE) -> Dict[str, torch.Tensor]:
+    """The WAN VAE as the Wan2.1-named state dict ``vae_tree`` reads:
+    Conv3d weights as they are; the resample convs as Conv2d [Cout, Cin,
+    kh, kw]; each RMS norm's weight as ``gamma`` [C, 1, 1, 1], and its
+    bias as ``bias`` of that shape only where it is not zero (the
+    upstream norms have none; a trained one does); q, k and v fused into
+    the 1x1 ``to_qkv`` [3C, C, 1, 1] in that row order."""
+    cfg = vae.cfg
+    sd: Dict[str, torch.Tensor] = {}
+    biases = []
+
+    def c3d(name, p):
+        sd[name + ".weight"], sd[name + ".bias"] = p.weight, p.bias
+
+    def c2d(name, p):
+        sd[name + ".weight"], sd[name + ".bias"] = p.weight[:, :, 0], p.bias
+
+    def norm(name, p):
+        sd[name + ".gamma"] = p.weight.reshape(-1, 1, 1, 1)
+        if bool(torch.any(p.bias != 0)):
+            sd[name + ".bias"] = p.bias.reshape(-1, 1, 1, 1)
+            biases.append(name + ".bias")
+
+    def res(prefix, p):
+        norm(prefix + ".residual.0", p.norm1)
+        c3d(prefix + ".residual.2", p.conv1)
+        norm(prefix + ".residual.3", p.norm2)
+        c3d(prefix + ".residual.6", p.conv2)
+        if p.shortcut is not None:
+            c3d(prefix + ".shortcut", p.shortcut)
+
+    def mid(prefix, p):
+        res(prefix + ".0", p.res1)
+        a, c = p.attn, p.attn.q.weight.shape[0]
+        norm(prefix + ".1.norm", a.norm)
+        sd[prefix + ".1.to_qkv.weight"] = torch.cat(
+            [a.q.weight, a.k.weight, a.v.weight]).reshape(3 * c, c, 1, 1)
+        sd[prefix + ".1.to_qkv.bias"] = torch.cat([a.q.bias, a.k.bias, a.v.bias])
+        sd[prefix + ".1.proj.weight"] = a.proj.weight.reshape(c, c, 1, 1)
+        sd[prefix + ".1.proj.bias"] = a.proj.bias
+        res(prefix + ".2", p.res2)
+
+    e, d = vae.enc, vae.dec
+    c3d("encoder.conv1", e.conv_in)
+    k = 0
+    for i, sc in enumerate(e.scales):
+        for rb in sc.res:
+            res(f"encoder.downsamples.{k}", rb)
+            k += 1
+        if i < len(cfg.dim_mults) - 1:
+            c2d(f"encoder.downsamples.{k}.resample.1", sc.sdown)
+            if cfg.temporal_downsample[i]:
+                c3d(f"encoder.downsamples.{k}.time_conv", sc.tdown)
+            k += 1
+    mid("encoder.middle", e.mid)
+    norm("encoder.head.0", e.norm_out)
+    c3d("encoder.head.2", e.conv_out)
+    c3d("conv1", e.quant)
+    c3d("conv2", d.post_quant)
+    c3d("decoder.conv1", d.conv_in)
+    mid("decoder.middle", d.mid)
+    k = 0
+    for sc, (_, _, has_rs, has_t) in zip(d.scales, decoder_channel_plan(cfg)):
+        for rb in sc.res:
+            res(f"decoder.upsamples.{k}", rb)
+            k += 1
+        if has_rs:
+            c2d(f"decoder.upsamples.{k}.resample.1", sc.sup)
+            if has_t:
+                c3d(f"decoder.upsamples.{k}.time_conv", sc.tup)
+            k += 1
+    norm("decoder.head.0", d.norm_out)
+    c3d("decoder.head.2", d.conv_out)
+    return _in_layout(sd, vae_state_shapes(cfg), "AutoencoderKLWan", optional=biases)
+
+
+def save_checkpoint_dir(bundle, folder: str, patch_conv: bool = True) -> int:
+    """A LongCat ``ModelBundle`` as the checkpoint folder
+    ``ModelBundle.from_checkpoint_dir`` reads (the counterpart of the
+    reference's ``save_bundle``, which writes orbax trees): ``dit/``,
+    ``vae/`` and ``text_encoder/``, each one ``model.safetensors`` (the
+    loader reads every ``.safetensors`` file of a folder) in the
+    upstream layouts (``dit_state_dict``, ``vae_state_dict``,
+    ``umt5_state_dict``), each tensor in its module's dtype, and
+    ``vae/config.json`` with the bundle's ``latents_mean`` /
+    ``latents_std`` (the diffusers keys the loader reads). No tokenizer
+    folder: the loader then uses the hash tokenizer, as the reference's
+    does for a bundle without one. Returns the bytes written."""
+    import json
+    import os
+
+    from ..utils.safetensors import save_file
+
+    if bundle.cfg.arch != "longcat":
+        raise ValueError(f"save_checkpoint_dir writes the LongCat layout, not "
+                         f"{bundle.cfg.arch!r}")
+    vcfg = bundle.cfg.vae
+    total = 0
+    for name, sd in (("dit", dit_state_dict(bundle.dit, patch_conv)),
+                     ("vae", vae_state_dict(bundle.vae)),
+                     ("text_encoder", umt5_state_dict(bundle.text))):
+        os.makedirs(os.path.join(folder, name), exist_ok=True)
+        with torch.no_grad():
+            save_file(sd, os.path.join(folder, name, "model.safetensors"))
+        total += sum(t.numel() * t.element_size() for t in sd.values())
+    with open(os.path.join(folder, "vae", "config.json"), "w") as f:
+        json.dump({"_class_name": "AutoencoderKLWan", "z_dim": vcfg.z_dim,
+                   "base_dim": vcfg.base_dim, "dim_mult": list(vcfg.dim_mults),
+                   "num_res_blocks": vcfg.num_res_blocks,
+                   "temperal_downsample": list(vcfg.temporal_downsample),
+                   "latents_mean": [float(v) for v in vcfg.latents_mean],
+                   "latents_std": [float(v) for v in vcfg.latents_std]}, f, indent=2)
+    return total
 
 
 # ---------------------------------------------------------------------------

@@ -27,26 +27,39 @@ def _port_modules():
                 yield os.path.join(dirpath, f)
 
 
-def _forbidden_imports(path):
+def _imported_names(path):
     with open(path) as fh:
         tree = ast.parse(fh.read(), path)
-    bad = []
     for node in ast.walk(tree):
-        names = []
         if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
+            yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            names = [node.module]
-        for n in names:
-            if n.split(".")[0] in FORBIDDEN:
-                bad.append(n)
-    return bad
+            yield node.module
+
+
+def _forbidden_imports(path):
+    return [n for n in _imported_names(path) if n.split(".")[0] in FORBIDDEN]
 
 
 def test_no_port_module_imports_jax_or_the_jax_package():
     files = list(_port_modules())
     assert len(files) > 15
     offenders = {f: b for f in files if (b := _forbidden_imports(f))}
+    assert not offenders
+
+
+def test_no_port_module_imports_the_repository_scripts():
+    """The science loop's modules (the port's scripts/ subpackage) keep
+    their own copies of what the repository's scripts/ drivers hold: no
+    port module imports one of them, or ``scripts``."""
+    scripts = {f[:-3] for f in os.listdir(os.path.join(REPO, "scripts")) if f.endswith(".py")}
+    ours = [f for f in _port_modules() if os.sep + "scripts" + os.sep in f]
+    assert {os.path.basename(f)[:-3] for f in ours} >= {
+        "pretrain_demo", "make_synth_towers", "run_campaign", "run_demo_campaign",
+        "probe_tta_grid", "prepare_t2v_prompts"}
+    offenders = {f: bad for f in _port_modules()
+                 if (bad := [n for n in _imported_names(f)
+                             if n.split(".")[0] in scripts | {"scripts"}])}
     assert not offenders
 
 
