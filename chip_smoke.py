@@ -234,7 +234,7 @@ Phases (each one fails the run when it fails):
      the whole sequence and against the plain version under the gates of
      2 and 3, each rank's launches P forward (2P for the decode's two
      pieces), P dQ and P dK/dV; (b) the runner at LongCat-13.6B width
-     (MESH["depth"], 24 of 48 blocks) on delta_a's window
+     (MESH["depth"], 12 of 48 blocks) on delta_a's window
      (3 steps, a check every 3, 4 denoising steps): --context-mesh 2 and
      --tensor-mesh 2 against one rank's run of 1 video, --video-parallel 2
      --data-mesh 2 against one rank's --video-parallel 2 run of 2 videos:
@@ -265,11 +265,25 @@ Phases (each one fails the run when it fails):
      videos each with the synthetic towers and the YAMLs' 50 denoising
      steps: every row ok, every metric finite (PSNR, SSIM, LPIPS, FVD,
      FID, the five VBench dimensions), launches as ``demo_row_launches``.
+ 22. longhorizon (``--only longhorizon``): the 93-frame decode of
+     ``scripts.measure_longhorizon`` at its geometry (longcat_bench at full
+     width and all 16 blocks; 4 cond + 24 generated latents of 60 x 104:
+     37 440 queries against 6240 cached + 37 440 fresh keys). (a) B1 at
+     the dense decode (B 2, 16 heads) against the plain version and SDPA;
+     the block sums over the queries and the keys; BSA 16-bit at top_k 8
+     and 16 of 43 key blocks against compiled flex_attention, int8-QK at
+     8; (b) the script's function in corr mode (the dense bf16 decode,
+     then W8A8 + BSA keep 0.15) and in wall mode (W8A8, int8-QK BSA at
+     keep 0.15, PAB every 4 and CFG reuse every 2 over [0.06, 0.96)), 10
+     denoising steps (not 50) in segments of 5: finite latents of the
+     93-frame shape, latent corr >= 0.999, peak memory, launches equal
+     to ``longhorizon_launches``. It runs right after the agreements.
 
 The lever runs (7), the checkpoint path (9), [eval], [t2v], [vbench] and
 [vp] run LongCat-13.6B at 12 of its 48 blocks (``CUT_DEPTH``, full
-widths), and the Open-Sora and CogVideoX runner runs half their blocks,
-to keep the script inside its time limit beside [mesh]'s runs at 24.
+widths), the method runs 24, [mesh]'s runner runs 12, and the Open-Sora
+and CogVideoX runner runs half their blocks, to keep the script inside
+its time limit.
 
 The counts of every kernel are set to 0 just before each main path and
 read just after; a kernel's ``launches`` in the kernels line is its sum
@@ -473,10 +487,21 @@ def case_inputs(B, H, Sq, Sk, D, *, dtype_name="bfloat16", fused_kv=False, fused
 
 
 def reference(fa, q, k, v, ncond, kv_valid):
-    """The plain version, chunked over heads to fit beside the inputs."""
+    """The plain version, chunked over heads to fit beside the inputs, and
+    over query rows where one head's fp32 scores would pass 2 GB and no
+    prefix rule ties the rows together (the 93-frame decode's 37 440 x
+    43 680)."""
+    import torch
+
     B, Sq, H, _ = q.shape
-    chunk = max(1, min(H, int(2e9 // (4 * B * Sq * k.shape[1] * 4)) or 1))
-    return _reference_chunked(fa, q, k, v, ncond, kv_valid, chunk)
+    Sk = k.shape[1]
+    chunk = max(1, min(H, int(2e9 // (4 * B * Sq * Sk * 4)) or 1))
+    rows = Sq if (ncond > 0 and Sq == Sk) else max(1, min(Sq, int(2e9 // (4 * B * Sk))))
+    if rows >= Sq:
+        return _reference_chunked(fa, q, k, v, ncond, kv_valid, chunk)
+    parts = [_reference_chunked(fa, q[:, r0:r0 + rows], k, v, 0, kv_valid, chunk)
+             for r0 in range(0, Sq, rows)]
+    return tuple(torch.cat(x, dim=1) for x in zip(*parts))
 
 
 def kernel_errors(o, lse, o_ref, lse_ref, dtype_name):
@@ -505,8 +530,9 @@ def check_kernel_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
                           fused_v_mlp=fused_v_mlp, seed=seed)
     o, lse = fa.flash_attention(q, k, v, num_cond_tokens=ncond, kv_valid_len=kv_valid)
     torch.cuda.synchronize()
-    o_ref, lse_ref = reference(fa, q, k, v, ncond, kv_valid)
-    torch.cuda.synchronize()
+    # the plain version is timed on the gate's own run (one cold run)
+    (o_ref, lse_ref), plain_ms = _timed_once(lambda: reference(fa, q, k, v, ncond,
+                                                               kv_valid))
     err = kernel_errors(o, lse, o_ref, lse_ref, dtype_name)
     ok = err.pop("ok")
     res = {"case": name, "B": B, "H": H, "Sq": Sq, "Sk": Sk, "D": D, "ncond": ncond,
@@ -518,8 +544,7 @@ def check_kernel_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
     if timed:
         res["ms"] = _events_ms(lambda: fa.flash_attention(
             q, k, v, num_cond_tokens=ncond, kv_valid_len=kv_valid), iters=10)
-        res["plain_ms"] = _events_ms(lambda: reference(fa, q, k, v, ncond, kv_valid),
-                                     iters=1, warmup=0)
+        res["plain_ms"] = plain_ms
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         mask = sdpa_mask(Sq, Sk, ncond, kv_valid)
         res["library_ms"] = _events_ms(lambda: F.scaled_dot_product_attention(
@@ -577,10 +602,30 @@ def tta_kernel_cases(dit_cfg, tokens_per_frame):
              dict(ncond=ncond, kv_valid=s_train, seed=14))]
 
 
+def demo_kernel_cases():
+    """(name, shape args, options) of the attention calls of one
+    longcat_demo pretraining step ([demo] (b), scripts/pretrain_demo): a
+    batch of 2 windows of 4 cond + 8 target latents at 192 x 320 (240
+    tokens a latent frame: 2880 tokens, a 960-token prefix), 6 heads of
+    128; the cross-attention against the text tokens (fused k/v). Every
+    parameter trains, so both have a dQ and a dK/dV launch."""
+    from longcat_video_tta_tpu_torch.config import longcat_demo
+
+    cfg = longcat_demo()
+    sf = cfg.vae.spatial_factor * cfg.dit.patch_size[1]
+    tpf = (DEMO["height"] // sf) * (DEMO["width"] // sf)
+    S, ncond = (DEMO["cond_lat"] + DEMO["target_lat"]) * tpf, DEMO["cond_lat"] * tpf
+    B, H, D = DEMO["batch"], cfg.dit.num_heads, cfg.dit.head_dim
+    return [("demo_pretrain_self", (B, H, S, S, D), dict(ncond=ncond, seed=15)),
+            ("demo_pretrain_cross", (B, H, S, cfg.dit.text_len, D),
+             dict(fused_kv=True, seed=16))]
+
+
 def phase_kernel_checks(fa, dit_cfg, tokens_per_frame):
     cases = [check_kernel_case(fa, name, *shape, timed=True, **opts)
              for name, shape, opts in (main_path_cases(dit_cfg, tokens_per_frame)
-                                       + tta_kernel_cases(dit_cfg, tokens_per_frame))]
+                                       + tta_kernel_cases(dit_cfg, tokens_per_frame)
+                                       + demo_kernel_cases())]
     cases += [
         check_kernel_case(fa, "ragged_kv_valid", 1, 3, 200, 333, 64,
                           kv_valid=250, seed=3),
@@ -653,7 +698,9 @@ def check_bwd_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
     if dkv:
         got["flash_bwd_dkv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
-    ref_dq, ref_dk, ref_dv = backward_reference(fa, q, k, v, o, lse, do, ncond, kv_valid)
+    # the plain version is timed on the gate's own run (one cold run)
+    (ref_dq, ref_dk, ref_dv), plain_ms = _timed_once(
+        lambda: backward_reference(fa, q, k, v, o, lse, do, ncond, kv_valid))
     refs = {"flash_bwd_dq": (ref_dq,), "flash_bwd_dkv": (ref_dk, ref_dv)}
     del ref_dq, ref_dk, ref_dv
     results = []
@@ -673,9 +720,6 @@ def check_bwd_case(fa, name, B, H, Sq, Sk, D, *, ncond=0, kv_valid=None,
         results.append(res)
     del refs, got
     if timed:
-        plain_ms = _events_ms(lambda: backward_reference(fa, q, k, v, o, lse, do,
-                                                         ncond, kv_valid),
-                              iters=1, warmup=0)
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                       for x in (q, k, v))
         mask = sdpa_mask(Sq, Sk, ncond, kv_valid)
@@ -728,6 +772,9 @@ def phase_bwd_kernel_checks(fa, dit_cfg, tokens_per_frame):
     cases += check_bwd_case(fa, "train_self_bucket", 1, H, s_bucket, s_bucket, D,
                             ncond=ncond, kv_valid=s_train, timed=True, seed=36,
                             zero_do_from=s_train)
+    # a longcat_demo pretraining step's self- and cross-attention ([demo] (b))
+    for name, shape, opts in demo_kernel_cases():
+        cases += check_bwd_case(fa, name, *shape, timed=True, **opts)
     cases += check_bwd_case(fa, "ragged_prefix_d32", 2, 2, 150, 150, 32, ncond=37,
                             seed=23)
     cases += check_bwd_case(fa, "ragged_kv_valid_d64", 1, 3, 200, 333, 64,
@@ -882,8 +929,8 @@ def check_bsa_case(fa, bsa, name, B, H, Sq, Sk, D, *, top_k, block_q=1024,
     kw = dict(block_q=block_q, block_k=block_k, kv_valid=kv_valid, qk_int8=qk_int8)
     o = bsa.bsa_forward(q, k, v, idx, **kw)
     torch.cuda.synchronize()
-    o_ref = bsa.bsa_reference(q, k, v, idx_ref, **kw)
-    torch.cuda.synchronize()
+    # the plain version is timed on the gate's own run (one cold run)
+    o_ref, plain_ms = _timed_once(lambda: bsa.bsa_reference(q, k, v, idx_ref, **kw))
     e = bsa_errors(o, o_ref, dtype_name, qk_int8)
     ok = e.pop("ok")
     bound = Sk if kv_valid is None else min(Sk, kv_valid)
@@ -907,8 +954,7 @@ def check_bsa_case(fa, bsa, name, B, H, Sq, Sk, D, *, top_k, block_q=1024,
         raise AssertionError(f"bsa case {name}: {json.dumps(res)}")
     if timed:
         res["ms"] = _events_ms(lambda: bsa.bsa_forward(q, k, v, idx, **kw), iters=10)
-        res["plain_ms"] = _events_ms(lambda: bsa.bsa_reference(q, k, v, idx, **kw),
-                                     iters=1, warmup=0)
+        res["plain_ms"] = plain_ms
         res["pairs"] = bsa_pairs(idx, block_q, block_k, Sq, bound)
         res["bound_ms"], res["bound_by"] = bsa_bound_ms(
             B, H, Sq, Sk, D, res["pairs"], q.element_size(), qk_int8)
@@ -1026,28 +1072,59 @@ def phase_bsa_kernel_checks(fa, bsa, dit_cfg, tokens_per_frame):
     return cases, sums
 
 
-def phase_small_agreement():
-    """generate_vc on the card vs the CPU plain path, same weights and
-    noise (longcat_demo widths at a small frame size)."""
+AGREE_PROMPT = "a ball moving across the scene"
+
+
+def small_agreement_reference() -> dict:
+    """The CPU side of the generate_vc agreement: the longcat_demo bundle
+    (seed 3), the inputs, and the plain path's output dense and with every
+    decode lever. The levers: 5 cond + 9 generated frames of 64x128 give 2
+    + 3 latents of 32 tokens, Sk = 160 in 5 blocks of 32: top_k 4 keeps the
+    2 cond blocks and the diagonal and chooses 1 of the 2 others."""
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import (
+        BSAConfig,
+        CFGReuseConfig,
+        PABConfig,
+        longcat_demo,
+    )
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle, generate_vc
+
+    cpu = ModelBundle.init_random(longcat_demo(), seed=3, device="cpu")
+    rng = np.random.default_rng(0)
+    cond = rng.uniform(-1, 1, (1, 3, 5, 64, 128)).astype(np.float32)
+    noise = torch.from_numpy(rng.standard_normal((1, 16, 2, 8, 16)).astype(np.float32))
+    dense = dict(num_frames=5, num_inference_steps=2, init_noise=noise)
+    noise = torch.from_numpy(rng.standard_normal((1, 16, 3, 8, 16)).astype(np.float32))
+    levers = dict(num_frames=9, num_inference_steps=4, init_noise=noise,
+                  bsa_cfg=BSAConfig(keep_ratio=0.5, block_q=32, block_k=32),
+                  quantize_decode="int8qk", pab_cfg=PABConfig(every=2),
+                  cfgr_cfg=CFGReuseConfig(every=2))
+    return dict(bundle=cpu, cond=cond,
+                runs=[(kw, generate_vc(cpu, cond, AGREE_PROMPT, **kw)) for kw in (dense, levers)])
+
+
+def phase_small_agreement(ref: dict):
+    """generate_vc on the card vs the CPU plain path (``ref``, from
+    ``small_agreement_reference``), same weights and noise (longcat_demo
+    widths at a small frame size), dense and with the decode levers."""
     import copy
     import dataclasses
 
     import numpy as np
     import torch
 
-    from longcat_video_tta_tpu_torch.config import longcat_demo
-    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle, generate_vc
+    from longcat_video_tta_tpu_torch.ops import bsa
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import generate_vc
 
-    cpu = ModelBundle.init_random(longcat_demo(), seed=3, device="cpu")
+    cpu = ref["bundle"]
     gpu = dataclasses.replace(
         cpu, dit=copy.deepcopy(cpu.dit).cuda(), vae=copy.deepcopy(cpu.vae).cuda(),
         text=copy.deepcopy(cpu.text).cuda(), device=torch.device("cuda"))
-    rng = np.random.default_rng(0)
-    cond = rng.uniform(-1, 1, (1, 3, 5, 64, 128)).astype(np.float32)
-    noise = torch.from_numpy(rng.standard_normal((1, 16, 2, 8, 16)).astype(np.float32))
-    kw = dict(num_frames=5, num_inference_steps=2, init_noise=noise)
-    a = generate_vc(cpu, cond, "a ball moving across the scene", **kw)
-    b = generate_vc(gpu, cond, "a ball moving across the scene", **kw)
+    (kw, a), (lever_kw, lever_a) = ref["runs"]
+    b = generate_vc(gpu, ref["cond"], AGREE_PROMPT, **kw)
     mse = float(np.mean((a.astype(np.float64) - b) ** 2))
     psnr = float("inf") if mse == 0 else -10 * math.log10(mse)
     print(f"[agree] longcat_demo generate_vc card vs cpu: shape {b.shape}, "
@@ -1056,20 +1133,9 @@ def phase_small_agreement():
     if not (np.isfinite(b).all() and psnr >= E2E_PSNR_MIN):
         raise AssertionError("card and CPU generate_vc disagree")
 
-    # the decode levers: 5 cond + 9 generated frames of 64x128 give 2 + 3
-    # latents of 32 tokens, Sk = 160 in 5 blocks of 32: top_k 4 keeps the
-    # 2 cond blocks and the diagonal and chooses 1 of the 2 others
-    from longcat_video_tta_tpu_torch.config import BSAConfig, CFGReuseConfig, PABConfig
-    from longcat_video_tta_tpu_torch.ops import bsa
-
-    noise = torch.from_numpy(rng.standard_normal((1, 16, 3, 8, 16)).astype(np.float32))
-    kw = dict(num_frames=9, num_inference_steps=4, init_noise=noise,
-              bsa_cfg=BSAConfig(keep_ratio=0.5, block_q=32, block_k=32),
-              quantize_decode="int8qk", pab_cfg=PABConfig(every=2),
-              cfgr_cfg=CFGReuseConfig(every=2))
-    a = generate_vc(cpu, cond, "a ball moving across the scene", **kw)
     bsa.reset_launches()
-    b = generate_vc(gpu, cond, "a ball moving across the scene", **kw)
+    b = generate_vc(gpu, ref["cond"], AGREE_PROMPT, **lever_kw)
+    a = lever_a
     mse = float(np.mean((a.astype(np.float64) - b) ** 2))
     psnr = float("inf") if mse == 0 else -10 * math.log10(mse)
     print(f"[agree] longcat_demo generate_vc with BSA (keep 0.5, blocks 32), int8qk, "
@@ -1094,38 +1160,75 @@ def delta_step(dit, delta, cond, target, emb, mask, sigma, noise):
     return float(loss.detach()), grad.double().cpu()
 
 
-def phase_step_agreement():
-    """One delta_a train step (loss and delta gradient) on the card vs the
-    CPU plain path: longcat_demo widths (bf16), same weights, same injected
-    sigma and noise; 2 cond + 1 target latents of 8 x 16."""
-    import copy
-
+def _step_inputs(cfg, seed: int, delta: bool):
+    """The step agreements' numpy inputs: 2 cond + 1 target latents of 8 x
+    16, the text, sigma 0.6, the noise (and delta_a's delta), from
+    ``default_rng(seed)``; and the text mask (20 tokens)."""
     import numpy as np
-    import torch
 
-    from longcat_video_tta_tpu_torch.config import longcat_demo
-    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle
-
-    cfg = longcat_demo()
-    cpu_dit = ModelBundle.init_random(cfg, seed=4, device="cpu").dit
-    gpu_dit = copy.deepcopy(cpu_dit).cuda()
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
     arrays = dict(
         cond=rng.standard_normal((1, 16, 2, 8, 16)),
         target=rng.standard_normal((1, 16, 1, 8, 16)),
         emb=rng.standard_normal((1, cfg.dit.text_len, cfg.dit.text_dim)),
         sigma=np.array([0.6]),
-        noise=rng.standard_normal((1, 16, 1, 8, 16)),
-        delta=0.1 * rng.standard_normal((cfg.dit.adaln_tembed_dim,)))
+        noise=rng.standard_normal((1, 16, 1, 8, 16)))
+    if delta:
+        arrays["delta"] = 0.1 * rng.standard_normal((cfg.dit.adaln_tembed_dim,))
     mask = np.ones((1, cfg.dit.text_len), np.int64)
     mask[:, 20:] = 0
-    on = lambda dev: dict(
-        {k: torch.from_numpy(a.astype(np.float32)).to(dev) for k, a in arrays.items()},
-        mask=torch.from_numpy(mask).to(dev))
-    a, b = on("cpu"), on("cuda")
-    args = ("delta", "cond", "target", "emb", "mask", "sigma", "noise")
-    loss_c, grad_c = delta_step(cpu_dit, *(a[k] for k in args))
-    loss_g, grad_g = delta_step(gpu_dit, *(b[k] for k in args))
+    return arrays, mask
+
+
+def _on(arrays, mask, dev):
+    import torch
+
+    return dict(_on_device(arrays, dev), mask=torch.from_numpy(mask).to(dev))
+
+
+STEP_ARGS = ("cond", "target", "emb", "mask", "sigma", "noise")
+
+
+def step_agreement_reference() -> dict:
+    """The CPU sides of the step agreements on one longcat_demo DiT (seed
+    4; its untouched copy is what the card gets): delta_a's step, each
+    ``SCHEME_STEPS`` method's step (its trainable tensors too) and DNO's."""
+    import copy
+
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import AdapterConfig, longcat_demo
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle
+    from longcat_video_tta_tpu_torch.tta.adapters import build_scheme
+
+    cfg = longcat_demo()
+    cpu_dit = ModelBundle.init_random(cfg, seed=4, device="cpu").dit
+    out = {"dit": copy.deepcopy(cpu_dit), "schemes": {}}
+    a = _on(*_step_inputs(cfg, 1, delta=True), "cpu")
+    out["delta_a"] = delta_step(cpu_dit, a["delta"], *(a[k] for k in STEP_ARGS))
+    a = _on(*_step_inputs(cfg, 2, delta=False), "cpu")
+    for name, kw in SCHEME_STEPS.items():
+        scheme = build_scheme(cfg.dit, AdapterConfig(**kw))
+        tp_c = scheme.init("cpu", dit=cpu_dit, generator=torch.Generator().manual_seed(5))
+        if kw["method"] == "lora":  # b starts at zero: move it so a gets a gradient
+            tp_c = {k: v + 0.01 for k, v in tp_c.items()}
+        out["schemes"][name] = (tp_c, scheme_step(scheme, cpu_dit, tp_c,
+                                                  *(a[k] for k in STEP_ARGS)))
+    out["dno"] = dno_grad(cpu_dit, cfg, a)
+    return out
+
+
+def phase_step_agreement(ref: dict):
+    """One delta_a train step (loss and delta gradient) on the card vs the
+    CPU plain path (``ref``, from ``step_agreement_reference``):
+    longcat_demo widths (bf16), same weights, same injected sigma and
+    noise; 2 cond + 1 target latents of 8 x 16."""
+    from longcat_video_tta_tpu_torch.config import longcat_demo
+
+    gpu_dit = ref["dit"].cuda()
+    b = _on(*_step_inputs(longcat_demo(), 1, delta=True), "cuda")
+    loss_c, grad_c = ref["delta_a"]
+    loss_g, grad_g = delta_step(gpu_dit, b["delta"], *(b[k] for k in STEP_ARGS))
     rel_loss = abs(loss_g - loss_c) / abs(loss_c)
     cos = float((grad_g @ grad_c) / (grad_g.norm() * grad_c.norm()))
     rel_l2 = float((grad_g - grad_c).norm() / grad_c.norm())
@@ -1181,63 +1284,47 @@ def _agree(name, loss_a, grad_a, loss_b, grad_b):
         raise AssertionError(f"{name} disagrees")
 
 
-def phase_scheme_step_agreement():
-    """Each other method's train step (and one DNO step) on the card vs the
-    CPU plain path, the delta_a step agreement's inputs and weights; LoRA
-    merged into the weights vs its side branch on the card."""
-    import copy
-
-    import numpy as np
+def dno_grad(dit, cfg, d):
+    """DNO: one step's loss and noise gradient through a 2-step sampler."""
     import torch
 
     from longcat_video_tta_tpu_torch.comparisons import noise_opt
+
+    z = d["noise"].clone().requires_grad_(True)
+    gen = noise_opt.sample_from_noise(dit, cfg.scheduler, z, d["cond"], d["emb"],
+                                      d["mask"], num_steps=2)
+    loss = ((gen - d["target"]) ** 2).mean()
+    (g,) = torch.autograd.grad(loss, [z])
+    return float(loss.detach()), g.double().flatten().cpu()
+
+
+def phase_scheme_step_agreement(ref: dict):
+    """Each other method's train step (and one DNO step) on the card vs the
+    CPU plain path (``ref``), the delta_a step agreement's weights; LoRA
+    merged into the weights vs its side branch on the card."""
+    import torch
+
     from longcat_video_tta_tpu_torch.config import AdapterConfig, longcat_demo
-    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle
     from longcat_video_tta_tpu_torch.tta.adapters import build_scheme
 
     cfg = longcat_demo()
-    cpu_dit = ModelBundle.init_random(cfg, seed=4, device="cpu").dit
-    gpu_dit = copy.deepcopy(cpu_dit).cuda()
-    rng = np.random.default_rng(2)
-    arrays = dict(cond=rng.standard_normal((1, 16, 2, 8, 16)),
-                  target=rng.standard_normal((1, 16, 1, 8, 16)),
-                  emb=rng.standard_normal((1, cfg.dit.text_len, cfg.dit.text_dim)),
-                  sigma=np.array([0.6]), noise=rng.standard_normal((1, 16, 1, 8, 16)))
-    mask = np.ones((1, cfg.dit.text_len), np.int64)
-    mask[:, 20:] = 0
-    on = lambda dev: dict(
-        {k: torch.from_numpy(a.astype(np.float32)).to(dev) for k, a in arrays.items()},
-        mask=torch.from_numpy(mask).to(dev))
-    a, b = on("cpu"), on("cuda")
-    args = ("cond", "target", "emb", "mask", "sigma", "noise")
+    gpu_dit = ref["dit"].cuda()
+    b = _on(*_step_inputs(cfg, 2, delta=False), "cuda")
     for name, kw in SCHEME_STEPS.items():
         scheme = build_scheme(cfg.dit, AdapterConfig(**kw))
-        tp_c = scheme.init("cpu", dit=cpu_dit, generator=torch.Generator().manual_seed(5))
-        if kw["method"] == "lora":  # b starts at zero: move it so a gets a gradient
-            tp_c = {k: v + 0.01 for k, v in tp_c.items()}
+        tp_c, (loss_c, grad_c) = ref["schemes"][name]
         tp_g = (scheme.init("cuda", dit=gpu_dit) if kw["method"] in ("norm_tune", "full")
                 else {k: v.cuda() for k, v in tp_c.items()})
-        loss_c, grad_c = scheme_step(scheme, cpu_dit, tp_c, *(a[k] for k in args))
-        loss_g, grad_g = scheme_step(scheme, gpu_dit, tp_g, *(b[k] for k in args))
+        loss_g, grad_g = scheme_step(scheme, gpu_dit, tp_g, *(b[k] for k in STEP_ARGS))
         _agree(f"longcat_demo {name} step card vs cpu", loss_g, grad_g, loss_c, grad_c)
         if kw["method"] == "lora":
             merged = build_scheme(cfg.dit, AdapterConfig(**kw, lora_builtin=True))
-            loss_m, grad_m = scheme_step(merged, gpu_dit, tp_g, *(b[k] for k in args))
+            loss_m, grad_m = scheme_step(merged, gpu_dit, tp_g, *(b[k] for k in STEP_ARGS))
             _agree("longcat_demo lora merged vs side branch on the card", loss_m, grad_m,
                    loss_g, grad_g)
         torch.cuda.empty_cache()
-
-    # DNO: one step's loss and noise gradient through a 2-step sampler
-    def dno_grad(dit, d):
-        z = d["noise"].clone().requires_grad_(True)
-        gen = noise_opt.sample_from_noise(dit, cfg.scheduler, z, d["cond"], d["emb"],
-                                          d["mask"], num_steps=2)
-        loss = ((gen - d["target"]) ** 2).mean()
-        (g,) = torch.autograd.grad(loss, [z])
-        return float(loss.detach()), g.double().flatten().cpu()
-
-    _agree("longcat_demo dno step (2 sampler steps) card vs cpu", *dno_grad(gpu_dit, b),
-           *dno_grad(cpu_dit, a))
+    _agree("longcat_demo dno step (2 sampler steps) card vs cpu", *dno_grad(gpu_dit, cfg, b),
+           *ref["dno"])
 
 
 def phase_main_path(fa, depth):
@@ -1394,6 +1481,160 @@ def phase_lever_path(fa, bsa, run: str, depth: int):
         raise AssertionError(f"kernel launches on lever run {run} {got}, "
                              f"expected {expected}")
     return got, [r.get("gen_time") for r in summary["results"]]
+
+
+# [longhorizon]: scripts/measure_longhorizon's 93-frame decode at its own
+# geometry (longcat_bench at full width and 16 blocks; 4 cond + 24
+# generated latents of 60 x 104), 10 denoising steps (not 50) in
+# segments of 5, W8A8 and BSA keep 0.15 (top_k 8 of 43 key blocks). corr
+# holds that stack to the reference's fidelity target (its docstring's
+# latent corr >= 0.999 for the BSA keep ratio); wall adds int8 QK^T and
+# the rest of ARCHITECTURE.md's long-horizon setting, PAB every 4 and CFG
+# reuse every 2 over [0.06, 0.96). With PAB and CFG reuse in corr too,
+# the 10-step corr read 0.99891 on an H100 (0.99964 at 50 steps, PERF.md
+# §5): over 10 steps PAB reuses attention across 5x larger sigma jumps
+LONGHORIZON = dict(steps=10, segment=5, keep=0.15, corr_min=0.999, seed=71)
+LONGHORIZON_FLAGS = {
+    "corr": (),
+    "wall": ("--int8qk", "--pab-every", "4", "--pab-start", "0.06", "--pab-end", "0.96",
+             "--cfg-reuse-every", "2", "--cfg-reuse-start", "0.06", "--cfg-reuse-end", "0.96"),
+}
+
+
+def longhorizon_argv(mode: str, *extra):
+    L = LONGHORIZON
+    return ["--mode", mode, "--keep", str(L["keep"]), "--steps", str(L["steps"]),
+            "--segment", str(L["segment"]), *LONGHORIZON_FLAGS[mode], "--device", "cuda",
+            *extra]
+
+
+def longhorizon_launches(args, depth: int) -> dict:
+    """Launches per kernel of one ``measure_longhorizon`` run (``args``: its
+    parsed flags). Each sampler call runs the cond-cache precompute's self-
+    and cross-attention on the forward kernel (2 x depth), and at every
+    step each block's cross-attention on it (depth). The dense decode
+    (corr's reference) runs self-attention on it too at every step; the
+    lever stack runs it through BSA (depth, two block sums each; int8-QK
+    with --int8qk) on the steps PAB computes: every step without PAB, else
+    those outside [round(start * steps), round(end * steps)) and every
+    ``every``-th one from its start. CFG reuse halves a step's batch, not
+    its launches. corr: one dense and one lever call; wall: two lever
+    calls."""
+    steps = args.steps
+    attn_steps = steps
+    if args.pab_every > 0:
+        start, end = round(args.pab_start * steps), round(args.pab_end * steps)
+        attn_steps = sum(1 for i in range(steps)
+                         if not (start <= i < end and (i - start) % args.pab_every))
+    calls = 1 if args.mode == "corr" else 2
+    out = {"flash_fwd": calls * depth * (2 + steps), "bsa_fwd": 0, "bsa_fwd_qk_int8": 0,
+           "bsa_block_sum": calls * 2 * depth * attn_steps}
+    out["bsa_fwd_qk_int8" if args.int8qk else "bsa_fwd"] = calls * depth * attn_steps
+    if args.mode == "corr":
+        out["flash_fwd"] += depth * (2 + 2 * steps)
+    return out
+
+
+def longhorizon_geometry(dit_cfg):
+    """(tokens per latent frame, cond tokens, query tokens, key tokens) of
+    measure_longhorizon's decode: 1560, 6240, 37 440, 43 680."""
+    from longcat_video_tta_tpu_torch.scripts import measure_longhorizon as mlh
+
+    gen_latents = mlh.parse_args([]).gen_latents
+    tpf = (mlh.LAT_H // dit_cfg.patch_size[1]) * (mlh.LAT_W // dit_cfg.patch_size[2])
+    ncond, sq = mlh.COND_LATENTS * tpf, gen_latents * tpf
+    return tpf, ncond, sq, ncond + sq
+
+
+def phase_longhorizon_kernels(fa, bsa, dit_cfg):
+    """B1, B4 and B5 at the 93-frame decode's shapes against their plain
+    versions, timed: B1 at the dense decode (the CFG pair, 37 440 queries
+    against 6240 cached + 37 440 fresh keys, both ragged in 1024-token
+    blocks, the query offset inside a block) against SDPA; the block sums
+    over the queries and the keys against ``view().sum(2)``; BSA 16-bit at
+    top_k 8 (keep 0.15, the forced-keep clamp) and 16 (keep 0.35) against
+    compiled flex_attention on the same selection, int8-QK at top_k 8."""
+    import torch
+
+    H, D = dit_cfg.num_heads, dit_cfg.head_dim
+    _, ncond, sq, sk = longhorizon_geometry(dit_cfg)
+    seed = LONGHORIZON["seed"]
+    cases = [check_kernel_case(fa, "longhorizon_decode", 2, H, sq, sk, D, timed=True,
+                               seed=seed)]
+    torch.cuda.empty_cache()
+    bsa_cases = []
+    for top_k, int8 in ((8, False), (16, False), (8, True)):
+        bsa_cases.append(check_bsa_case(fa, bsa, f"longhorizon_top{top_k}", 2, H, sq, sk, D,
+                                        top_k=top_k, ncond=ncond, qk_int8=int8, timed=True,
+                                        seed=seed + top_k))
+        torch.cuda.empty_cache()
+    sums = [check_block_sum_case(bsa, "longhorizon_pool_q", 2, sq, H, D, 1024, timed=True,
+                                 seed=seed + 20),
+            check_block_sum_case(bsa, "longhorizon_pool_k", 2, sk, H, D, 1024, timed=True,
+                                 seed=seed + 21)]
+    for c in cases:
+        print("[longhorizon-kernel] " + json.dumps(c))
+    for c in bsa_cases + sums:
+        print("[longhorizon-bsa-kernel] " + json.dumps(c))
+    return cases, bsa_cases, sums
+
+
+def phase_longhorizon_runs(fa, bsa, cfg):
+    """``measure_longhorizon`` at its geometry, corr (the dense bf16 decode,
+    then W8A8 + BSA) and wall (two runs with int8 QK^T, PAB and CFG
+    reuse as well): finite latents of the 93-frame shape, latent corr >=
+    0.999, launches equal to ``longhorizon_launches``. Returns the
+    launches of both runs, summed."""
+    import torch
+
+    from longcat_video_tta_tpu_torch.scripts import measure_longhorizon as mlh
+
+    _, ncond, sq, sk = longhorizon_geometry(cfg.dit)
+    total = {}
+    for mode in LONGHORIZON_FLAGS:
+        args = mlh.parse_args(longhorizon_argv(mode))
+        bsa_cfg = mlh.lever_configs(args)[0]
+        print(f"[longhorizon {mode}] measure_longhorizon " + " ".join(longhorizon_argv(
+            mode)) + f"; top_k {mlh.clamped_top_k(bsa_cfg, sk, ncond)} of "
+            f"{-(-sk // bsa_cfg.block_k)} key blocks; cuts: {args.steps} denoising steps "
+            f"(not 50); full width and depth {cfg.dit.depth}")
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        bsa.reset_launches()
+        t0 = time.time()
+        record, latents = mlh.measure_longhorizon(args, cfg, device="cuda")
+        wall = time.time() - t0
+        got = {"flash_fwd": fa.launches, "bsa_fwd": bsa.bsa_launches,
+               "bsa_fwd_qk_int8": bsa.bsa_int8_launches,
+               "bsa_block_sum": bsa.bsa_block_sum_launches}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        expected = longhorizon_launches(args, cfg.dit.depth)
+        print(f"[longhorizon] {json.dumps(record)}")
+        print(f"[longhorizon {mode}] wall {wall:.1f} s; max_memory_allocated {peak:.2f} GiB; "
+              f"launches {got} (expected {expected})")
+        shape = (1, cfg.dit.out_channels, args.gen_latents, mlh.LAT_H, mlh.LAT_W)
+        for x in latents:
+            if tuple(x.shape) != shape or not bool(x.isfinite().all()):
+                raise AssertionError(f"[longhorizon {mode}] latents {tuple(x.shape)} "
+                                     f"(expected {shape}), finite "
+                                     f"{bool(x.isfinite().all())}")
+        if mode == "corr" and not record["latent_corr"] >= LONGHORIZON["corr_min"]:
+            raise AssertionError(f"[longhorizon] latent corr {record['latent_corr']} < "
+                                 f"{LONGHORIZON['corr_min']}")
+        if got != expected:
+            raise AssertionError(f"[longhorizon {mode}] launches {got}, expected {expected}")
+        del latents
+        for name, n in got.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def phase_longhorizon(fa, bsa):
+    from longcat_video_tta_tpu_torch.config import longcat_bench
+
+    cfg = longcat_bench()
+    kernels = phase_longhorizon_kernels(fa, bsa, cfg.dit)
+    return (*kernels, phase_longhorizon_runs(fa, bsa, cfg))
 
 
 def t2v_launches(depth: int, steps: int, pab_every: int = 0,
@@ -2096,13 +2337,9 @@ def random_dit(cfg, seed: int):
     """A DiT of ``cfg`` with random weights drawn on the card."""
     import torch
 
-    from longcat_video_tta_tpu_torch.models import weights
-    from longcat_video_tta_tpu_torch.models.dit import LongCatDiT
+    from longcat_video_tta_tpu_torch.models.weights import init_random_dit
 
-    dit = weights._empty(LongCatDiT, cfg, "cuda")
-    weights._fill_dit(dit, weights.random_getter(
-        torch.Generator(device="cuda").manual_seed(seed), "cuda"))
-    return dit
+    return init_random_dit(cfg, "cuda", torch.Generator(device="cuda").manual_seed(seed))
 
 
 def phase_remat_path(fa):
@@ -2769,13 +3006,29 @@ def phase_opensora_kernels(fa):
     return fwd, bwd
 
 
-def phase_opensora_agreement(fa):
-    """The small head-128 MMDiT (``opensora_small_config``): generate_vc on
-    the card against the CPU plain path on the same weights and initial
-    volume, and one delta_a and one LoRA train step's loss and gradient,
-    same injected sigma and noise."""
+def _joint_step(loss_fn, text_keys, scheme, tp, dit, d, dev):
+    """Loss and flattened gradient of one train step of a joint backbone's
+    scheme; ``text_keys`` name the inputs of ``d`` the loss takes after the
+    target (None passes None)."""
+    import torch
+
+    leaves = {k: v.to(dev).clone().requires_grad_(True) for k, v in tp.items()}
+    fwd_dit, ad = scheme.to_forward(leaves, dit)
+    loss = loss_fn(fwd_dit, d["cond"], d["target"],
+                   *(None if k is None else d[k] for k in text_keys),
+                   adapters=ad, sigma=d["sigma"], noise=d["noise"])
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), torch.cat([g.double().flatten().cpu() for g in grads])
+
+
+def _joint_agreement_reference(cfg, seed: int, rng_seed: int, arrays_of, methods, loss_fn,
+                               text_keys):
+    """The CPU side of a joint backbone's card-vs-CPU check: the small
+    model's bundle (and an untouched copy of its DiT for the card), its
+    generate_vc output on 5 cond + 9 generated frames, and each method's
+    trainable tensors (moved off zero but for full's, so every tensor gets
+    a gradient), loss and gradient."""
     import copy
-    import dataclasses
 
     import numpy as np
     import torch
@@ -2783,57 +3036,109 @@ def phase_opensora_agreement(fa):
     from longcat_video_tta_tpu_torch.config import AdapterConfig
     from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle, generate_vc
     from longcat_video_tta_tpu_torch.tta.adapters import build_scheme
-    from longcat_video_tta_tpu_torch.tta.losses import mmdit_flow_matching_loss_conditioned
 
-    cfg = opensora_small_config()
-    cpu = ModelBundle.init_random(cfg, seed=OPENSORA["small_seed"], device="cpu")
-    gpu = dataclasses.replace(
-        cpu, dit=copy.deepcopy(cpu.dit).cuda(), vae=copy.deepcopy(cpu.vae).cuda(),
-        text=copy.deepcopy(cpu.text).cuda(), clip=copy.deepcopy(cpu.clip).cuda(),
-        device=torch.device("cuda"))
-    rng = np.random.default_rng(8)
+    cpu = ModelBundle.init_random(cfg, seed=seed, device="cpu")
+    rng = np.random.default_rng(rng_seed)
     cond = rng.uniform(-1, 1, (1, 3, 5, 64, 128)).astype(np.float32)
     # 5 cond + 9 generated frames: 2 + 3 latents of 8 x 16 (32 tokens each)
     x0 = torch.from_numpy(rng.standard_normal((1, 16, 5, 8, 16)).astype(np.float32))
     kw = dict(num_frames=9, num_inference_steps=3, init_x=x0)
-    a = generate_vc(cpu, cond, "a ball moving across the scene", **kw)
+    ref = dict(bundle=cpu, dit=copy.deepcopy(cpu.dit), cond=cond, kw=kw,
+               gen=generate_vc(cpu, cond, AGREE_PROMPT, **kw), arrays=arrays_of(rng),
+               steps={})
+    d = _on_device(ref["arrays"], "cpu")
+    for method in methods:
+        scheme = build_scheme(cfg.dit, AdapterConfig(method=method))
+        tp = scheme.init("cpu", dit=cpu.dit, generator=torch.Generator().manual_seed(5))
+        if method != "full":
+            tp = {k: v + 0.01 for k, v in tp.items()}
+        ref["steps"][method] = (tp, _joint_step(loss_fn, text_keys, scheme, tp, cpu.dit, d,
+                                                "cpu"))
+    return ref
+
+
+def _joint_agreement(fa, tag: str, name: str, ref: dict, n_launch: int, loss_fn, text_keys,
+                     card: str = "cuda"):
+    """generate_vc and each method's train step on the card against the CPU
+    side ``ref``: PSNR >= E2E_PSNR_MIN and ``n_launch`` forward launches,
+    the step agreement's gates."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import AdapterConfig
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import generate_vc
+    from longcat_video_tta_tpu_torch.tta.adapters import build_scheme
+
+    cpu = ref["bundle"]
+    gpu = dataclasses.replace(
+        cpu, dit=ref["dit"].to(card), vae=_copy_to(cpu.vae, card),
+        text=_copy_to(cpu.text, card),
+        clip=None if cpu.clip is None else _copy_to(cpu.clip, card), device=torch.device(card))
+    a = ref["gen"]
     fa.reset_launches()
-    b = generate_vc(gpu, cond, "a ball moving across the scene", **kw)
-    n_attn = cfg.dit.depth_double + cfg.dit.depth_single
+    b = generate_vc(gpu, ref["cond"], AGREE_PROMPT, **ref["kw"])
     launches = fa.launches
     mse = float(np.mean((a.astype(np.float64) - b) ** 2))
     psnr = float("inf") if mse == 0 else -10 * math.log10(mse)
-    print(f"[opensora agree] small MMDiT (hidden 256, 2 heads of 128) generate_vc card vs "
-          f"cpu: shape {b.shape}, max|diff| {float(np.abs(a - b).max()):.4g}, psnr "
-          f"{psnr:.2f} dB (min {E2E_PSNR_MIN}); flash_fwd launches {launches} "
-          f"(expected {3 * n_attn})")
-    if not (np.isfinite(b).all() and psnr >= E2E_PSNR_MIN and launches == 3 * n_attn):
-        raise AssertionError("card and CPU MMDiT generate_vc disagree")
+    print(f"[{tag} agree] {name} generate_vc card vs cpu: shape {b.shape}, max|diff| "
+          f"{float(np.abs(a - b).max()):.4g}, psnr {psnr:.2f} dB (min {E2E_PSNR_MIN}); "
+          f"flash_fwd launches {launches} (expected {n_launch})")
+    if not (np.isfinite(b).all() and psnr >= E2E_PSNR_MIN and launches == n_launch):
+        raise AssertionError(f"card and CPU {name} generate_vc disagree")
+    d = _on_device(ref["arrays"], card)
+    for method, (tp, cpu_step) in ref["steps"].items():
+        scheme = build_scheme(cpu.cfg.dit, AdapterConfig(method=method))
+        _agree(f"{name} {method} step card vs cpu",
+               *_joint_step(loss_fn, text_keys, scheme, tp, gpu.dit, d, card), *cpu_step)
 
-    arrays = dict(cond=rng.standard_normal((1, 16, 2, 8, 16)),
-                  target=rng.standard_normal((1, 16, 1, 8, 16)),
-                  txt=rng.standard_normal((1, 16, cfg.dit.context_in_dim)),
-                  yv=rng.standard_normal((1, cfg.dit.vec_in_dim)),
-                  sigma=np.array([0.6]), noise=rng.standard_normal((1, 16, 1, 8, 16)))
-    on = lambda dev: {k: torch.from_numpy(v.astype(np.float32)).to(dev)
-                      for k, v in arrays.items()}
-    for method, extra in (("delta_a", {}), ("lora", {})):
-        scheme = build_scheme(cfg.dit, AdapterConfig(method=method, **extra))
-        tp = scheme.init("cpu", dit=cpu.dit, generator=torch.Generator().manual_seed(5))
-        tp = {k: v + 0.01 for k, v in tp.items()}  # off zero: every tensor gets a gradient
 
-        def step(dit, d, dev):
-            leaves = {k: v.to(dev).clone().requires_grad_(True) for k, v in tp.items()}
-            fwd_dit, ad = scheme.to_forward(leaves, dit)
-            loss = mmdit_flow_matching_loss_conditioned(
-                fwd_dit, d["cond"], d["target"], d["txt"], d["yv"], adapters=ad,
-                sigma=d["sigma"], noise=d["noise"])
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-            return float(loss.detach()), torch.cat([g.double().flatten().cpu()
-                                                    for g in grads])
+def _copy_to(module, card: str):
+    import copy
 
-        _agree(f"small MMDiT {method} step card vs cpu", *step(gpu.dit, on("cuda"), "cuda"),
-               *step(cpu.dit, on("cpu"), "cpu"))
+    return copy.deepcopy(module).to(card)
+
+
+def _on_device(arrays, dev):
+    """numpy arrays as fp32 tensors on ``dev``."""
+    import numpy as np
+    import torch
+
+    return {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in arrays.items()}
+
+
+def opensora_agreement_reference() -> dict:
+    """The CPU side of ``phase_opensora_agreement``."""
+    import numpy as np
+
+    from longcat_video_tta_tpu_torch.tta.losses import mmdit_flow_matching_loss_conditioned
+
+    cfg = opensora_small_config()
+    arrays_of = lambda rng: dict(
+        cond=rng.standard_normal((1, 16, 2, 8, 16)),
+        target=rng.standard_normal((1, 16, 1, 8, 16)),
+        txt=rng.standard_normal((1, 16, cfg.dit.context_in_dim)),
+        yv=rng.standard_normal((1, cfg.dit.vec_in_dim)),
+        sigma=np.array([0.6]), noise=rng.standard_normal((1, 16, 1, 8, 16)))
+    return _joint_agreement_reference(cfg, OPENSORA["small_seed"], 8, arrays_of,
+                                      ("delta_a", "lora"),
+                                      mmdit_flow_matching_loss_conditioned, ("txt", "yv"))
+
+
+def phase_opensora_agreement(fa, ref=None):
+    """The small head-128 MMDiT (``opensora_small_config``): generate_vc on
+    the card against the CPU plain path on the same weights and initial
+    volume, and one delta_a and one LoRA train step's loss and gradient,
+    same injected sigma and noise (``ref``: the CPU side, from
+    ``opensora_agreement_reference``)."""
+    from longcat_video_tta_tpu_torch.tta.losses import mmdit_flow_matching_loss_conditioned
+
+    cfg = opensora_small_config()
+    _joint_agreement(fa, "opensora", "small MMDiT (hidden 256, 2 heads of 128)",
+                     ref or opensora_agreement_reference(),
+                     3 * (cfg.dit.depth_double + cfg.dit.depth_single),
+                     mmdit_flow_matching_loss_conditioned, ("txt", "yv"))
 
 
 def joint_run(fa, spec, tag: str, method: str, argv_extra, *, depth=None):
@@ -3148,16 +3453,16 @@ def phase_opensora_checkpoint(fa):
     return got
 
 
-def phase_opensora(fa):
+def phase_opensora(fa, agree_ref=None):
     """(a) B1-B3 at the Open-Sora shapes, (b) card vs CPU at the small
-    head-128 MMDiT, (c) the runner at full width, (d) the checkpoint
-    layout. Returns (forward cases, backward cases, launches summed over
-    the runs)."""
+    head-128 MMDiT (``agree_ref``: its CPU side, computed here when None),
+    (c) the runner at full width, (d) the checkpoint layout. Returns
+    (forward cases, backward cases, launches summed over the runs)."""
     import torch
 
     fwd, bwd = phase_opensora_kernels(fa)
     torch.cuda.empty_cache()
-    phase_opensora_agreement(fa)
+    phase_opensora_agreement(fa, agree_ref)
     torch.cuda.empty_cache()
     with preset_depth(OPENSORA["run_depth"], OPENSORA["preset"]):
         launches, serve_times = phase_joint_runs(fa, OPENSORA)
@@ -3241,72 +3546,39 @@ def cogvideox_small_config():
         param_dtype="bfloat16", compute_dtype="bfloat16"))
 
 
-def phase_cogvideox_agreement(fa):
-    """The small head-64 CogVideoX (``cogvideox_small_config``): generate_vc
-    on the card against the CPU plain path on the same weights and initial
-    volume, and one delta_a, LoRA and full train step's loss and gradient,
-    same injected sigma and noise."""
-    import copy
-    import dataclasses
-
+def cogvideox_agreement_reference() -> dict:
+    """The CPU side of ``phase_cogvideox_agreement``."""
     import numpy as np
-    import torch
 
-    from longcat_video_tta_tpu_torch.config import AdapterConfig
-    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle, generate_vc
-    from longcat_video_tta_tpu_torch.tta.adapters import build_scheme
     from longcat_video_tta_tpu_torch.tta.losses import (
         cogvideox_flow_matching_loss_conditioned,
     )
 
     cfg = cogvideox_small_config()
-    cpu = ModelBundle.init_random(cfg, seed=COGVIDEOX["small_seed"], device="cpu")
-    gpu = dataclasses.replace(
-        cpu, dit=copy.deepcopy(cpu.dit).cuda(), vae=copy.deepcopy(cpu.vae).cuda(),
-        text=copy.deepcopy(cpu.text).cuda(), device=torch.device("cuda"))
-    rng = np.random.default_rng(9)
-    cond = rng.uniform(-1, 1, (1, 3, 5, 64, 128)).astype(np.float32)
-    # 5 cond + 9 generated frames: 2 + 3 latents of 8 x 16 (32 tokens each)
-    x0 = torch.from_numpy(rng.standard_normal((1, 16, 5, 8, 16)).astype(np.float32))
-    kw = dict(num_frames=9, num_inference_steps=3, init_x=x0)
-    a = generate_vc(cpu, cond, "a ball moving across the scene", **kw)
-    fa.reset_launches()
-    b = generate_vc(gpu, cond, "a ball moving across the scene", **kw)
-    launches = fa.launches
-    n_attn = cfg.dit.depth
-    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
-    psnr = float("inf") if mse == 0 else -10 * math.log10(mse)
-    print(f"[cogvideox agree] small CogVideoX (hidden 256, 4 heads of 64) generate_vc card "
-          f"vs cpu: shape {b.shape}, max|diff| {float(np.abs(a - b).max()):.4g}, psnr "
-          f"{psnr:.2f} dB (min {E2E_PSNR_MIN}); flash_fwd launches {launches} "
-          f"(expected {3 * n_attn})")
-    if not (np.isfinite(b).all() and psnr >= E2E_PSNR_MIN and launches == 3 * n_attn):
-        raise AssertionError("card and CPU CogVideoX generate_vc disagree")
+    arrays_of = lambda rng: dict(
+        cond=rng.standard_normal((1, 16, 2, 8, 16)),
+        target=rng.standard_normal((1, 16, 1, 8, 16)),
+        txt=rng.standard_normal((1, 16, cfg.dit.text_dim)),
+        sigma=np.array([0.6]), noise=rng.standard_normal((1, 16, 3, 8, 16)))
+    return _joint_agreement_reference(cfg, COGVIDEOX["small_seed"], 9, arrays_of,
+                                      ("delta_a", "lora", "full"),
+                                      cogvideox_flow_matching_loss_conditioned, ("txt", None))
 
-    arrays = dict(cond=rng.standard_normal((1, 16, 2, 8, 16)),
-                  target=rng.standard_normal((1, 16, 1, 8, 16)),
-                  txt=rng.standard_normal((1, 16, cfg.dit.text_dim)),
-                  sigma=np.array([0.6]), noise=rng.standard_normal((1, 16, 3, 8, 16)))
-    on = lambda dev: {k: torch.from_numpy(v.astype(np.float32)).to(dev)
-                      for k, v in arrays.items()}
-    for method in ("delta_a", "lora", "full"):
-        scheme = build_scheme(cfg.dit, AdapterConfig(method=method))
-        tp = scheme.init("cpu", dit=cpu.dit, generator=torch.Generator().manual_seed(5))
-        if method != "full":  # off zero: every tensor gets a gradient
-            tp = {k: v + 0.01 for k, v in tp.items()}
 
-        def step(dit, d, dev):
-            leaves = {k: v.to(dev).clone().requires_grad_(True) for k, v in tp.items()}
-            fwd_dit, ad = scheme.to_forward(leaves, dit)
-            loss = cogvideox_flow_matching_loss_conditioned(
-                fwd_dit, d["cond"], d["target"], d["txt"], None, adapters=ad,
-                sigma=d["sigma"], noise=d["noise"])
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-            return float(loss.detach()), torch.cat([g.double().flatten().cpu()
-                                                    for g in grads])
+def phase_cogvideox_agreement(fa, ref=None):
+    """The small head-64 CogVideoX (``cogvideox_small_config``): generate_vc
+    on the card against the CPU plain path on the same weights and initial
+    volume, and one delta_a, LoRA and full train step's loss and gradient,
+    same injected sigma and noise (``ref``: the CPU side, from
+    ``cogvideox_agreement_reference``)."""
+    from longcat_video_tta_tpu_torch.tta.losses import (
+        cogvideox_flow_matching_loss_conditioned,
+    )
 
-        _agree(f"small CogVideoX {method} step card vs cpu",
-               *step(gpu.dit, on("cuda"), "cuda"), *step(cpu.dit, on("cpu"), "cpu"))
+    cfg = cogvideox_small_config()
+    _joint_agreement(fa, "cogvideox", "small CogVideoX (hidden 256, 4 heads of 64)",
+                     ref or cogvideox_agreement_reference(), 3 * cfg.dit.depth,
+                     cogvideox_flow_matching_loss_conditioned, ("txt", None))
 
 
 def cogvideox_trainable(method: str, dit_cfg) -> int:
@@ -3326,15 +3598,16 @@ def cogvideox_trainable(method: str, dit_cfg) -> int:
         return count_params(CogVideoX(dit_cfg))
 
 
-def phase_cogvideox(fa):
+def phase_cogvideox(fa, agree_ref=None):
     """(a) B1-B3 at the CogVideoX shapes (head_dim 64), (b) card vs CPU at
-    the small head-64 CogVideoX, (c) the runner at full width. Returns
-    (forward cases, backward cases, launches summed over the runs)."""
+    the small head-64 CogVideoX (``agree_ref``: its CPU side, computed here
+    when None), (c) the runner at full width. Returns (forward cases,
+    backward cases, launches summed over the runs)."""
     import torch
 
     fwd, bwd = phase_cogvideox_kernels(fa)
     torch.cuda.empty_cache()
-    phase_cogvideox_agreement(fa)
+    phase_cogvideox_agreement(fa, agree_ref)
     torch.cuda.empty_cache()
     with preset_depth(COGVIDEOX["run_depth"], COGVIDEOX["preset"]):
         launches, serve_times = phase_joint_runs(fa, COGVIDEOX)
@@ -3799,26 +4072,41 @@ class PhaseProbe:
         return g["peak"] / 2**30, self.events[0]["held"] / 2**30
 
 
-def phase_vp_agreement(card: str = "cuda"):
-    """One batched delta_a step of 2 lanes (each its own cond, target,
-    text, sigma and noise) on the card vs the CPU plain path at
-    longcat_demo width (bf16): each lane's loss and delta gradient under
-    the step agreement's gates."""
-    import copy
-
+def _vp_lane_step(dit, lanes, delta, mask, dev):
+    """One batched delta_a step of the folded lanes: each lane's loss and
+    delta gradient."""
     import numpy as np
     import torch
 
-    from longcat_video_tta_tpu_torch.config import longcat_demo
-    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle
     from longcat_video_tta_tpu_torch.tta.losses import (
         flow_matching_loss_conditioned,
         fold_lanes,
     )
 
+    V = len(lanes)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    fold = lambda key: fold_lanes([t(lane[key]) for lane in lanes])
+    d = t(delta).requires_grad_(True)
+    m = torch.from_numpy(mask).to(dev)
+    loss = flow_matching_loss_conditioned(
+        dit, fold("cond"), fold("target"), fold("emb"), torch.cat([m] * V),
+        adapters={"delta_t": d}, sigma=fold("sigma"), noise=fold("noise"), lanes=V)
+    (g,) = torch.autograd.grad(loss.sum(), [d])
+    return loss.detach().double().cpu(), g.double().cpu()
+
+
+def vp_agreement_reference() -> dict:
+    """The CPU side of ``phase_vp_agreement``: the longcat_demo DiT (seed 5;
+    an untouched copy for the card), 2 lanes' inputs, their step."""
+    import copy
+
+    import numpy as np
+
+    from longcat_video_tta_tpu_torch.config import longcat_demo
+    from longcat_video_tta_tpu_torch.pipeline.pipeline import ModelBundle
+
     cfg = longcat_demo()
     cpu_dit = ModelBundle.init_random(cfg, seed=5, device="cpu").dit
-    gpu_dit = copy.deepcopy(cpu_dit).to(card)
     rng = np.random.default_rng(2)
     V, D = VP["lanes"], cfg.dit
     lanes = [dict(cond=rng.standard_normal((1, 16, 2, 8, 16)),
@@ -3828,22 +4116,22 @@ def phase_vp_agreement(card: str = "cuda"):
                   noise=rng.standard_normal((1, 16, 1, 8, 16))) for v in range(V)]
     delta = 0.1 * rng.standard_normal((V, D.adaln_tembed_dim))
     mask = np.ones((1, D.text_len), np.int64)
+    return dict(dit=copy.deepcopy(cpu_dit), lanes=lanes, delta=delta, mask=mask,
+                step=_vp_lane_step(cpu_dit, lanes, delta, mask, "cpu"))
 
-    def step(dit, dev):
-        t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
-        fold = lambda key: fold_lanes([t(l[key]) for l in lanes])
-        d = t(delta).requires_grad_(True)
-        m = torch.from_numpy(mask).to(dev)
-        loss = flow_matching_loss_conditioned(
-            dit, fold("cond"), fold("target"), fold("emb"), torch.cat([m] * V),
-            adapters={"delta_t": d}, sigma=fold("sigma"), noise=fold("noise"), lanes=V)
-        (g,) = torch.autograd.grad(loss.sum(), [d])
-        return loss.detach().double().cpu(), g.double().cpu()
 
-    loss_c, grad_c = step(cpu_dit, "cpu")
-    loss_g, grad_g = step(gpu_dit, card)
+def phase_vp_agreement(card: str = "cuda", ref=None):
+    """One batched delta_a step of 2 lanes (each its own cond, target,
+    text, sigma and noise) on the card vs the CPU plain path at
+    longcat_demo width (bf16): each lane's loss and delta gradient under
+    the step agreement's gates (``ref``: the CPU side, from
+    ``vp_agreement_reference``)."""
+    ref = ref or vp_agreement_reference()
+    loss_c, grad_c = ref["step"]
+    loss_g, grad_g = _vp_lane_step(ref["dit"].to(card), ref["lanes"], ref["delta"],
+                                   ref["mask"], card)
     ok = True
-    for v in range(V):
+    for v in range(len(ref["lanes"])):
         rel = float(abs(loss_g[v] - loss_c[v]) / abs(loss_c[v]))
         cos = float(grad_g[v] @ grad_c[v] / (grad_g[v].norm() * grad_c[v].norm()))
         print(f"[vp-agree] longcat_demo batched delta_a step, lane {v}, card vs cpu: loss "
@@ -3899,15 +4187,16 @@ def _adapter_vector(r):
     return torch.cat([state[k].double().flatten() for k in sorted(state)])
 
 
-def phase_vp(fa, dit_cfg, tokens_per_frame, card: str = "cuda"):
+def phase_vp(fa, dit_cfg, tokens_per_frame, card: str = "cuda", agree_ref=None):
     """(a) B1-B3 at the folded shapes against the plain version and SDPA;
     (b) one batched step of 2 lanes, card vs CPU; (c) delta_a at
     LongCat-13.6B width and depth through the runner with --video-parallel 2
     --native-prefetch, and the same 2 videos one after the other: each
     lane's losses, early-stopping record and adapter against its sequential
     run, per-step launches equal to one video's, the group's own peak; (d)
-    lora on 8 sites at V 2. Returns (forward cases, backward cases,
-    launches over the runs, the run folders and tower files for [tools])."""
+    lora on 8 sites at V 2. ``agree_ref``: (b)'s CPU side, computed here
+    when None. Returns (forward cases, backward cases, launches over the
+    runs, the run folders and tower files for [tools])."""
     import numpy as np
     import torch
 
@@ -3922,7 +4211,7 @@ def phase_vp(fa, dit_cfg, tokens_per_frame, card: str = "cuda"):
         print("[vp-kernel] " + json.dumps(c))
     for c in bwd:
         print("[vp-bwd-kernel] " + json.dumps(c))
-    phase_vp_agreement(card)
+    phase_vp_agreement(card, agree_ref)
 
     base = os.path.join(RUN_DIR, "vp", "results", "chip_smoke_vp")
     towers = os.path.join(RUN_DIR, "vp", "towers")
@@ -4189,10 +4478,12 @@ def phase_tools(vp_runs, card: str = "cuda"):
 MESH = dict(seed=101, timeout_s=420, loss0_rtol=1e-3, loss_rtol=1e-2, cos_min=0.99,
             psnr_min=30.0, tp_loss_rtol=1e-2, tp_cos_min=0.99, tp_fwd_rel_l2=1e-2,
             # the runner runs: the delta_a window, 3 steps, a check every 3, 4
-            # denoising steps; ``depth`` of the 48 blocks (the method runs'
-            # cut; two ranks that each hold the whole DiT share the card's
-            # 80 GB)
-            depth=24, steps=3, check_every=3, inference_steps=4, videos=2)
+            # denoising steps; ``depth`` of the 48 blocks (two ranks that
+            # each hold the whole DiT share the card's 80 GB; 24 fit. 12 for
+            # the script's time limit: the ranks' gloo traffic makes this
+            # the longest phase, and its gates, each rank's launches and its
+            # agreement with one rank, hold block by block)
+            depth=12, steps=3, check_every=3, inference_steps=4, videos=2)
 
 
 def mesh_geometry(dit_cfg, tokens_per_frame):
@@ -4944,11 +5235,11 @@ def _demo_dit_loss(m, c, t, e, k, s, n):
 DEMO_LOSSES = {"vae": _demo_vae_loss, "dit": _demo_dit_loss}
 
 
-def start_demo_reference():
-    """Start ``demo_step_reference`` in a background thread on half the
-    host's cores (at these shapes the CPU side takes minutes, which the
-    card phases that run meanwhile leave to the host). Returns a function
-    that waits for it and returns its result, or raises its error."""
+def start_background(name: str, fn):
+    """Start ``fn()`` in a background thread on half the host's cores (a
+    CPU side of a card-vs-CPU check, computed while the card phases that
+    run meanwhile leave the host idle). Returns a function that waits for
+    it and returns its result, or raises its error."""
     import threading
 
     import torch
@@ -4959,13 +5250,13 @@ def start_demo_reference():
     def work():
         torch.set_num_threads(max(1, threads // 2))
         try:
-            box["out"] = demo_step_reference()
+            box["out"] = fn()
         except BaseException as e:  # raised where the result is read
             box["err"] = e
         finally:
             torch.set_num_threads(threads)
 
-    thread = threading.Thread(target=work, name="demo-cpu-reference", daemon=True)
+    thread = threading.Thread(target=work, name=name, daemon=True)
     thread.start()
 
     def result():
@@ -4975,6 +5266,12 @@ def start_demo_reference():
         return box["out"]
 
     return result
+
+
+def start_demo_reference():
+    """``demo_step_reference`` in the background (at pretraining's shapes
+    its CPU side takes minutes)."""
+    return start_background("demo-cpu-reference", demo_step_reference)
 
 
 def phase_demo_step_agreement(ref: dict, card: str = "cuda"):
@@ -5170,7 +5467,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="development: run the build and these comma-separated phases "
                          "(checkpoint, remat, bucket, eval, kernel, bwd, opensora, cogvideox, "
-                         "t2v, vbench, vp, flags, tools, mesh, demo; tools runs after vp) "
+                         "t2v, vbench, vp, flags, tools, mesh, demo, longhorizon; tools "
+                         "runs after vp) "
                          "and print no result")
     ap.add_argument("--mesh-worker", default="", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", default="", help=argparse.SUPPRESS)
@@ -5216,6 +5514,11 @@ def main(argv=None) -> int:
         print(f"[time] {name} {time.time() - t0:.1f} s")
         return out
 
+    # the CPU sides of the small-input and step agreements, computed while
+    # the kernels build and the kernel phases run
+    agree_refs = None if only else start_background(
+        "agreement-cpu-references",
+        lambda: (small_agreement_reference(), step_agreement_reference()))
     timed_phase("build", print_build, fa)
     cfg = longcat_13b()
     sf = cfg.vae.spatial_factor * cfg.dit.patch_size[1]
@@ -5235,6 +5538,7 @@ def main(argv=None) -> int:
                   "vbench": (at_cut_depth(phase_vbench), fa, bsa, CUT_DEPTH, smi),
                   "vp": (at_cut_depth(phase_vp), fa, cut, tokens_per_frame),
                   "flags": (phase_flags, fa),
+                  "longhorizon": (phase_longhorizon, fa, bsa),
                   "mesh": (phase_mesh, fa, cfg.dit, tokens_per_frame),
                   "demo": (phase_demo, fa, "cuda",
                            start_demo_reference() if "demo" in only else None),
@@ -5252,10 +5556,20 @@ def main(argv=None) -> int:
                             tokens_per_frame)
     bsa_cases, sum_cases = timed_phase("bsa kernel check", phase_bsa_kernel_checks, fa,
                                        bsa, cfg.dit, tokens_per_frame)
-    timed_phase("small-input agreement", phase_small_agreement)
-    timed_phase("step agreement", phase_step_agreement)
-    timed_phase("scheme step agreement", phase_scheme_step_agreement)
-    demo_reference = start_demo_reference()  # [demo] (a)'s CPU side, meanwhile
+    t0 = time.time()
+    small_ref, step_ref = agree_refs()
+    print(f"[time] agreement CPU sides: {time.time() - t0:.1f} s of waiting")
+    timed_phase("small-input agreement", phase_small_agreement, small_ref)
+    timed_phase("step agreement", phase_step_agreement, step_ref)
+    timed_phase("scheme step agreement", phase_scheme_step_agreement, step_ref)
+    del small_ref, step_ref
+    # the CPU sides of [opensora]'s, [cogvideox]'s and [vp]'s agreements and
+    # of [demo] (a), in one thread, computed while the card phases before
+    # them run
+    later_refs = start_background("later-cpu-references", lambda: dict(
+        opensora=opensora_agreement_reference(), cogvideox=cogvideox_agreement_reference(),
+        vp=vp_agreement_reference(), demo=demo_step_reference()))
+    lh_fwd, lh_bsa, lh_sums, lh_run = timed_phase("longhorizon", phase_longhorizon, fa, bsa)
     serving_launches, serving_gen = timed_phase("main path", phase_main_path, fa,
                                                 cfg.dit.depth)
     tta = timed_phase("delta_a path", phase_tta_path, fa, cfg.dit.depth)
@@ -5271,20 +5585,28 @@ def main(argv=None) -> int:
     _, remat_run = timed_phase("remat path", phase_remat_path, fa)
     bucket_run = timed_phase("bucket path", phase_bucket_path, fa)
     _, eval_run = timed_phase("eval", at_cut_depth(phase_eval), fa, CUT_DEPTH, smi)
-    os_fwd, os_bwd, os_run = timed_phase("opensora", phase_opensora, fa)
-    cv_fwd, cv_bwd, cv_run = timed_phase("cogvideox", phase_cogvideox, fa)
+    t0 = time.time()
+    later_refs()
+    print(f"[time] later agreements' CPU sides: {time.time() - t0:.1f} s of waiting")
+    os_fwd, os_bwd, os_run = timed_phase("opensora", phase_opensora, fa,
+                                         later_refs().pop("opensora"))
+    cv_fwd, cv_bwd, cv_run = timed_phase("cogvideox", phase_cogvideox, fa,
+                                         later_refs().pop("cogvideox"))
     t2v_cases, t2v_fwd, t2v_gen = timed_phase("t2v", at_cut_depth(phase_t2v), fa, cut,
                                               tokens_per_frame)
     print(f"[t2v] gen_time per request {t2v_gen} s")
     _, sweep_run = timed_phase("vbench", at_cut_depth(phase_vbench), fa, bsa, CUT_DEPTH, smi)
     vp_fwd, vp_bwd, vp_run, vp_runs = timed_phase("vp", at_cut_depth(phase_vp), fa, cut,
-                                                  tokens_per_frame)
+                                                  tokens_per_frame, "cuda",
+                                                  later_refs().pop("vp"))
     flags_run = timed_phase("flags", phase_flags, fa)
     timed_phase("tools", phase_tools, vp_runs)
     mesh_fwd, mesh_bwd, mesh_run = timed_phase("mesh", phase_mesh, fa, cfg.dit,
                                                tokens_per_frame)
-    demo_run = timed_phase("demo", phase_demo, fa, "cuda", demo_reference)
-    cases += os_fwd + cv_fwd + t2v_cases + vp_fwd + mesh_fwd
+    demo_run = timed_phase("demo", phase_demo, fa, "cuda", lambda: later_refs()["demo"])
+    cases += os_fwd + cv_fwd + t2v_cases + vp_fwd + mesh_fwd + lh_fwd
+    bsa_cases += lh_bsa
+    sum_cases += lh_sums
     bwd_cases += os_bwd + cv_bwd + vp_bwd + mesh_bwd
     print(f"[time] all phases {time.time() - t_start:.1f} s")
 
@@ -5300,9 +5622,10 @@ def main(argv=None) -> int:
 
     by_kernel = lambda name: [c for c in bwd_cases if c["kernel"] == name]
     bsa_kernel = lambda name: [c for c in bsa_cases if c["kernel"] == name]
-    # the sweep phase's launches: its row's TTA and its BSA re-evaluation
+    # the sweep phase's launches: its row's TTA and its BSA re-evaluation;
+    # [longhorizon]'s decodes
     lever_sum = lambda name: (sum(levers[run][name] for run in levers)
-                              + sweep_run.get(name, 0))
+                              + sweep_run.get(name, 0) + lh_run[name])
     train_sum = lambda name: (tta[name] + sum(m[name] for m in methods.values())
                               + remat_run[name] + bucket_run[name] + eval_run[name]
                               + os_run[name] + cv_run[name] + vp_run[name]

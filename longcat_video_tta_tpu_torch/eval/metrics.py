@@ -29,6 +29,11 @@ def psnr_per_frame(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.clamp(psnr, max=50.0)
 
 
+def compute_psnr(pred, target) -> float:
+    """Mean per-frame PSNR of two [T, H, W, 3] clips (arrays or tensors)."""
+    return float(torch.mean(psnr_per_frame(torch.as_tensor(pred), torch.as_tensor(target))))
+
+
 def _gaussian_kernel(size: int = 11, sigma: float = 1.5, device=None) -> torch.Tensor:
     x = torch.arange(size, dtype=torch.float32, device=device) - (size - 1) / 2.0
     g = torch.exp(-(x ** 2) / (2 * sigma ** 2))
@@ -56,6 +61,12 @@ def ssim_per_frame(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     ssim_map = ((2 * mu_pt + C1) * (2 * sig_pt + C2)) / (
         (mu_pp + mu_tt + C1) * (sig_p + sig_t + C2))
     return torch.mean(ssim_map, dim=(1, 2, 3))
+
+
+def compute_ssim(pred, target) -> float:
+    """Mean per-frame SSIM of two [T, H, W, 3] clips (arrays or tensors)."""
+    return float(torch.mean(ssim_per_frame(torch.as_tensor(pred, dtype=torch.float32),
+                                           torch.as_tensor(target, dtype=torch.float32))))
 
 
 def compute_lpips(pred, target, feature_fn: Optional[Callable] = None) -> float:

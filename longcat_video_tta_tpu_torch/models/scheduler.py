@@ -32,6 +32,18 @@ def sigma_to_timestep(sigma: torch.Tensor, cfg: SchedulerConfig) -> torch.Tensor
     return sigma * cfg.num_train_timesteps
 
 
+def add_noise(x0: torch.Tensor, noise: torch.Tensor, sigma) -> torch.Tensor:
+    """Forward noising x_sigma = (1 - sigma) * x0 + sigma * noise; ``sigma``
+    a scalar or broadcastable (e.g. [B, 1, 1, 1, 1])."""
+    sigma = torch.as_tensor(sigma, dtype=x0.dtype, device=x0.device)
+    return (1.0 - sigma) * x0 + sigma * noise
+
+
+def velocity_target(x0: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """The rectified-flow velocity target v = noise - x0."""
+    return noise - x0
+
+
 def euler_step(x: torch.Tensor, v: torch.Tensor, sigma, sigma_next) -> torch.Tensor:
     """One Euler step along dx/dsigma = v."""
     dt = torch.as_tensor(sigma_next - sigma, dtype=x.dtype, device=x.device)

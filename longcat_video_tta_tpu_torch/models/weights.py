@@ -396,6 +396,15 @@ def init_random(cfg: ModelConfig, device, generator: torch.Generator, mesh=None)
     return tuple(out)
 
 
+def init_random_dit(cfg: DiTConfig, device, generator: torch.Generator) -> LongCatDiT:
+    """A random LongCat DiT drawn on ``device`` from ``generator``: the DiT
+    that ``init_random`` draws first from the same generator state, without
+    the VAE and the text encoder."""
+    m = _empty(LongCatDiT, cfg, device)
+    _fill_dit(m, random_getter(generator, device))
+    return m
+
+
 def init_random_clip_text(cfg: CLIPTextConfig, device,
                           generator: torch.Generator) -> CLIPTextTower:
     """A random CLIP text tower (``init_clip_text``'s distributions)."""

@@ -83,6 +83,68 @@ def _cond_timesteps(sigma: torch.Tensor, n_cond: int, n_tgt: int) -> torch.Tenso
     ], dim=1)
 
 
+def flow_matching_loss(
+    dit: LongCatDiT,
+    latents: torch.Tensor,          # [B, C, T, H, W] clean
+    text_emb: torch.Tensor,
+    text_mask: Optional[torch.Tensor],
+    *,
+    adapters: Optional[Dict[str, torch.Tensor]] = None,
+    sigma: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    sigma_min: float = 0.001,
+    sigma_max: float = 1.0,
+) -> torch.Tensor:
+    """Unconditioned rectified-flow MSE: every latent frame noised at the
+    row's sigma (timestep sigma * 1000), fp32 MSE against noise - x0.
+    ``sigma`` [B] and ``noise`` (like ``latents``) are drawn from
+    ``generator`` when not given."""
+    if sigma is None or noise is None:
+        s, n = draw_sigma_noise(latents, generator, sigma_min=sigma_min,
+                                sigma_max=sigma_max)
+        sigma = s if sigma is None else sigma
+        noise = n if noise is None else noise
+    B = latents.shape[0]
+    lat32, noise = latents.float(), noise.float()
+    sig = sigma.float().reshape(B, 1, 1, 1, 1)
+    timestep = _cond_timesteps(sigma, 0, latents.shape[2] // dit.cfg.patch_size[0])
+    pred = dit((1.0 - sig) * lat32 + sig * noise, timestep, text_emb, text_mask,
+               adapters=adapters)
+    return ((pred - (noise - lat32)) ** 2).mean()
+
+
+def flow_matching_loss_fixed(
+    dit: LongCatDiT,
+    latents: torch.Tensor,          # [B, C, T, H, W] clean
+    text_emb: torch.Tensor,
+    text_mask: Optional[torch.Tensor],
+    fixed_noises: torch.Tensor,     # [n_draws, B, C, T, H, W]
+    *,
+    fixed_sigmas: Sequence[float],
+    adapters: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Deterministic unconditioned eval loss at fixed sigmas x injected
+    noise draws (the reference draws them from seeds 42 + d), the mean of
+    the grid's per-point MSEs, as one batched forward of G*B rows in the
+    reference's order (sigma major, draw minor)."""
+    B = latents.shape[0]
+    lat32 = latents.float()
+    n_draws = fixed_noises.shape[0]
+    G = n_draws * len(fixed_sigmas)
+    sig_b = torch.tensor(list(fixed_sigmas), dtype=torch.float32,
+                         device=lat32.device).repeat_interleave(n_draws * B)  # [G*B]
+    noi = torch.cat([fixed_noises.float()] * len(fixed_sigmas), dim=0)
+    noi = noi.reshape((G * B,) + tuple(noi.shape[2:]))
+    sig_rows = sig_b[:, None, None, None, None]
+    lat_g = lat32.repeat(G, 1, 1, 1, 1)
+    timestep = _cond_timesteps(sig_b, 0, latents.shape[2] // dit.cfg.patch_size[0])
+    mask_g = None if text_mask is None else torch.cat([text_mask] * G, dim=0)
+    pred = dit((1.0 - sig_rows) * lat_g + sig_rows * noi, timestep,
+               torch.cat([text_emb] * G, dim=0), mask_g, adapters=adapters)
+    return ((pred - (noi - lat_g)) ** 2).mean()
+
+
 def flow_matching_loss_conditioned(
     dit: LongCatDiT,
     cond_latents: torch.Tensor,     # [B, C, T_cond, H, W] clean context
