@@ -234,7 +234,7 @@ Phases (each one fails the run when it fails):
      the whole sequence and against the plain version under the gates of
      2 and 3, each rank's launches P forward (2P for the decode's two
      pieces), P dQ and P dK/dV; (b) the runner at LongCat-13.6B width
-     (MESH["depth"], 12 of 48 blocks) on delta_a's window
+     (MESH["depth"], 6 of 48 blocks) on delta_a's window
      (3 steps, a check every 3, 4 denoising steps): --context-mesh 2 and
      --tensor-mesh 2 against one rank's run of 1 video, --video-parallel 2
      --data-mesh 2 against one rank's --video-parallel 2 run of 2 videos:
@@ -278,10 +278,29 @@ Phases (each one fails the run when it fails):
      denoising steps (not 50) in segments of 5: finite latents of the
      93-frame shape, latent corr >= 0.999, peak memory, launches equal
      to ``longhorizon_launches``. It runs right after the agreements.
+ 23. bench (``--only bench``): ``scripts.bench``, the root bench.py's two
+     hot loops, at its geometry (longcat_bench at full width and all 16
+     blocks; latents of 60 x 104: a 4680-token train sequence behind a
+     3120-token prefix; 4 cond + 8 generated latents, 12 480 queries
+     against 6240 cached + 12 480 fresh keys). (a) B1 at its decode (B 2,
+     16 heads) and B1-B3 at its train step's self-attention and
+     cross-attention (512 text tokens), against the plain version and
+     SDPA; the block sums over the decode's queries and keys; BSA 16-bit
+     at keep 0.35's top_k against compiled flex_attention; (b) every
+     section of the script with only its step counts cut (``BENCH``):
+     delta_a and LoRA r1 at 1 + 2 steps, the five continuation forms at 4
+     denoising steps from one pair of initial noises, the V 2 warm-up and
+     timed chunks of 2 steps, scale 2 (longcat_bench_3b, 24 blocks) at
+     1 + 1 steps and a 2-step continuation, the flagship block at depths 1
+     and 2 at 1 + 1 steps: finite losses and latents of their shapes, the BSA and W8A8 +
+     BSA forms' latent corr >= 0.999 against the dense form, every key of
+     the root bench.py's line present and none null, the card's MFU
+     peak, launches equal to ``bench_launches``. It runs right after
+     [longhorizon].
 
 The lever runs (7), the checkpoint path (9), [eval], [t2v], [vbench] and
 [vp] run LongCat-13.6B at 12 of its 48 blocks (``CUT_DEPTH``, full
-widths), the method runs 24, [mesh]'s runner runs 12, and the Open-Sora
+widths), the method runs 24, [mesh]'s runner runs 6, and the Open-Sora
 and CogVideoX runner runs half their blocks, to keep the script inside
 its time limit.
 
@@ -1635,6 +1654,250 @@ def phase_longhorizon(fa, bsa):
     cfg = longcat_bench()
     kernels = phase_longhorizon_kernels(fa, bsa, cfg.dit)
     return (*kernels, phase_longhorizon_runs(fa, bsa, cfg))
+
+
+# [bench]: scripts/bench's sections at the root bench.py's geometry
+# (longcat_bench at full width and 16 blocks; latents of 60 x 104: a
+# 4680-token train sequence behind a 3120-token prefix, and 4 cond + 8
+# generated latents, 12 480 queries against 6240 cached + 12 480 fresh
+# keys), scale 2 at its 24 blocks, the flagship block at depths 1 and 2.
+# Only the step counts are cut (``counts``). The BSA and W8A8 + BSA
+# forms are held to the dense form from the same initial noise at
+# measure_longhorizon's fidelity target; the PAB forms' corr is printed,
+# not gated: at few steps PAB reuses attention across large sigma jumps
+# (see LONGHORIZON)
+BENCH = dict(counts=dict(steps=2, gen_steps=4, vp_lanes=2, vp_steps=2, scale2_steps=1,
+                         scale2_gen_steps=2, scale3_steps=1),
+             corr_min=0.999, gated_forms=("bsa", "int8_bsa"), seed=121)
+
+
+def bench_geometry():
+    """(train tokens, their prefix, decode queries, decode keys, cached keys)
+    of scripts/bench: 4680, 3120, 12 480, 18 720, 6240."""
+    from longcat_video_tta_tpu_torch.scripts import bench as bench_script
+
+    tpf, s_train = bench_script.token_counts(bench_script.LAT_H, bench_script.LAT_W)
+    cached = bench_script.COND_LATENTS * tpf
+    sq = bench_script.GEN_LATENTS * tpf
+    return s_train, bench_script.CONTEXT_LATENTS * tpf, sq, cached + sq, cached
+
+
+def _remat(dc) -> str:
+    return dc.remat_policy if dc.remat else "none"
+
+
+def bench_launches(counts, dit_cfg, dit2_cfg, flagship_cfg) -> dict:
+    """Launches per kernel of ``scripts.bench.run`` at ``counts``:
+      - delta_a and LoRA r1: 1 + steps train steps each, under the model's
+        remat policy ("t_embed"; LoRA's default sites include the
+        cross-attention's kv: "cross_kv");
+      - V lanes: each batched step launches what one video's step does
+        (the lanes ride the batch axis), vp_steps a chunk, a warm-up chunk
+        and a timed one;
+      - each continuation form: two sampler calls; the dense one runs the
+        cond cache's self- and cross-attention and both at every step; a
+        lever form as ``longhorizon_launches``'s wall mode (two calls, BSA
+        self-attention on the steps PAB computes);
+      - scale 2: 1 + scale2_steps train steps under its full remat, two
+        dense sampler calls of scale2_gen_steps;
+      - scale 3: 1 + scale3_steps train steps at depths 1 and 2."""
+    import argparse
+
+    from longcat_video_tta_tpu_torch.scripts import bench as bench_script
+
+    out = {k: 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "bsa_fwd",
+                          "bsa_fwd_qk_int8", "bsa_block_sum")}
+
+    def add(launches, times=1):
+        for k, n in launches.items():
+            out[k] += times * n
+
+    d, steps, g = dit_cfg.depth, counts["steps"], counts["gen_steps"]
+    add(train_step_launches("t_embed", d, _remat(dit_cfg)), 1 + steps)
+    add(train_step_launches("cross_kv", d, _remat(dit_cfg)), 1 + steps)
+    add(train_step_launches("t_embed", d, _remat(dit_cfg)), 2 * counts["vp_steps"])
+    start, end = bench_script.LEVER_RANGE
+    for form, spec in bench_script.FORMS.items():
+        if not spec.get("bsa"):
+            add({"flash_fwd": 2 * d * (1 + g)}, 2)
+            continue
+        args = argparse.Namespace(mode="wall", steps=g, pab_every=4 if spec.get("pab") else 0,
+                                  pab_start=start, pab_end=end, int8qk=False)
+        add(longhorizon_launches(args, d))
+    d2, g2 = dit2_cfg.depth, counts["scale2_gen_steps"]
+    add(train_step_launches("t_embed", d2, _remat(dit2_cfg)), 1 + counts["scale2_steps"])
+    add({"flash_fwd": 2 * d2 * (1 + g2)}, 2)
+    for depth in (1, 2):
+        add(train_step_launches("t_embed", depth, _remat(flagship_cfg)),
+            1 + counts["scale3_steps"])
+    return out
+
+
+def reference_bench_keys(counts):
+    """(top-level keys, detail keys) of the root bench.py's JSON line as its
+    source writes them (bench.py:408-471, with the dicts it spreads in:
+    vp_detail :224-226, scale2 :323-333, scale3 :380-389), at ``counts``'
+    step counts and lanes, with the port's two changes: the ``device`` key,
+    and no gen_93frame_50step_s_recorded (a recorded number of another
+    run)."""
+    import ast
+
+    with open(os.path.join(ROOT, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    env = dict(V=counts["vp_lanes"], g2_steps=counts["scale2_gen_steps"])
+
+    def key(node):
+        if isinstance(node, ast.Constant):
+            return node.value
+        return eval(compile(ast.Expression(node), "bench.py", "eval"), {}, env)
+
+    spread, line = {}, None
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict) and node.value.keys:
+            spread[node.targets[0].id] = [key(k) for k in node.value.keys]
+        elif isinstance(node, ast.Assign) and getattr(
+                getattr(node.targets[0], "value", None), "id", "") == "vp_detail":
+            spread.setdefault("vp_detail", []).append(key(node.targets[0].slice))
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "dumps":
+            line = node.args[0]
+    top = [k.value for k in line.keys]
+    detail_dict = line.values[top.index("detail")]
+    detail = []
+    for k, v in zip(detail_dict.keys, detail_dict.values):
+        detail += spread[v.id] if k is None else [k.value]
+    top.insert(top.index("detail"), "device")
+    detail = [k.replace("_50step_", f"_{counts['gen_steps']}step_") for k in detail
+              if k != "gen_93frame_50step_s_recorded"]
+    return top, detail
+
+
+def phase_bench_kernels(fa, bsa, dit_cfg):
+    """B1, B4 and B5 at scripts/bench's decode (B 2, 16 heads: 12 480 queries
+    against 6240 cached + 12 480 fresh keys), B1-B3 at its train step (4680
+    tokens behind a 3120-token prefix, and the cross-attention against 512
+    text tokens, whose dK/dV LoRA's step launches), each against its plain
+    version and timed beside SDPA (B5: compiled flex_attention on the same
+    selection at keep 0.35's clamped top_k; B4: ``view().sum(2)``)."""
+    from longcat_video_tta_tpu_torch.config import BSAConfig
+    from longcat_video_tta_tpu_torch.scripts import bench as bench_script
+    from longcat_video_tta_tpu_torch.scripts import measure_longhorizon as mlh
+
+    H, D, L = dit_cfg.num_heads, dit_cfg.head_dim, dit_cfg.text_len
+    s_train, n_ctx, sq, sk, cached = bench_geometry()
+    seed = BENCH["seed"]
+    fwd = [check_kernel_case(fa, "bench_decode", 2, H, sq, sk, D, timed=True, seed=seed),
+           check_kernel_case(fa, "bench_train_self", 1, H, s_train, s_train, D, ncond=n_ctx,
+                             timed=True, seed=seed + 1),
+           check_kernel_case(fa, "bench_train_cross", 1, H, s_train, L, D, fused_kv=True,
+                             timed=True, seed=seed + 2)]
+    bwd = check_bwd_case(fa, "bench_train_self", 1, H, s_train, s_train, D, ncond=n_ctx,
+                         timed=True, seed=seed + 3)
+    bwd += check_bwd_case(fa, "bench_train_cross", 1, H, s_train, L, D, fused_kv=True,
+                          timed=True, seed=seed + 4)
+    top_k = mlh.clamped_top_k(BSAConfig(keep_ratio=bench_script.BSA_KEEP), sk, cached)
+    sparse = [check_bsa_case(fa, bsa, f"bench_top{top_k}", 2, H, sq, sk, D, top_k=top_k,
+                             ncond=cached, timed=True, seed=seed + 5)]
+    sums = [check_block_sum_case(bsa, "bench_pool_q", 2, sq, H, D, 1024, timed=True,
+                                 seed=seed + 6),
+            check_block_sum_case(bsa, "bench_pool_k", 2, sk, H, D, 1024, timed=True,
+                                 seed=seed + 7)]
+    for tag, rows in (("kernel", fwd), ("bwd-kernel", bwd), ("bsa-kernel", sparse + sums)):
+        for c in rows:
+            print(f"[bench-{tag}] " + json.dumps(c))
+    return fwd, bwd, sparse, sums
+
+
+def phase_bench_runs(fa, bsa, cfg, *, cfg2=None, flagship=None, geometry=None,
+                     card: str = "cuda"):
+    """``scripts.bench.run`` at ``BENCH["counts"]``, its continuation forms
+    from one pair of initial noises: finite losses and latents of their
+    shapes, the gated forms' latent corr against the dense form, every key
+    of the reference's line present and none null, the card's MFU peak,
+    launches equal to ``bench_launches``. Returns the launches. ``cfg2``,
+    ``flagship``, ``geometry`` and ``card`` (a CPU rehearsal at tiny size):
+    the script's unless given."""
+    import numpy as np
+    import torch
+
+    from longcat_video_tta_tpu_torch.config import longcat_bench_3b
+    from longcat_video_tta_tpu_torch.scripts import bench as bench_script
+
+    counts = BENCH["counts"]
+    cfg2 = longcat_bench_3b() if cfg2 is None else cfg2
+    flagship = bench_script.flagship_config() if flagship is None else flagship
+    geo = dict(bench_script.GEOMETRY if geometry is None else geometry)
+    cuts = {k: f"{bench_script.COUNTS[k]} -> {v}" for k, v in counts.items()
+            if bench_script.COUNTS[k] != v}
+    print(f"[bench] scripts.bench.run at longcat_bench (full width, depth {cfg.dit.depth}), "
+          f"latents {geo['lat_h']} x {geo['lat_w']}; scale 2 at depth "
+          f"{cfg2.dit.depth}, the flagship block at depths 1 and 2; cuts (the script's -> "
+          f"here): {cuts}")
+    peak = bench_script.peak_flops(card)
+    if peak != H100_BF16_FLOPS:
+        raise AssertionError(f"[bench] MFU peak {peak}, the card's is {H100_BF16_FLOPS}")
+    g = torch.Generator(device=card).manual_seed(BENCH["seed"] + 10)
+    shape = (1, cfg.dit.in_channels, bench_script.GEN_LATENTS, geo["lat_h"], geo["lat_w"])
+    noises = [torch.randn(shape, generator=g, device=card) for _ in range(2)]
+    if card == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    bsa.reset_launches()
+    t0 = time.time()
+    rec, outs = bench_script.run(card, peak=peak, card=bench_script.device_info(), cfg=cfg,
+                                 cfg2=cfg2, flagship=flagship, counts=counts, geometry=geo,
+                                 init_noises=noises, log=lambda line: print(f"[bench] {line}"))
+    wall = time.time() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 if card == "cuda" else 0.0
+    got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
+           "flash_bwd_dkv": fa.bwd_dkv_launches, "bsa_fwd": bsa.bsa_launches,
+           "bsa_fwd_qk_int8": bsa.bsa_int8_launches,
+           "bsa_block_sum": bsa.bsa_block_sum_launches}
+    expected = bench_launches(counts, cfg.dit, cfg2.dit, flagship)
+    print(f"[bench] {json.dumps(rec)}")
+    print(f"[bench] wall {wall:.1f} s; max_memory_allocated {peak_gib:.2f} GiB; launches "
+          f"{got} (expected {expected})")
+    steps, lanes = counts["steps"], counts["vp_lanes"]
+    losses = [(outs["delta_a"]["losses"], (1 + steps,)), (outs["lora"]["losses"], (1 + steps,)),
+              (outs["vp"]["losses"], (lanes, 2 * counts["vp_steps"])),
+              (outs["scale2"]["losses"], (1 + counts["scale2_steps"],))]
+    losses += [(x, (1 + counts["scale3_steps"],)) for x in outs["scale3"]["losses"].values()]
+    for x, want in losses:
+        if tuple(x.shape) != want or not bool(x.isfinite().all()):
+            raise AssertionError(f"[bench] losses {x.tolist()} (expected shape {want})")
+    lat_shape = (1, cfg.dit.out_channels) + shape[2:]
+    runs = list(outs["gen"]["latents"].items()) + [("scale2", outs["scale2"]["latents"])]
+    for form, pair in runs:
+        for x in pair:
+            if tuple(x.shape) != lat_shape or not bool(x.isfinite().all()):
+                raise AssertionError(f"[bench] {form} latents {tuple(x.shape)} (expected "
+                                     f"{lat_shape}), finite {bool(x.isfinite().all())}")
+    dense = outs["gen"]["latents"]["dense"][1].double().cpu().numpy().ravel()
+    for form, (_, x) in outs["gen"]["latents"].items():
+        if form == "dense":
+            continue
+        corr = float(np.corrcoef(dense, x.double().cpu().numpy().ravel())[0, 1])
+        gated = form in BENCH["gated_forms"]
+        print(f"[bench] {form} vs dense from the same initial noise: latent corr {corr:.5f}"
+              + (f" (min {BENCH['corr_min']})" if gated else " (not gated)"))
+        if gated and not corr >= BENCH["corr_min"]:
+            raise AssertionError(f"[bench] {form} latent corr {corr} < {BENCH['corr_min']}")
+    top, detail = reference_bench_keys(counts)
+    nulls = [k for k, v in rec["detail"].items() if v is None] + [
+        k for k, v in rec.items() if v is None]
+    if list(rec) != top or list(rec["detail"]) != detail or nulls:
+        raise AssertionError(f"[bench] keys {list(rec)} / {list(rec['detail'])}, expected "
+                             f"{top} / {detail}; null: {nulls}")
+    if got != expected:
+        raise AssertionError(f"[bench] launches {got}, expected {expected}")
+    return got
+
+
+def phase_bench(fa, bsa):
+    from longcat_video_tta_tpu_torch.config import longcat_bench
+
+    cfg = longcat_bench()
+    kernels = phase_bench_kernels(fa, bsa, cfg.dit)
+    return (*kernels, phase_bench_runs(fa, bsa, cfg))
 
 
 def t2v_launches(depth: int, steps: int, pab_every: int = 0,
@@ -4479,11 +4742,12 @@ MESH = dict(seed=101, timeout_s=420, loss0_rtol=1e-3, loss_rtol=1e-2, cos_min=0.
             psnr_min=30.0, tp_loss_rtol=1e-2, tp_cos_min=0.99, tp_fwd_rel_l2=1e-2,
             # the runner runs: the delta_a window, 3 steps, a check every 3, 4
             # denoising steps; ``depth`` of the 48 blocks (two ranks that
-            # each hold the whole DiT share the card's 80 GB; 24 fit. 12 for
-            # the script's time limit: the ranks' gloo traffic makes this
-            # the longest phase, and its gates, each rank's launches and its
-            # agreement with one rank, hold block by block)
-            depth=12, steps=3, check_every=3, inference_steps=4, videos=2)
+            # each hold the whole DiT share the card's 80 GB; 24 fit. 6 for
+            # the script's time limit, which [bench] needs: the ranks' gloo
+            # traffic makes this the longest phase, and its gates, each
+            # rank's launches and its agreement with one rank, hold block by
+            # block)
+            depth=6, steps=3, check_every=3, inference_steps=4, videos=2)
 
 
 def mesh_geometry(dit_cfg, tokens_per_frame):
@@ -5467,7 +5731,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="development: run the build and these comma-separated phases "
                          "(checkpoint, remat, bucket, eval, kernel, bwd, opensora, cogvideox, "
-                         "t2v, vbench, vp, flags, tools, mesh, demo, longhorizon; tools "
+                         "t2v, vbench, vp, flags, tools, mesh, demo, longhorizon, bench; tools "
                          "runs after vp) "
                          "and print no result")
     ap.add_argument("--mesh-worker", default="", help=argparse.SUPPRESS)
@@ -5539,6 +5803,7 @@ def main(argv=None) -> int:
                   "vp": (at_cut_depth(phase_vp), fa, cut, tokens_per_frame),
                   "flags": (phase_flags, fa),
                   "longhorizon": (phase_longhorizon, fa, bsa),
+                  "bench": (phase_bench, fa, bsa),
                   "mesh": (phase_mesh, fa, cfg.dit, tokens_per_frame),
                   "demo": (phase_demo, fa, "cuda",
                            start_demo_reference() if "demo" in only else None),
@@ -5570,6 +5835,8 @@ def main(argv=None) -> int:
         opensora=opensora_agreement_reference(), cogvideox=cogvideox_agreement_reference(),
         vp=vp_agreement_reference(), demo=demo_step_reference()))
     lh_fwd, lh_bsa, lh_sums, lh_run = timed_phase("longhorizon", phase_longhorizon, fa, bsa)
+    bench_fwd, bench_bwd, bench_bsa, bench_sums, bench_run = timed_phase("bench", phase_bench,
+                                                                         fa, bsa)
     serving_launches, serving_gen = timed_phase("main path", phase_main_path, fa,
                                                 cfg.dit.depth)
     tta = timed_phase("delta_a path", phase_tta_path, fa, cfg.dit.depth)
@@ -5604,10 +5871,10 @@ def main(argv=None) -> int:
     mesh_fwd, mesh_bwd, mesh_run = timed_phase("mesh", phase_mesh, fa, cfg.dit,
                                                tokens_per_frame)
     demo_run = timed_phase("demo", phase_demo, fa, "cuda", lambda: later_refs()["demo"])
-    cases += os_fwd + cv_fwd + t2v_cases + vp_fwd + mesh_fwd + lh_fwd
-    bsa_cases += lh_bsa
-    sum_cases += lh_sums
-    bwd_cases += os_bwd + cv_bwd + vp_bwd + mesh_bwd
+    cases += os_fwd + cv_fwd + t2v_cases + vp_fwd + mesh_fwd + lh_fwd + bench_fwd
+    bsa_cases += lh_bsa + bench_bsa
+    sum_cases += lh_sums + bench_sums
+    bwd_cases += os_bwd + cv_bwd + vp_bwd + mesh_bwd + bench_bwd
     print(f"[time] all phases {time.time() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, all_cases):
@@ -5623,9 +5890,9 @@ def main(argv=None) -> int:
     by_kernel = lambda name: [c for c in bwd_cases if c["kernel"] == name]
     bsa_kernel = lambda name: [c for c in bsa_cases if c["kernel"] == name]
     # the sweep phase's launches: its row's TTA and its BSA re-evaluation;
-    # [longhorizon]'s decodes
+    # [longhorizon]'s decodes; [bench]'s decodes and train steps
     lever_sum = lambda name: (sum(levers[run][name] for run in levers)
-                              + sweep_run.get(name, 0) + lh_run[name])
+                              + sweep_run.get(name, 0) + lh_run[name] + bench_run[name])
     train_sum = lambda name: (tta[name] + sum(m[name] for m in methods.values())
                               + remat_run[name] + bucket_run[name] + eval_run[name]
                               + os_run[name] + cv_run[name] + vp_run[name]
@@ -5635,10 +5902,12 @@ def main(argv=None) -> int:
               serving_launches + ckpt_launches + t2v_fwd + train_sum("flash_fwd")
               + lever_sum("flash_fwd"), cases),
         entry("flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:327",
-              train_sum("flash_bwd_dq") + sweep_run["flash_bwd_dq"],
+              train_sum("flash_bwd_dq") + sweep_run["flash_bwd_dq"]
+              + bench_run["flash_bwd_dq"],
               by_kernel("flash_bwd_dq")),
         entry("flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:261",
-              train_sum("flash_bwd_dkv") + sweep_run["flash_bwd_dkv"],
+              train_sum("flash_bwd_dkv") + sweep_run["flash_bwd_dkv"]
+              + bench_run["flash_bwd_dkv"],
               by_kernel("flash_bwd_dkv")),
         entry("bsa_block_sum", "bsa.cu", "bsa.py:120", lever_sum("bsa_block_sum"),
               sum_cases),
