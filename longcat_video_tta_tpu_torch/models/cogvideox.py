@@ -49,11 +49,13 @@ from ..ops.layers import (
     linear,
     shared_in_group,
     mlp_embedder,
+    modulate,
     remat_wrap,
     rope_3d_angles,
     timestep_embedding,
 )
 from ..parallel.sharding import tp_size
+from ..utils.spans import span
 from .dit import _Norm, block_slice
 from .mmdit import _embedder, pack_latents, unpack_tokens
 
@@ -78,7 +80,7 @@ class _LNZero(nn.Module):
         sh, sc, g, e_sh, e_sc, e_g = mod.chunk(6, dim=-1)
         h = layer_norm(vid, self.ln.weight, self.ln.bias)
         e = layer_norm(txt, self.ln.weight, self.ln.bias)
-        return h * (1 + sc) + sh, e * (1 + e_sc) + e_sh, g, e_g
+        return modulate(h, sh, sc), modulate(e, e_sh, e_sc), g, e_g
 
 
 class _Attn(nn.Module):
@@ -232,7 +234,8 @@ class CogVideoX(nn.Module):
         nb = latents.shape[0]
 
         def body(blk, vid, txt, temb, lora):
-            return blk(vid, txt, temb, cos, sin, lora, lscale)[:2]
+            with span("dit.block"):
+                return blk(vid, txt, temb, cos, sin, lora, lscale)[:2]
 
         train = cfg.remat and torch.is_grad_enabled() and pab_cache is None
         body = remat_wrap(body, train, cfg.remat_policy)
@@ -242,8 +245,9 @@ class CogVideoX(nn.Module):
                 vid, txt = body(blk, vid, txt, temb, lora)
                 continue
             s = pab_cache[i][pab_cache.shape[1] - nb:] if cache_cond_half else pab_cache[i]
-            vid, txt, o = blk(vid, txt, temb, cos, sin, lora, lscale,
-                              pab_cached=s if pab_reuse else None)
+            with span("dit.block"):
+                vid, txt, o = blk(vid, txt, temb, cos, sin, lora, lscale,
+                                  pab_cached=s if pab_reuse else None)
             if not pab_reuse:
                 s.copy_(o)
 
@@ -252,8 +256,8 @@ class CogVideoX(nn.Module):
         vid = layer_norm(vid, self.norm_final.weight, self.norm_final.bias, eps=cfg.norm_eps)
         shift, scale = linear(self.norm_out["lin"],
                               F.silu(temb).to(cdtype))[:, None, :].chunk(2, dim=-1)
-        vid = layer_norm(vid, self.norm_out["ln"].weight, self.norm_out["ln"].bias,
-                         eps=cfg.norm_eps) * (1 + scale) + shift
+        vid = modulate(layer_norm(vid, self.norm_out["ln"].weight, self.norm_out["ln"].bias,
+                                  eps=cfg.norm_eps), shift, scale)
         out = linear(self.proj_out, vid)
         return unpack_tokens(out, T, H, W, p).float()
 

@@ -64,6 +64,7 @@ from ..ops.bsa import bsa_attention, decode_top_k
 from ..parallel.collectives import gather_from_group, group_rank, group_size
 from ..parallel.context_attention import ring_self_attention
 from ..parallel.sharding import tp_size
+from ..utils.spans import span
 from ..ops.layers import (
     apply_rope,
     shared_in_group,
@@ -485,10 +486,11 @@ class LongCatDiT(nn.Module):
             kv = None if kv_cache is None else (half(kv_cache[0][i]),
                                                 half(kv_cache[1][i]))
             slot = None if pab_cache is None else self._local(half(pab_cache[i]), tokens)
-            x, _, attn_out = blk(x, t_emb, y, cos, sin, num_cond_tokens,
-                                 kv_cache=kv, kv_valid=kv_valid, bsa_cfg=bsa_cfg,
-                                 pab_cached=slot if pab_reuse else None,
-                                 ad=block_ads[i], tokens=tokens)
+            with span("dit.block"):
+                x, _, attn_out = blk(x, t_emb, y, cos, sin, num_cond_tokens,
+                                     kv_cache=kv, kv_valid=kv_valid, bsa_cfg=bsa_cfg,
+                                     pab_cached=slot if pab_reuse else None,
+                                     ad=block_ads[i], tokens=tokens)
             if slot is not None and not pab_reuse:
                 slot.copy_(attn_out)
         return x
@@ -523,8 +525,9 @@ class LongCatDiT(nn.Module):
             return self._final_layer(x, t_emb, nt, nh, nw, adapters, tokens)
 
         def block(blk, x, t_emb, ad):
-            return blk(x, t_emb, y, cos, sin, num_cond_tokens, kv_valid=kv_valid,
-                       ad=ad, tokens=tokens)[0]
+            with span("dit.block"):
+                return blk(x, t_emb, y, cos, sin, num_cond_tokens, kv_valid=kv_valid,
+                           ad=ad, tokens=tokens)[0]
 
         body = remat_wrap(block, cfg.remat and torch.is_grad_enabled(),
                           cfg.remat_policy)
@@ -545,8 +548,9 @@ class LongCatDiT(nn.Module):
         num_cond_tokens = nt * nh * nw  # every token is conditioning here
         k_all = v_all = None
         for i, (blk, ad) in enumerate(zip(self.blocks, self._block_adapters(adapters))):
-            x, (k, v), _ = blk(x, t_emb, y, cos, sin, num_cond_tokens, ad=ad,
-                               tokens=tokens)
+            with span("dit.block"):
+                x, (k, v), _ = blk(x, t_emb, y, cos, sin, num_cond_tokens, ad=ad,
+                                   tokens=tokens)
             if k_all is None:
                 k_all = k.new_empty((len(self.blocks),) + tuple(k.shape))
                 v_all = v.new_empty((len(self.blocks),) + tuple(v.shape))

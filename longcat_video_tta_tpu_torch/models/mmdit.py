@@ -53,6 +53,7 @@ from ..ops.layers import (
     timestep_embedding,
 )
 from ..parallel.sharding import tp_size
+from ..utils.spans import span
 from .dit import block_slice
 
 PORTED_ADAPTERS = ("delta_t", "lora_double", "lora_single", "lora_scale")
@@ -91,11 +92,12 @@ def rope_joint(cfg: MMDiTConfig, L_txt: int, nt: int, nh: int, nw: int, device=N
 
 def apply_rope_flat(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     """Half-split rotation. x: [B, S, H, dh]; cos/sin: [S, dh//2]."""
-    half = x.shape[-1] // 2
-    xa, xb = x[..., :half], x[..., half:]
-    c = cos[None, :, None, :].to(x.dtype)
-    s = sin[None, :, None, :].to(x.dtype)
-    return torch.cat([xa * c - xb * s, xb * c + xa * s], dim=-1)
+    with span("op.rope"):
+        half = x.shape[-1] // 2
+        xa, xb = x[..., :half], x[..., half:]
+        c = cos[None, :, None, :].to(x.dtype)
+        s = sin[None, :, None, :].to(x.dtype)
+        return torch.cat([xa * c - xb * s, xb * c + xa * s], dim=-1)
 
 
 def _embedder(din: int, D: int) -> nn.ModuleDict:
@@ -326,10 +328,12 @@ class MMDiT(nn.Module):
         reuse = pab_cache is not None and pab_reuse
 
         def dbl(blk, img, txt_h, vec, lora):
-            return blk(img, txt_h, vec, cos, sin, lora, lscale)[:2]
+            with span("dit.block"):
+                return blk(img, txt_h, vec, cos, sin, lora, lscale)[:2]
 
         def sgl(blk, x, vec, lora):
-            return blk(x, vec, cos, sin, lora, lscale)[0]
+            with span("dit.block"):
+                return blk(x, vec, cos, sin, lora, lscale)[0]
 
         train = cfg.remat and torch.is_grad_enabled() and pab_cache is None
         dbl_body = remat_wrap(dbl, train, cfg.remat_policy)
@@ -340,8 +344,9 @@ class MMDiT(nn.Module):
                 img, txt_h = dbl_body(blk, img, txt_h, vec, lora)
                 continue
             s = slot(dbl_cache, i)
-            img, txt_h, o = blk(img, txt_h, vec, cos, sin, lora, lscale,
-                                pab_cached=s if reuse else None)
+            with span("dit.block"):
+                img, txt_h, o = blk(img, txt_h, vec, cos, sin, lora, lscale,
+                                    pab_cached=s if reuse else None)
             if not reuse:
                 s.copy_(o)
         x = torch.cat([txt_h, img], dim=1)
@@ -351,7 +356,8 @@ class MMDiT(nn.Module):
                 x = sgl_body(blk, x, vec, lora)
                 continue
             s = slot(sgl_cache, i)
-            x, o = blk(x, vec, cos, sin, lora, lscale, pab_cached=s if reuse else None)
+            with span("dit.block"):
+                x, o = blk(x, vec, cos, sin, lora, lscale, pab_cached=s if reuse else None)
             if not reuse:
                 s.copy_(o)
         img = x[:, L:]

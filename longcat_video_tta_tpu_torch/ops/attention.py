@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.spans import span
 from .flash_attention import (  # noqa: F401
     FlashAttentionFunction,
     attention_reference,
@@ -64,16 +65,17 @@ def attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """q: [B, Sq, H, D]; k, v: [B, Sk, H, D] -> o [B, Sq, H, D]."""
-    if _impl == "xla":
-        return attention_reference(q, k, v, num_cond_tokens=num_cond_tokens,
-                                   kv_valid_len=kv_valid_len, scale=scale)[0]
-    if _impl == "pallas" and not q.is_cuda:
-        raise RuntimeError("attention implementation 'pallas' runs the Hopper kernels: "
-                           "it needs CUDA tensors")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return FlashAttentionFunction.apply(q, k, v, num_cond_tokens,
-                                            kv_valid_len, scale, 0, 0)
-    o, _ = flash_attention(q, k, v, num_cond_tokens=num_cond_tokens,
-                           kv_valid_len=kv_valid_len, scale=scale)
-    return o
+    with span("op.attention"):
+        if _impl == "xla":
+            return attention_reference(q, k, v, num_cond_tokens=num_cond_tokens,
+                                       kv_valid_len=kv_valid_len, scale=scale)[0]
+        if _impl == "pallas" and not q.is_cuda:
+            raise RuntimeError("attention implementation 'pallas' runs the Hopper kernels: "
+                               "it needs CUDA tensors")
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFunction.apply(q, k, v, num_cond_tokens,
+                                                kv_valid_len, scale, 0, 0)
+        o, _ = flash_attention(q, k, v, num_cond_tokens=num_cond_tokens,
+                               kv_valid_len=kv_valid_len, scale=scale)
+        return o

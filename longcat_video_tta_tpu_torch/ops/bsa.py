@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.spans import span
 from . import flash_attention as fa
 
 NEG_INF = fa.NEG_INF
@@ -386,15 +387,16 @@ def bsa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, top_k: i
     Sk - Sq); conditioning-prefix key blocks are always kept.
     ``qk_int8`` quantizes q and k for QK^T only: the selection scores the
     original tensors and PV stays 16-bit."""
-    Sq, Sk = q.shape[1], k.shape[1]
-    if q_token_offset is None:
-        q_token_offset = Sk - Sq
-    top_k = clamp_top_k(top_k, Sk, block_k, num_cond_tokens)
-    idx = select_blocks(q, k, block_q=block_q, block_k=block_k, top_k=top_k,
-                        num_cond_tokens=num_cond_tokens,
-                        q_token_offset=q_token_offset, kv_valid=kv_valid)
-    return bsa_forward(q, k, v, idx, block_q=block_q, block_k=block_k,
-                       kv_valid=kv_valid, scale=scale, qk_int8=qk_int8)
+    with span("op.bsa"):
+        Sq, Sk = q.shape[1], k.shape[1]
+        if q_token_offset is None:
+            q_token_offset = Sk - Sq
+        top_k = clamp_top_k(top_k, Sk, block_k, num_cond_tokens)
+        idx = select_blocks(q, k, block_q=block_q, block_k=block_k, top_k=top_k,
+                            num_cond_tokens=num_cond_tokens,
+                            q_token_offset=q_token_offset, kv_valid=kv_valid)
+        return bsa_forward(q, k, v, idx, block_q=block_q, block_k=block_k,
+                           kv_valid=kv_valid, scale=scale, qk_int8=qk_int8)
 
 
 def decode_top_k(n_kb: int, keep_ratio: float, min_blocks: int) -> int:

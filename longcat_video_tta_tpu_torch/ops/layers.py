@@ -19,6 +19,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..utils.spans import span
 from .quant import Int8Linear, int8_linear, lora_term
 
 
@@ -45,34 +46,37 @@ def _row_affine(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor], eps: float = 1e-6):
     """RMSNorm over the last axis in fp32, optional learned scale (a lane
     scale [V, D] applies per row)."""
-    dtype = x.dtype
-    x = x.float()
-    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
-    if weight is not None:
-        x = x * (weight.float() if weight.ndim == 1 else _row_affine(weight, x))
-    return x.to(dtype)
+    with span("op.rms_norm"):
+        dtype = x.dtype
+        x = x.float()
+        x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+        if weight is not None:
+            x = x * (weight.float() if weight.ndim == 1 else _row_affine(weight, x))
+        return x.to(dtype)
 
 
 def layer_norm(x: torch.Tensor, weight=None, bias=None, eps: float = 1e-6):
     """LayerNorm over the last axis in fp32; affine optional (a lane affine
     [V, D] applies per row, after the normalization)."""
-    dtype = x.dtype
-    if (weight is not None and weight.ndim > 1) or (bias is not None and bias.ndim > 1):
-        x = F.layer_norm(x.float(), (x.shape[-1],), None, None, eps)
-        if weight is not None:
-            x = x * _row_affine(weight, x)
-        if bias is not None:
-            x = x + _row_affine(bias, x)
+    with span("op.layer_norm"):
+        dtype = x.dtype
+        if (weight is not None and weight.ndim > 1) or (bias is not None and bias.ndim > 1):
+            x = F.layer_norm(x.float(), (x.shape[-1],), None, None, eps)
+            if weight is not None:
+                x = x * _row_affine(weight, x)
+            if bias is not None:
+                x = x + _row_affine(bias, x)
+            return x.to(dtype)
+        x = F.layer_norm(x.float(), (x.shape[-1],),
+                         None if weight is None else weight.float(),
+                         None if bias is None else bias.float(), eps)
         return x.to(dtype)
-    x = F.layer_norm(x.float(), (x.shape[-1],),
-                     None if weight is None else weight.float(),
-                     None if bias is None else bias.float(), eps)
-    return x.to(dtype)
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor):
     """adaLN modulation x * (1 + scale) + shift."""
-    return x * (1.0 + scale) + shift
+    with span("op.modulate"):
+        return x * (1.0 + scale) + shift
 
 
 def lane_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]):
@@ -98,17 +102,18 @@ def linear(layer: nn.Module, x: torch.Tensor,
     'kernel_i8' key). Lane weights and lane LoRA pairs apply per row. A
     tensor-parallel linear (``layer.tp``, ``parallel/sharding.py``) runs
     its collectives here."""
-    tp = getattr(layer, "tp", None)
-    if tp is not None:
-        return _tp_linear(layer, tp, x, lora, lora_scale)
-    if isinstance(layer, Int8Linear):
-        return int8_linear(layer, x, lora=lora, lora_scale=lora_scale)
-    w = layer.weight.to(x.dtype)
-    b = None if layer.bias is None else layer.bias.to(x.dtype)
-    y = lane_linear(x, w, b)
-    if lora is not None:
-        y = y + lora_term(x, lora, lora_scale)
-    return y
+    with span("op.linear"):
+        tp = getattr(layer, "tp", None)
+        if tp is not None:
+            return _tp_linear(layer, tp, x, lora, lora_scale)
+        if isinstance(layer, Int8Linear):
+            return int8_linear(layer, x, lora=lora, lora_scale=lora_scale)
+        w = layer.weight.to(x.dtype)
+        b = None if layer.bias is None else layer.bias.to(x.dtype)
+        y = lane_linear(x, w, b)
+        if lora is not None:
+            y = y + lora_term(x, lora, lora_scale)
+        return y
 
 
 def shared_in_group(t: Optional[torch.Tensor], layer: nn.Module):
@@ -211,11 +216,12 @@ def rope_3d_angles(
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     """Half-split rotary embedding. x: [B, n_t, n_hw, heads, head_dim];
     cos/sin: [n_t, n_hw, head_dim//2] (cast to x's dtype first)."""
-    half = x.shape[-1] // 2
-    xa, xb = x[..., :half], x[..., half:]
-    c = cos[None, :, :, None, :].to(x.dtype)
-    s = sin[None, :, :, None, :].to(x.dtype)
-    return torch.cat([xa * c - xb * s, xb * c + xa * s], dim=-1)
+    with span("op.rope"):
+        half = x.shape[-1] // 2
+        xa, xb = x[..., :half], x[..., half:]
+        c = cos[None, :, :, None, :].to(x.dtype)
+        s = sin[None, :, :, None, :].to(x.dtype)
+        return torch.cat([xa * c - xb * s, xb * c + xa * s], dim=-1)
 
 
 REMAT_POLICIES = ("full", "dots", "dots_attn")

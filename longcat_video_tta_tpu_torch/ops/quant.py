@@ -25,6 +25,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..utils.spans import span
+
 _BLOCK_LINEARS: Dict[str, Tuple[str, ...]] = {
     "attn": ("qkv", "proj"),
     "cross_attn": ("q", "kv", "proj"),
@@ -102,17 +104,18 @@ def int8_linear(layer: Int8Linear, x: torch.Tensor,
     group first)."""
     dtype = x.dtype
     K = x.shape[-1]
-    xf = x.float().reshape(-1, K)
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    if amax_group is not None:
-        from ..parallel.collectives import all_reduce
+    with span("op.quantize"):
+        xf = x.float().reshape(-1, K)
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        if amax_group is not None:
+            from ..parallel.collectives import all_reduce
 
-        amax = all_reduce(amax, amax_group, "max")
-    sx = (amax / 127.0).clamp_min(1e-8)
-    xi = torch.round(xf / sx).to(torch.int8)
-    M = xi.shape[0]
-    if xi.is_cuda and M < _INT_MM_MIN_ROWS:
-        xi = torch.cat([xi, xi.new_zeros((_INT_MM_MIN_ROWS - M, K))])
+            amax = all_reduce(amax, amax_group, "max")
+        sx = (amax / 127.0).clamp_min(1e-8)
+        xi = torch.round(xf / sx).to(torch.int8)
+        M = xi.shape[0]
+        if xi.is_cuda and M < _INT_MM_MIN_ROWS:
+            xi = torch.cat([xi, xi.new_zeros((_INT_MM_MIN_ROWS - M, K))])
     yi = torch._int_mm(xi, layer.weight_i8.t())[:M]
     y = yi.float() * sx * layer.scale
     if amax_group is not None:

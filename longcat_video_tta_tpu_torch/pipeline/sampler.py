@@ -49,6 +49,7 @@ from ..models import scheduler as sched
 from ..models.cogvideox import CogVideoX, pab_init_cache_cogvideox
 from ..models.dit import AdapterDict, LongCatDiT, pab_init_cache
 from ..models.mmdit import MMDiT, pab_init_cache_mmdit
+from ..utils.spans import span
 
 
 def _pab_reuse_flags(num_steps: int, pab_cfg) -> List[bool]:
@@ -108,7 +109,8 @@ def _sample(dit: LongCatDiT, sched_cfg: SchedulerConfig, text_emb, text_mask,
         cond2 = torch.cat([cond_latents, cond_latents], dim=0)
         if use_kv_cache:
             mark("cond_cache")
-            kv_cache = dit.precompute_cond_cache(cond2, emb2, mask2, adapters=adapters)
+            with span("sampler.cond_cache"):
+                kv_cache = dit.precompute_cond_cache(cond2, emb2, mask2, adapters=adapters)
 
     pab_state, pab_flags = None, [False] * num_steps
     if pab_cfg is not None:
@@ -149,17 +151,18 @@ def _sample(dit: LongCatDiT, sched_cfg: SchedulerConfig, text_emb, text_mask,
     seg = max(1, int(segment_steps)) if segment_steps else num_steps
     for i in range(num_steps):
         mark("step")
-        sigma, sigma_next = sigmas[i], sigmas[i + 1]
-        t_val = sched.sigma_to_timestep(sigma, sched_cfg)
-        if cfg_flags[i]:
-            v_c = forward(x, t_val, pab_flags[i], cond_only=True)
-            v2 = torch.cat([v_c - cfg_delta.to(v_c.dtype), v_c], dim=0)
-        else:
-            v2 = forward(x, t_val, pab_flags[i], cond_only=False)
-            if cfg_delta is not None:
-                cfg_delta = v2[B:] - v2[:B]
-        v_u, v_c = v2[:B], v2[B:]
-        x = sched.euler_step(x, v_u + g * (v_c - v_u), sigma, sigma_next)
+        with span("sampler.step"):
+            sigma, sigma_next = sigmas[i], sigmas[i + 1]
+            t_val = sched.sigma_to_timestep(sigma, sched_cfg)
+            if cfg_flags[i]:
+                v_c = forward(x, t_val, pab_flags[i], cond_only=True)
+                v2 = torch.cat([v_c - cfg_delta.to(v_c.dtype), v_c], dim=0)
+            else:
+                v2 = forward(x, t_val, pab_flags[i], cond_only=False)
+                if cfg_delta is not None:
+                    cfg_delta = v2[B:] - v2[:B]
+            v_u, v_c = v2[:B], v2[B:]
+            x = sched.euler_step(x, v_u + g * (v_c - v_u), sigma, sigma_next)
         if (i + 1) % seg == 0 and i + 1 < num_steps and x.is_cuda:
             torch.cuda.synchronize(x.device)  # bound the work in flight
     return x
@@ -302,18 +305,19 @@ def _sample_mmdit(dit: MMDiT, txt3, y_vec3, *, num_gen_latents: int, num_steps: 
     seg = max(1, int(segment_steps)) if segment_steps else num_steps
     for i in range(num_steps):
         mark("step")
-        t_curr, t_prev = t_pairs[i, 0], t_pairs[i, 1]
-        if cfg_flags[i]:
-            cp = forward(x, t_curr, pab_flags[i], cond_only=True)
-            up = cp - deltas[0].to(cp.dtype)
-            u2p = up - deltas[1].to(cp.dtype)
-        else:
-            pred = forward(x, t_curr, pab_flags[i], cond_only=False)
-            cp, up, u2p = pred[:B], pred[B:2 * B], pred[2 * B:]
-            if deltas is not None:
-                deltas = (cp - up, up - u2p)
-        combined = u2p + guidance_img * (up - u2p) + guidance * (cp - up)
-        x = x + (t_prev - t_curr) * combined
+        with span("sampler.step"):
+            t_curr, t_prev = t_pairs[i, 0], t_pairs[i, 1]
+            if cfg_flags[i]:
+                cp = forward(x, t_curr, pab_flags[i], cond_only=True)
+                up = cp - deltas[0].to(cp.dtype)
+                u2p = up - deltas[1].to(cp.dtype)
+            else:
+                pred = forward(x, t_curr, pab_flags[i], cond_only=False)
+                cp, up, u2p = pred[:B], pred[B:2 * B], pred[2 * B:]
+                if deltas is not None:
+                    deltas = (cp - up, up - u2p)
+            combined = u2p + guidance_img * (up - u2p) + guidance * (cp - up)
+            x = x + (t_prev - t_curr) * combined
         if (i + 1) % seg == 0 and i + 1 < num_steps and x.is_cuda:
             torch.cuda.synchronize(x.device)  # bound the work in flight
     return x
@@ -456,19 +460,20 @@ def _sample_cogvideox(dit: CogVideoX, text_emb2, *, num_gen_latents: int, num_st
     seg = max(1, int(segment_steps)) if segment_steps else num_steps
     for i in range(num_steps):
         mark("step")
-        if cfg_flags[i]:
-            cond = forward(x, t_idx[i], pab_flags[i], cond_only=True)
-            uncond = cond - delta.to(cond.dtype)
-        else:
-            pred = forward(x, t_idx[i], pab_flags[i], cond_only=False)
-            uncond, cond = pred[:B], pred[B:]
-            if delta is not None:
-                delta = cond - uncond
-        v = uncond + guidance * (cond - uncond)
-        sq_a, sq_1a = torch.sqrt(ab_t[i]), torch.sqrt(1.0 - ab_t[i])
-        x0 = sq_a * x - sq_1a * v
-        eps = sq_1a * x + sq_a * v
-        x = torch.sqrt(ab_prev[i]) * x0 + torch.sqrt(1.0 - ab_prev[i]) * eps
+        with span("sampler.step"):
+            if cfg_flags[i]:
+                cond = forward(x, t_idx[i], pab_flags[i], cond_only=True)
+                uncond = cond - delta.to(cond.dtype)
+            else:
+                pred = forward(x, t_idx[i], pab_flags[i], cond_only=False)
+                uncond, cond = pred[:B], pred[B:]
+                if delta is not None:
+                    delta = cond - uncond
+            v = uncond + guidance * (cond - uncond)
+            sq_a, sq_1a = torch.sqrt(ab_t[i]), torch.sqrt(1.0 - ab_t[i])
+            x0 = sq_a * x - sq_1a * v
+            eps = sq_1a * x + sq_a * v
+            x = torch.sqrt(ab_prev[i]) * x0 + torch.sqrt(1.0 - ab_prev[i]) * eps
         if (i + 1) % seg == 0 and i + 1 < num_steps and x.is_cuda:
             torch.cuda.synchronize(x.device)  # bound the work in flight
     return x

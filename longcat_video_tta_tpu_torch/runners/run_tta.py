@@ -325,7 +325,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "non-finite train loss or anchor")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace (CPU and CUDA activity) of the "
-                        "first video's TTA and generation to <dir>/trace.json")
+                        "first video's TTA and generation to <dir>/trace.json; it "
+                        "carries the program's spans (utils/spans.py) as named ranges")
     p.add_argument("--compile-cache-dir", default="auto",
                    help="folder the kernel libraries are built in and loaded from: "
                         "'auto' = longcat_video_tta_tpu_torch/csrc/build/, 'off' = a "

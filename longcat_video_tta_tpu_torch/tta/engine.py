@@ -45,6 +45,7 @@ import torch
 from ..config import OptimConfig
 from ..models.dit import LongCatDiT
 from ..parallel.collectives import all_reduce, all_reduce_grads, broadcast
+from ..utils.spans import span
 from .adapters import AdapterScheme, TrainParams
 from .losses import (
     flow_matching_loss_conditioned,
@@ -145,34 +146,35 @@ class Optimizer:
         is per lane as it stands, and the lanes share the step count (they
         always step together). ``sharded``: the tensor-parallel slices
         among the tensors (``sharded_leaves``), for the global norm."""
-        c = self.cfg
-        max_norm = c.grad_clip_norm
-        norm = lane_norms(grads) if lanes else global_norm(grads, sharded)
-        keep = norm < max_norm
-        lr = self.learning_rate(state["count"])
-        count = state["count"] + 1
-        b1, b2 = c.betas
-        new, mu, nu, trace = {}, {}, {}, {}
-        for k, p in params.items():
-            g = grads[k]
-            if lanes:  # [V] -> [V, 1, ...]
-                shape = (-1,) + (1,) * (g.ndim - 1)
-                g = torch.where(keep.reshape(shape), g,
-                                g / norm.reshape(shape).to(g.dtype) * max_norm)
-            else:
-                g = torch.where(keep, g, g / norm.to(g.dtype) * max_norm)
+        with span("tta.optimizer"):
+            c = self.cfg
+            max_norm = c.grad_clip_norm
+            norm = lane_norms(grads) if lanes else global_norm(grads, sharded)
+            keep = norm < max_norm
+            lr = self.learning_rate(state["count"])
+            count = state["count"] + 1
+            b1, b2 = c.betas
+            new, mu, nu, trace = {}, {}, {}, {}
+            for k, p in params.items():
+                g = grads[k]
+                if lanes:  # [V] -> [V, 1, ...]
+                    shape = (-1,) + (1,) * (g.ndim - 1)
+                    g = torch.where(keep.reshape(shape), g,
+                                    g / norm.reshape(shape).to(g.dtype) * max_norm)
+                else:
+                    g = torch.where(keep, g, g / norm.to(g.dtype) * max_norm)
+                if c.optimizer == "adamw":
+                    mu[k] = (1 - b1) * g + b1 * state["mu"][k]
+                    nu[k] = (1 - b2) * g * g + b2 * state["nu"][k]
+                    u = (mu[k] / (1 - b1 ** count)) / (
+                        torch.sqrt(nu[k] / (1 - b2 ** count)) + c.eps)
+                    g = u + c.weight_decay * p
+                elif c.momentum:
+                    g = trace[k] = g + c.momentum * state["trace"][k]
+                new[k] = p + (-lr) * g
             if c.optimizer == "adamw":
-                mu[k] = (1 - b1) * g + b1 * state["mu"][k]
-                nu[k] = (1 - b2) * g * g + b2 * state["nu"][k]
-                u = (mu[k] / (1 - b1 ** count)) / (
-                    torch.sqrt(nu[k] / (1 - b2 ** count)) + c.eps)
-                g = u + c.weight_decay * p
-            elif c.momentum:
-                g = trace[k] = g + c.momentum * state["trace"][k]
-            new[k] = p + (-lr) * g
-        if c.optimizer == "adamw":
-            return new, {"count": count, "mu": mu, "nu": nu}
-        return new, {"count": count, "trace": trace if c.momentum else None}
+                return new, {"count": count, "mu": mu, "nu": nu}
+            return new, {"count": count, "trace": trace if c.momentum else None}
 
 
 def build_optimizer(ocfg: OptimConfig) -> Optimizer:
@@ -187,7 +189,8 @@ def _grads(loss: torch.Tensor, leaves) -> Tuple:
     --debug-nans) a backward function that returns NaN raises
     FloatingPointError, as the reference's jax_debug_nans does."""
     try:
-        return torch.autograd.grad(loss, list(leaves), allow_unused=True)
+        with span("tta.backward"):
+            return torch.autograd.grad(loss, list(leaves), allow_unused=True)
     except RuntimeError as e:
         if torch.is_anomaly_enabled() and "nan" in str(e):
             raise FloatingPointError(str(e)) from e
@@ -208,29 +211,31 @@ def train_step(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
     backbone's conditioned loss (``archs.get_arch(arch).loss``; the MMDiT's
     takes (txt, y_vec) in the (text_emb, text_mask) slots, CogVideoX's
     leaves text_mask unread)."""
-    leaves = {k: v.detach().requires_grad_(True) for k, v in train_params.items()}
-    with torch.enable_grad():
-        fwd_dit, adapters = scheme.to_forward(leaves, dit)
-        loss = loss_fn(
-            fwd_dit, cond_latents, target_latents, text_emb, text_mask,
-            adapters=adapters, sigma=sigma, noise=noise, generator=generator,
-            num_valid_target=num_valid_target)
-        grads = _grads(loss, leaves.values())
-    # a tensor the loss does not reach gets a zero gradient, as in the reference
-    grads = {k: torch.zeros_like(v) if g is None else g
-             for (k, v), g in zip(leaves.items(), grads)}
-    del leaves
-    mesh = getattr(dit, "mesh", None)
-    loss = loss.detach()
-    if mesh is not None:
-        # each rank's share of a replicated tensor's gradient: its tokens
-        # (context), its batch rows (data: the loss is a mean over rows)
-        grads = all_reduce_grads(grads, mesh.group("context"))
-        grads = all_reduce_grads(grads, mesh.group("data"), mean=True)
-        if mesh.group("data") is not None:
-            loss = all_reduce(loss, mesh.group("data")) / mesh.size("data")
-    train_params, opt_state = opt.update(grads, opt_state, train_params,
-                                         sharded=sharded_leaves(dit, train_params))
+    with span("tta.step"):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in train_params.items()}
+        with torch.enable_grad():
+            with span("tta.forward"):
+                fwd_dit, adapters = scheme.to_forward(leaves, dit)
+                loss = loss_fn(
+                    fwd_dit, cond_latents, target_latents, text_emb, text_mask,
+                    adapters=adapters, sigma=sigma, noise=noise, generator=generator,
+                    num_valid_target=num_valid_target)
+            grads = _grads(loss, leaves.values())
+        # a tensor the loss does not reach gets a zero gradient, as in the reference
+        grads = {k: torch.zeros_like(v) if g is None else g
+                 for (k, v), g in zip(leaves.items(), grads)}
+        del leaves
+        mesh = getattr(dit, "mesh", None)
+        loss = loss.detach()
+        if mesh is not None:
+            # each rank's share of a replicated tensor's gradient: its tokens
+            # (context), its batch rows (data: the loss is a mean over rows)
+            grads = all_reduce_grads(grads, mesh.group("context"))
+            grads = all_reduce_grads(grads, mesh.group("data"), mean=True)
+            if mesh.group("data") is not None:
+                loss = all_reduce(loss, mesh.group("data")) / mesh.size("data")
+        train_params, opt_state = opt.update(grads, opt_state, train_params,
+                                             sharded=sharded_leaves(dit, train_params))
     return train_params, opt_state, loss
 
 
@@ -241,7 +246,7 @@ def anchor_loss(scheme: AdapterScheme, dit: LongCatDiT, train_params: TrainParam
                 ) -> torch.Tensor:
     """The early stopper's fixed-sigma anchor loss on the adapted model
     (a 0-d tensor on the device; no gradient is recorded)."""
-    with torch.no_grad():
+    with torch.no_grad(), span("tta.anchor"):
         fwd_dit, adapters = scheme.to_forward(train_params, dit)
         return anchor_fn(
             fwd_dit, cond_latents, val_latents, text_emb, text_mask, fixed_noises,
@@ -341,25 +346,27 @@ def train_chunk_batched(scheme: AdapterScheme, dit: LongCatDiT, opt: Optimizer,
         if draws is not None:
             sigma = fold_lanes([d[0] for d in draws[i]])
             noise = fold_lanes([d[1] for d in draws[i]])
-        leaves = {k: v.detach().requires_grad_(True) for k, v in train_params.items()}
-        with torch.enable_grad():
-            fwd_dit, adapters = scheme.to_forward(leaves, dit)
-            loss = loss_fn(fwd_dit, cond_f, train_f, emb_f, mask_f, adapters=adapters,
-                           sigma=sigma, noise=noise,
-                           generator=None if generators is None else list(generators),
-                           lanes=V)
-            grads = _grads(loss.sum(), leaves.values())
-        grads = {k: torch.zeros_like(v) if g is None else g
-                 for (k, v), g in zip(leaves.items(), grads)}
-        del leaves
-        train_params, opt_state = opt.update(grads, opt_state, train_params, lanes=True)
+        with span("tta.step"):
+            leaves = {k: v.detach().requires_grad_(True) for k, v in train_params.items()}
+            with torch.enable_grad():
+                with span("tta.forward"):
+                    fwd_dit, adapters = scheme.to_forward(leaves, dit)
+                    loss = loss_fn(fwd_dit, cond_f, train_f, emb_f, mask_f,
+                                   adapters=adapters, sigma=sigma, noise=noise,
+                                   generator=None if generators is None else list(generators),
+                                   lanes=V)
+                grads = _grads(loss.sum(), leaves.values())
+            grads = {k: torch.zeros_like(v) if g is None else g
+                     for (k, v), g in zip(leaves.items(), grads)}
+            del leaves
+            train_params, opt_state = opt.update(grads, opt_state, train_params, lanes=True)
         losses.append(loss.detach())
     anchors = None
     if val_latents is not None:
         mark("anchor_check")
         noises = torch.stack([fold_lanes(list(fixed_noises[:, d]))
                               for d in range(fixed_noises.shape[1])])
-        with torch.no_grad():
+        with torch.no_grad(), span("tta.anchor"):
             fwd_dit, adapters = scheme.to_forward(train_params, dit)
             anchors = anchor_fn(fwd_dit, cond_f, fold(val_latents), emb_f, mask_f, noises,
                                 fixed_sigmas=tuple(anchor_sigmas), adapters=adapters,

@@ -31,9 +31,13 @@ encode, stopper setup anchor, each train chunk and anchor check,
 generation and its sub-phases), and video 2 is profiled.
 
 Then one more request (none) or video (a method) runs under
-torch.profiler, and the script prints the device's busy and idle share
-and the kernels by total device time, then by kind (the port's flash and
-BSA kernels, library GEMMs, convolutions, everything else).
+torch.profiler, and the script prints the device's busy and idle share,
+the kernels by total device time, then by kind (the port's flash and BSA
+kernels, library GEMMs, convolutions, everything else), the longest idle
+gaps (``benchmark/trace.py::summarize``), and the table of the program's
+spans and counters (``longcat_video_tta_tpu_torch/utils/spans.py``: the
+TTA step and its parts, the sampler step, each DiT block and the shared
+ops, each with its device seconds and self seconds).
 Only the port is imported (no JAX). Prints the card's name and power
 limit first. Writes only the runner's own output directory under
 .chip_smoke/ (a method).
@@ -60,60 +64,40 @@ def _sync_time(fn):
     return out, time.perf_counter() - t0
 
 
-def device_breakdown(prof, wall_s: float) -> None:
-    """Busy and idle share of the card and the top kernels, from the
-    kernel events of a torch.profiler run (CPU ops and runtime markers
-    such as "Command Buffer Full" also carry device-side totals in
-    key_averages, so only kernel events are counted)."""
-    import torch
+def profile_report(prof, wall_s: float) -> None:
+    """From a torch.profiler run over ``wall_s`` seconds: the card's busy
+    and idle share, the kernels by device time and by kind, and the
+    longest idle gaps (``benchmark/trace.py::summarize`` over the raw
+    kineto events), then the program's spans
+    (``longcat_video_tta_tpu_torch/utils/spans.py``): per span name its
+    count, host seconds and host self seconds, device seconds and device
+    self seconds, and its device share of the wall time, and the
+    counters' change over the run."""
+    from benchmark.trace import summarize
+    from longcat_video_tta_tpu_torch.utils import spans
 
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.events()
-               if e.device_type == cuda and "Command Buffer" not in e.name]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:  # union of kernel intervals
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy_us += cur_e - cur_s
-    print(f"[device] busy {busy_us / 1e3:.1f} ms of {wall_s * 1e3:.1f} ms wall "
-          f"(idle share {1 - busy_us / 1e6 / wall_s:.3f}); {len(kernels)} kernels")
-    by_name = {}
-    for e in kernels:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    total = sum(t for t, _ in by_name.values())
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"[kernel] {t / 1e3:10.1f} ms {100 * t / max(total, 1):5.1f}% "
-              f"x{n:<6d} {name[:110]}")
-    kinds = {}
-    for name, (t, n) in by_name.items():
-        k = kernel_kind(name)
-        kt, kn = kinds.get(k, (0.0, 0))
-        kinds[k] = (kt + t, kn + n)
-    for k, (t, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
-        print(f"[kind] {k:12s} {t / 1e3:10.1f} ms {100 * t / max(total, 1):5.1f}% x{n}")
-
-
-def kernel_kind(name: str) -> str:
-    """Coarse class of a device kernel by its name: the port's own
-    attention kernels, library GEMMs (cuBLAS/cuBLASLt, 16-bit and int8),
-    convolutions, and everything else (elementwise, reductions, copies)."""
-    if "bsa_fwd" in name or "block_sum" in name:
-        return "bsa"
-    if "flash_" in name:
-        return "flash"
-    low = name.lower()
-    if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "imma", "_mma_")):
-        return "gemm"
-    if "conv" in low or "implicit" in low:
-        return "conv"
-    return "elementwise"
+    s = summarize(prof)
+    if s is None:
+        print("[device] no kernel ran")
+    else:
+        total = sum(s.kernel_s.values())
+        print(f"[device] busy {s.busy_s * 1e3:.1f} ms of {wall_s * 1e3:.1f} ms wall "
+              f"(idle share {1 - s.busy_s / wall_s:.3f})")
+        for name, t in s.device_ops(15):
+            print(f"[kernel] {t * 1e3:10.1f} ms {100 * t / total:5.1f}% {name[:110]}")
+        for k, t in sorted(s.kinds.items(), key=lambda kv: -kv[1]):
+            print(f"[kind] {k:12s} {t * 1e3:10.1f} ms {100 * t / total:5.1f}%")
+        for name, t in s.idle_gaps:
+            print(f"[gap] {t * 1e3:8.2f} ms, host in {name[:100]}")
+    t = spans.totals()
+    if t is None:
+        return
+    print(f"[span] {'name':20s} {'n':>7s} {'host s':>9s} {'host self':>9s} {'device s':>9s} "
+          f"{'self s':>9s} share")
+    for name, v in sorted(t["spans"].items(), key=lambda kv: -kv[1]["device_s"]):
+        print(f"[span] {name:20s} {v['n']:7d} {v['host_s']:9.4f} {v['host_self_s']:9.4f} "
+              f"{v['device_s']:9.4f} {v['self_s']:9.4f} {100 * v['device_s'] / wall_s:5.1f}%")
+    print("[counters] " + ", ".join(f"{k} {v}" for k, v in t["counters"].items()))
 
 
 def print_phases(marks):
@@ -205,7 +189,7 @@ def profile_tta(args, runner_flags) -> int:
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[profiled video] {state['wall']:.3f} s wall; launches fwd {fa.launches} "
           f"dq {fa.bwd_dq_launches} dkv {fa.bwd_dkv_launches}")
-    device_breakdown(prof, state["wall"])
+    profile_report(prof, state["wall"])
     shutil.rmtree(out_dir, ignore_errors=True)
     return 0
 
@@ -300,7 +284,7 @@ def main() -> int:
           f"bsa_fwd {bsa.bsa_launches} bsa_fwd_qk_int8 {bsa.bsa_int8_launches} "
           f"bsa_block_sum {bsa.bsa_block_sum_launches}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    device_breakdown(prof, t_req)
+    profile_report(prof, t_req)
     return 0
 
 

@@ -74,6 +74,7 @@ def test_profile_dir_writes_a_trace(tmp_path):
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any("aten::" in n for n in names) and len(events) > 100
+    assert {"tta.step", "tta.anchor", "sampler.step", "dit.block", "op.rope"} <= names
 
 
 def test_attn_impl_xla_equals_the_default_on_the_cpu(tmp_path):
