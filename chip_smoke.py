@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # from the repository root
 
 Phases (each one fails the run when it fails):
-  1. build: compile csrc/flash_fwd.cu, csrc/flash_bwd.cu and csrc/bsa.cu with nvcc
+  1. build: compile csrc/flash_fwd.cu, csrc/flash_bwd.cu, csrc/bsa.cu and
+     csrc/qk_norm_rope.cu with nvcc
      (sm_90a, one nvcc per source, started together) into
      longcat_video_tta_tpu_torch/csrc/build/ and print the build times and
      ptxas resource lines (registers, spills, and any wgmma or
@@ -44,6 +45,16 @@ Phases (each one fails the run when it fails):
      (yardsticks only) and the bound over the pairs the selection lets
      through (int8-QK: also the kernel alone, without the quantize
      passes its wrapper runs);
+  3c. q/k prologue check (``--only qknorm``): the fused per-head RMSNorm +
+     RoPE kernels of csrc/qk_norm_rope.cu, forward and backward, against
+     their plain versions (``norm_rope_reference``,
+     ``norm_rope_backward_reference``) and a float64 evaluation (no more
+     error than the rms_norm + apply_rope chain they replace) at
+     generation's self- and cross-attention shapes (B 2, 8 latents), the
+     delta_a train step's (B 1, 7 latents; cross-attention's k frozen;
+     once with dw), and small cases (rows not a multiple of a CTA's, head
+     dims 32 and 64, lane weights with dw, fp16); times of each kernel
+     beside the bound (bytes) and the chain;
   4. small-input agreement: ``generate_vc`` on the card against the same
      weights and noise on the CPU (plain path), dense and with every
      decode lever (BSA with 32-token blocks, int8qk, PAB, CFG reuse), and one delta_a train
@@ -210,7 +221,7 @@ Phases (each one fails the run when it fails):
      run, --profile-dir (a torch.profiler trace whose kernel events include
      flash_fwd), --debug-nans and --attn-impl xla (the default run's losses
      and anchors within 1e-2; xla launches no kernel), --compile-cache-dir
-     on a fresh folder (the three libraries are built there).
+     on a fresh folder (the four libraries are built there).
  19. tools (``--only vp,tools``): eval_external on [vp]'s clips against
      their ground truth on the card with LPIPS and I3D tower files drawn
      on the card (to 1e-4 of the runner's metric code on the same clips,
@@ -1089,6 +1100,184 @@ def phase_bsa_kernel_checks(fa, bsa, dit_cfg, tokens_per_frame):
     for c in cases + sums:
         print("[bsa-kernel] " + json.dumps(c))
     return cases, sums
+
+
+# The q/k prologue (csrc/qk_norm_rope.cu) against its plain version (the
+# same fp32 arithmetic in torch, rounded once at the end): the two round
+# fp32 values that differ in their last bits (fused multiply-adds, the
+# sum of squares in another order), so an output element differs by at
+# most one ulp and few do:
+#   max|y - y_ref| <= eps * max|y_ref|,  ||y - y_ref||_2 <= eps / 4 * ||y_ref||_2
+# (dx: twice both, its mean term summed in another order too); the fp32
+# dw to 1e-4 relative. Against a float64 evaluation of the
+# same math the kernel errs no more than the chain it replaces (rms_norm
+# then apply_rope, and autograd of it), in max and in mean, to 0.1%: with
+# the rotation off both round the same fp32 values, and a last-bit
+# difference can flip one element's rounding either way.
+QK_EPS = 1e-6
+QK_SLACK = 1.001
+
+
+def qk_inputs(B, T, H, D, *, Tk=None, rope=True, lanes=0, dtype_name="bfloat16", seed=0):
+    """(q, k, wq, wk, cos, sin) on the card: q, k strided views of a fused
+    qkv [B, T, 3, H, D] with ``rope``; else q [B, T, H, D] and k a view of
+    a fused kv [B, Tk, 2, H, D]. Weights [D], or [lanes, D]."""
+    import torch
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: (3.0 * torch.randn(s, generator=g, device="cuda")).to(dt)
+    wshape = (lanes, D) if lanes else (D,)
+    wq, wk = ((1.0 + 0.3 * torch.randn(wshape, generator=g, device="cuda")).to(dt)
+              for _ in range(2))
+    if not rope:
+        return rnd(B, T, H, D), rnd(B, Tk, 2, H, D)[:, :, 0], wq, wk, None, None
+    qkv = rnd(B, T, 3, H, D)
+    ang = torch.rand((T, D // 2), generator=g, device="cuda") * 60.0
+    return qkv[:, :, 0], qkv[:, :, 1], wq, wk, torch.cos(ang), torch.sin(ang)
+
+
+def _qk_chain(x, w, cos, sin):
+    from longcat_video_tta_tpu_torch.ops.layers import apply_rope, rms_norm
+
+    y = rms_norm(x, w, QK_EPS)
+    if cos is None:
+        return y
+    c, s = cos.reshape(1, -1, cos.shape[-1]), sin.reshape(1, -1, sin.shape[-1])
+    return apply_rope(y[:, None], c, s)[:, 0]
+
+
+def _qk_errs(got, ref, truth, chain):
+    """Errors of ``got`` against the plain version, and of ``got`` and the
+    chain's ``chain`` against the float64 ``truth``."""
+    d, r = got.float() - ref.float(), ref.float()
+    e_got, e_chain = (got.double() - truth).abs(), (chain.double() - truth).abs()
+    return {"max_abs_err": float(d.abs().max()), "max_ref": float(r.abs().max()),
+            "l2_rel": float(d.norm() / r.norm()),
+            "vs_f64_max": float(e_got.max()), "chain_vs_f64_max": float(e_chain.max()),
+            "vs_f64_mean": float(e_got.mean()), "chain_vs_f64_mean": float(e_chain.mean())}
+
+
+def _qk_gate(name, errs, eps, scale):
+    ok = (errs["max_abs_err"] <= scale * eps * errs["max_ref"]
+          and errs["l2_rel"] <= scale * eps / 4
+          and errs["vs_f64_max"] <= QK_SLACK * errs["chain_vs_f64_max"]
+          and errs["vs_f64_mean"] <= QK_SLACK * errs["chain_vs_f64_mean"])
+    if not ok:
+        raise AssertionError(f"qk prologue {name}: {json.dumps(errs)}")
+
+
+def _qk_bytes(B, H, D, Ts, esz, bwd):
+    """Bytes each launch must move: x read and y written (backward: x, dy
+    read, dx written) per side, the cos/sin rows (the first side's tokens)
+    once."""
+    per = (3 if bwd else 2) * esz * D
+    rot = Ts[0][1] * D * 4 if Ts[0][1] else 0
+    return sum(B * T * H * per for T, _ in Ts) + rot
+
+
+def check_qk_case(qn, name, B, T, H, D, *, Tk=None, rope=True, lanes=0, need_k=True,
+                  need_w=False, dtype_name="bfloat16", timed=False, seed=0):
+    """The forward and backward kernels against their plain versions and a
+    float64 evaluation on one shape; returns a result dict."""
+    import torch
+
+    q, k, wq, wk, cos, sin = qk_inputs(B, T, H, D, Tk=Tk or T, rope=rope, lanes=lanes,
+                                       dtype_name=dtype_name, seed=seed)
+    eps = O_EPS[dtype_name]
+    res = {"case": name, "B": B, "T": T, "Tk": Tk or T, "H": H, "D": D, "rope": rope,
+           "lanes": lanes, "dtype": dtype_name}
+    yq, yk = qn._kernel_forward(q, k, wq, wk, cos, sin, QK_EPS)
+    torch.cuda.synchronize()
+    f64 = lambda t: None if t is None else t.double()
+    for side, x, w, y in (("q", q, wq, yq), ("k", k, wk, yk)):
+        y_ref = qn.norm_rope_reference(x, w, cos, sin, QK_EPS)
+        truth = qn.norm_rope_reference(x.double(), w.double(), f64(cos), f64(sin), QK_EPS)
+        errs = _qk_errs(y, y_ref, truth, _qk_chain(x, w, cos, sin))
+        _qk_gate(f"{name} forward {side}", errs, eps, 1.0)
+        res[f"fwd_{side}"] = errs
+        del y_ref, truth
+    # the backward: dq always, dk with need_k, dw with need_w
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dyq, dyk = (torch.randn(y.shape, generator=g, device="cuda").to(y.dtype)
+                for y in (yq, yk))
+    need, nw = (True, need_k), (need_w, need_w and need_k)
+    dq, dk, dwq, dwk = qn._kernel_backward(q, k, wq, wk, cos, sin, dyq, dyk, QK_EPS, need,
+                                           nw)
+    torch.cuda.synchronize()
+    for side, x, w, dy, dx, dw in (("q", q, wq, dyq, dq, dwq), ("k", k, wk, dyk, dk, dwk)):
+        if dx is None:
+            continue
+        dx_ref, dw_ref = qn.norm_rope_backward_reference(x, w, cos, sin, dy, QK_EPS,
+                                                         dw is not None)
+        truth, _ = qn.norm_rope_backward_reference(x.double(), w.double(), f64(cos),
+                                                   f64(sin), dy.double(), QK_EPS, False)
+        xl = x.detach().clone().requires_grad_(True)
+        (dx_chain,) = torch.autograd.grad(_qk_chain(xl, w, cos, sin), [xl], [dy])
+        errs = _qk_errs(dx, dx_ref, truth, dx_chain)
+        if dw is not None:
+            errs["dw_l2_rel"] = float((dw - dw_ref.reshape(dw.shape)).norm() / dw_ref.norm())
+            if errs["dw_l2_rel"] > 1e-4:
+                raise AssertionError(f"qk prologue {name} dw {side}: {json.dumps(errs)}")
+        _qk_gate(f"{name} backward {side}", errs, eps, 2.0)
+        res[f"bwd_{side}"] = errs
+        del dx_ref, truth, dx_chain
+    if timed:
+        Ts = [(T, T if rope else 0), (Tk or T, 0)]
+        esz = q.element_size()
+        res["ms"] = _events_ms(lambda: qn._kernel_forward(q, k, wq, wk, cos, sin, QK_EPS),
+                               iters=20, warmup=2)
+        res["chain_ms"] = _events_ms(lambda: (_qk_chain(q, wq, cos, sin),
+                                              _qk_chain(k, wk, cos, sin)), iters=5)
+        res["bound_ms"] = _qk_bytes(B, H, D, Ts, esz, False) / H100_BYTES_PER_S * 1e3
+        bwd_Ts = Ts if need_k else Ts[:1]
+        res["bwd_ms"] = _events_ms(lambda: qn._kernel_backward(
+            q, k, wq, wk, cos, sin, dyq, dyk, QK_EPS, need, nw), iters=20, warmup=2)
+        res["bwd_bound_ms"] = _qk_bytes(B, H, D, bwd_Ts, esz, True) / H100_BYTES_PER_S * 1e3
+        leaves = [x.detach().clone().requires_grad_(n) for x, n in ((q, True), (k, need_k))]
+        outs = [_qk_chain(x, w, cos, sin) for x, w in zip(leaves, (wq, wk))]
+        res["chain_bwd_ms"] = _events_ms(lambda: torch.autograd.grad(
+            outs[:1 + need_k], leaves[:1 + need_k], [dyq, dyk][:1 + need_k],
+            retain_graph=True), iters=5)
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        res["bwd_share_of_bound"] = res["bwd_bound_ms"] / res["bwd_ms"]
+    return res
+
+
+def phase_qk_norm_checks(qn, dit_cfg, tokens_per_frame):
+    """The q/k prologue's kernels at the main path's shapes (generation's
+    self- and cross-attention, 8 latents at B 2; the delta_a train step's,
+    7 latents at B 1, cross-attention's k frozen) timed beside the bound
+    and the chain they replace, then small cases: rows not a multiple of a
+    CTA's 64, head_dims 32 and 64, a lane weight with dw, fp16."""
+    import torch
+
+    H, D, L = dit_cfg.num_heads, dit_cfg.head_dim, dit_cfg.text_len
+    gen, train = 8 * tokens_per_frame, 7 * tokens_per_frame
+    cases = [
+        check_qk_case(qn, "gen_self", 2, gen, H, D, timed=True, seed=70),
+        check_qk_case(qn, "gen_cross", 2, gen, H, D, Tk=L, rope=False, need_k=False,
+                      timed=True, seed=71),
+        check_qk_case(qn, "train_self", 1, train, H, D, timed=True, seed=72),
+        check_qk_case(qn, "train_cross", 1, train, H, D, Tk=L, rope=False, need_k=False,
+                      timed=True, seed=73),
+        check_qk_case(qn, "train_self_dw", 1, train, H, D, need_w=True, timed=True,
+                      seed=74),
+    ]
+    torch.cuda.empty_cache()
+    cases += [
+        check_qk_case(qn, "odd_rows_d128", 1, 37, 3, 128, seed=75),
+        check_qk_case(qn, "odd_rows_d64_cross", 2, 41, 5, 64, Tk=7, rope=False, seed=76),
+        check_qk_case(qn, "lanes_dw_d128", 4, 53, 3, 128, lanes=2, need_w=True, seed=77),
+        check_qk_case(qn, "lanes_dw_d64_fp16", 4, 29, 3, 64, lanes=2, need_w=True,
+                      dtype_name="float16", seed=78),
+        check_qk_case(qn, "d64_dw", 2, 300, 4, 64, need_w=True, seed=79),
+        check_qk_case(qn, "d32", 1, 45, 2, 32, need_w=True, seed=80),
+        check_qk_case(qn, "d32_cross", 1, 45, 2, 32, Tk=9, rope=False, need_w=True, seed=81),
+    ]
+    for c in cases:
+        print("[qk-norm] " + json.dumps(c))
+    return cases
 
 
 AGREE_PROMPT = "a ball moving across the scene"
@@ -5730,9 +5919,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive the port on one NVIDIA GPU")
     ap.add_argument("--only", default="",
                     help="development: run the build and these comma-separated phases "
-                         "(checkpoint, remat, bucket, eval, kernel, bwd, opensora, cogvideox, "
-                         "t2v, vbench, vp, flags, tools, mesh, demo, longhorizon, bench; tools "
-                         "runs after vp) "
+                         "(checkpoint, remat, bucket, eval, kernel, bwd, qknorm, opensora, "
+                         "cogvideox, t2v, vbench, vp, flags, tools, mesh, demo, longhorizon, "
+                         "bench; tools runs after vp) "
                          "and print no result")
     ap.add_argument("--mesh-worker", default="", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", default="", help=argparse.SUPPRESS)
@@ -5752,6 +5941,7 @@ def main(argv=None) -> int:
     from longcat_video_tta_tpu_torch.config import longcat_13b
     from longcat_video_tta_tpu_torch.ops import bsa
     from longcat_video_tta_tpu_torch.ops import flash_attention as fa
+    from longcat_video_tta_tpu_torch.ops import qk_norm as qn
 
     # stated precision: fp32 matmuls and convolutions in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5797,6 +5987,7 @@ def main(argv=None) -> int:
                   "eval": (at_cut_depth(phase_eval), fa, CUT_DEPTH, smi),
                   "kernel": (phase_kernel_checks, fa, cfg.dit, tokens_per_frame),
                   "bwd": (phase_bwd_kernel_checks, fa, cfg.dit, tokens_per_frame),
+                  "qknorm": (phase_qk_norm_checks, qn, cfg.dit, tokens_per_frame),
                   "opensora": (phase_opensora, fa), "cogvideox": (phase_cogvideox, fa),
                   "t2v": (at_cut_depth(phase_t2v), fa, cut, tokens_per_frame),
                   "vbench": (at_cut_depth(phase_vbench), fa, bsa, CUT_DEPTH, smi),
@@ -5821,6 +6012,7 @@ def main(argv=None) -> int:
                             tokens_per_frame)
     bsa_cases, sum_cases = timed_phase("bsa kernel check", phase_bsa_kernel_checks, fa,
                                        bsa, cfg.dit, tokens_per_frame)
+    timed_phase("qk prologue check", phase_qk_norm_checks, qn, cfg.dit, tokens_per_frame)
     t0 = time.time()
     small_ref, step_ref = agree_refs()
     print(f"[time] agreement CPU sides: {time.time() - t0:.1f} s of waiting")

@@ -61,6 +61,7 @@ from torch import nn
 from ..config import BSAConfig, DiTConfig, resolve_dtype
 from ..ops.attention import attention
 from ..ops.bsa import bsa_attention, decode_top_k
+from ..ops.qk_norm import qk_norm_rope
 from ..parallel.collectives import gather_from_group, group_rank, group_size
 from ..parallel.context_attention import ring_self_attention
 from ..parallel.sharding import tp_size
@@ -74,7 +75,6 @@ from ..ops.layers import (
     mlp_embedder,
     modulate,
     remat_wrap,
-    rms_norm,
     rope_3d_angles,
     timestep_embedding,
 )
@@ -182,10 +182,11 @@ class SelfAttention(nn.Module):
             B, nt, nhw, 3, nH, dh)
         q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
         if cfg.qk_norm:
-            q = rms_norm(q, shared_in_group(self.q_norm, self.qkv))
-            k = rms_norm(k, shared_in_group(self.k_norm, self.qkv))
-        q = apply_rope(q, rope_cos, rope_sin)
-        k = apply_rope(k, rope_cos, rope_sin)
+            q, k = qk_norm_rope(q, k, shared_in_group(self.q_norm, self.qkv),
+                                shared_in_group(self.k_norm, self.qkv), rope_cos, rope_sin)
+        else:
+            q = apply_rope(q, rope_cos, rope_sin)
+            k = apply_rope(k, rope_cos, rope_sin)
         S = nt * nhw
         q = q.reshape(B, S, nH, dh)
         k = k.reshape(B, S, nH, dh)
@@ -242,8 +243,8 @@ class CrossAttention(nn.Module):
             B, L, 2, nH, dh)
         k, v = kv[:, :, 0], kv[:, :, 1]
         if cfg.cross_qk_norm:
-            q = rms_norm(q, shared_in_group(self.q_norm, self.q))
-            k = rms_norm(k, shared_in_group(self.k_norm, self.q))
+            q, k = qk_norm_rope(q, k, shared_in_group(self.q_norm, self.q),
+                                shared_in_group(self.k_norm, self.q))
         o = attention(q, k, v)
         return linear(self.proj, o.reshape(B, nt, nhw, nH * dh), lora.get("xattn_proj"),
                       lora_scale)

@@ -51,7 +51,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_CSRC, "flash_fwd.cu")
 _BWD_SOURCE = os.path.join(_CSRC, "flash_bwd.cu")
 BSA_SOURCE = os.path.join(_CSRC, "bsa.cu")  # bound in ops/bsa.py
-SOURCES = (_SOURCE, _BWD_SOURCE, BSA_SOURCE)
+QK_NORM_SOURCE = os.path.join(_CSRC, "qk_norm_rope.cu")  # bound in ops/qk_norm.py
+SOURCES = (_SOURCE, _BWD_SOURCE, BSA_SOURCE, QK_NORM_SOURCE)
 _HEADERS = (os.path.join(_CSRC, "hopper_common.cuh"),)
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -200,9 +201,9 @@ def _drop_libraries() -> None:
     """Forget the bound libraries: the next launch loads (or builds) them
     from ``BUILD_DIR``."""
     global _lib, _bwd_lib
-    from . import bsa
+    from . import bsa, qk_norm
 
-    _lib = _bwd_lib = bsa._lib = None
+    _lib = _bwd_lib = bsa._lib = qk_norm._lib = None
 
 
 @contextlib.contextmanager

@@ -63,14 +63,16 @@ def span(name: str):
 
 
 def _counters(cuda: bool) -> Dict[str, int]:
-    """The port's kernel launch counters (B1-B5) and, with CUDA, the
-    caching allocator's device allocations, frees and retries."""
-    from ..ops import bsa
+    """The port's kernel launch counters (B1-B5 and the q/k prologue) and,
+    with CUDA, the caching allocator's device allocations, frees and
+    retries."""
+    from ..ops import bsa, qk_norm
     from ..ops import flash_attention as fa
 
     out = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.bwd_dq_launches,
            "flash_bwd_dkv": fa.bwd_dkv_launches, "bsa_block_sum": bsa.bsa_block_sum_launches,
-           "bsa_fwd": bsa.bsa_launches, "bsa_fwd_qk_int8": bsa.bsa_int8_launches}
+           "bsa_fwd": bsa.bsa_launches, "bsa_fwd_qk_int8": bsa.bsa_int8_launches,
+           "qk_norm_rope": qk_norm.launches, "qk_norm_rope_bwd": qk_norm.bwd_launches}
     if cuda:
         stats = torch.cuda.memory_stats_as_nested_dict()
         out.update({k: int(stats.get(k, 0)) for k in _MEMORY})

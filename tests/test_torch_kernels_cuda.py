@@ -1,6 +1,6 @@
 """The port's CUDA attention kernels (the wgmma forward, the wgmma dQ and
-dK/dV backward, the block-sparse kernels) against their plain PyTorch
-versions, on the card. Every test here is marked ``cuda`` and skips
+dK/dV backward, the block-sparse kernels, the q/k prologue) against their
+plain PyTorch versions, on the card. Every test here is marked ``cuda`` and skips
 without a GPU. The file imports no JAX, so it runs on the card machine,
 which has none:
 
@@ -24,6 +24,8 @@ import pytest
 import torch
 
 from longcat_video_tta_tpu_torch.ops import flash_attention as fa
+from longcat_video_tta_tpu_torch.ops import qk_norm as qn
+from longcat_video_tta_tpu_torch.ops.layers import apply_rope, rms_norm
 
 # (B, H, Sq, Sk, D, num_cond_tokens, kv_valid_len, q_offset, k_offset)
 CASES = {
@@ -477,3 +479,152 @@ def test_opensora_single_block_strided_v(card, case):
     ref = _chunked(fa.attention_backward_reference, q, k, v, o, lse, do)
     for name, d, d_r in zip(("dq", "dk", "dv"), got, ref):
         _assert_grad_close(name, d, d_r)
+
+
+# ---------------------------------------------------------------------------
+# The q/k prologue (csrc/qk_norm_rope.cu): per-head RMSNorm and RoPE
+# ---------------------------------------------------------------------------
+#
+# Against the plain version (the same fp32 arithmetic, rounded once): an
+# element differs by at most one ulp and few do, max|y - y_ref| <= eps
+# max|y_ref| and ||y - y_ref|| <= eps / 4 ||y_ref|| (dx twice both); dw
+# (fp32) to 1e-4 relative. Against a float64 evaluation of
+# the same math the kernel errs no more than the chain it replaces, in max
+# and in mean, to 0.1% (with the rotation off both round the same fp32
+# values, and a last-bit difference can flip one rounding either way).
+
+# (B, T, H, D, Tk: None for self-attention with the rotation, lanes, dtype);
+# T * H is never a multiple of a CTA's 64 rows
+QK_CASES = {
+    "d128_rope_odd_rows": (1, 37, 3, 128, None, 0, torch.bfloat16),
+    "d64_rope_odd_rows": (2, 45, 5, 64, None, 0, torch.bfloat16),
+    "d128_cross": (2, 41, 4, 128, 9, 0, torch.bfloat16),
+    "d64_cross_fp16": (1, 50, 3, 64, 7, 0, torch.float16),
+    "d128_rope_lanes": (4, 29, 3, 128, None, 2, torch.bfloat16),
+    "d64_cross_lanes": (4, 33, 2, 64, 5, 2, torch.bfloat16),
+}
+
+
+def _qk_inputs(card, B, T, H, D, Tk, lanes, dtype, seed):
+    """q, k strided views of a fused qkv with cos/sin [T, D/2] (Tk None),
+    or q [B, T, H, D] and k a view of a fused kv [B, Tk, 2, H, D]."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    rnd = lambda *s: (3.0 * torch.randn(s, generator=g, device=card)).to(dtype)
+    wshape = (lanes, D) if lanes else (D,)
+    wq, wk = ((1.0 + 0.3 * torch.randn(wshape, generator=g, device=card)).to(dtype)
+              for _ in range(2))
+    if Tk is not None:
+        return rnd(B, T, H, D), rnd(B, Tk, 2, H, D)[:, :, 0], wq, wk, None, None
+    qkv = rnd(B, T, 3, H, D)
+    ang = 60.0 * torch.rand((T, D // 2), generator=g, device=card)
+    return qkv[:, :, 0], qkv[:, :, 1], wq, wk, torch.cos(ang), torch.sin(ang)
+
+
+def _qk_chain(x, w, cos, sin):
+    y = rms_norm(x, w)
+    if cos is None:
+        return y
+    return apply_rope(y[:, None], cos[None], sin[None])[:, 0]
+
+
+def _f64(t):
+    return None if t is None else t.double()
+
+
+def _assert_qk_close(name, got, ref, truth, chain, scale):
+    eps = torch.finfo(got.dtype).eps
+    d, r = got.float() - ref.float(), ref.float()
+    assert float(d.abs().max()) <= scale * eps * float(r.abs().max()), name
+    assert float(d.norm()) <= scale * eps / 4 * float(r.norm()), name
+    e, e_chain = (got.double() - truth).abs(), (chain.double() - truth).abs()
+    assert float(e.max()) <= 1.001 * float(e_chain.max()), name
+    assert float(e.mean()) <= 1.001 * float(e_chain.mean()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(QK_CASES))
+def test_qk_norm_rope_forward_matches_plain_version(card, case):
+    q, k, wq, wk, cos, sin = _qk_inputs(card, *QK_CASES[case], seed=90)
+    yq, yk = qn._kernel_forward(q, k, wq, wk, cos, sin, 1e-6)
+    for name, x, w, y in (("q", q, wq, yq), ("k", k, wk, yk)):
+        y_ref = qn.norm_rope_reference(x, w, cos, sin, 1e-6)
+        truth = qn.norm_rope_reference(x.double(), w.double(), _f64(cos), _f64(sin), 1e-6)
+        _assert_qk_close(name, y, y_ref, truth, _qk_chain(x, w, cos, sin), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_w", [False, True])
+@pytest.mark.parametrize("case", list(QK_CASES))
+def test_qk_norm_rope_backward_matches_plain_version(card, case, need_w):
+    q, k, wq, wk, cos, sin = _qk_inputs(card, *QK_CASES[case], seed=91)
+    g = torch.Generator(device=card).manual_seed(92)
+    dyq, dyk = (torch.randn(x.shape, generator=g, device=card).to(x.dtype) for x in (q, k))
+    got = qn._kernel_backward(q, k, wq, wk, cos, sin, dyq, dyk, 1e-6, (True, True),
+                              (need_w, need_w))
+    for i, (name, x, w, dy) in enumerate((("q", q, wq, dyq), ("k", k, wk, dyk))):
+        dx_ref, dw_ref = qn.norm_rope_backward_reference(x, w, cos, sin, dy, 1e-6, need_w)
+        truth = qn.norm_rope_backward_reference(x.double(), w.double(), _f64(cos), _f64(sin),
+                                                dy.double(), 1e-6, False)[0]
+        xl = x.detach().clone().requires_grad_(True)
+        (dx_chain,) = torch.autograd.grad(_qk_chain(xl, w, cos, sin), [xl], [dy])
+        _assert_qk_close("d" + name, got[i], dx_ref, truth, dx_chain, 2.0)
+        if need_w:
+            torch.testing.assert_close(got[2 + i], dw_ref.reshape(w.shape), rtol=1e-4,
+                                       atol=1e-4 * float(dw_ref.abs().max()))
+        else:
+            assert got[2 + i] is None
+
+
+@pytest.mark.cuda
+def test_qk_norm_rope_function_uses_the_kernels(card):
+    """On CUDA tensors ``qk_norm_rope`` runs one forward launch for q and k
+    and one backward launch, with gradients (dq, dk, dwq, dwk) as the
+    function's plain versions give them on the CPU."""
+    q0, k0, wq0, wk0, cos, sin = _qk_inputs(card, 2, 45, 4, 128, None, 0, torch.bfloat16,
+                                            seed=93)
+    g = torch.Generator(device=card).manual_seed(94)
+    dy = [torch.randn(x.shape, generator=g, device=card).bfloat16() for x in (q0, k0)]
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        ts = [t.detach().to(dev).requires_grad_(True) for t in (q0, k0, wq0, wk0)]
+        fwd, bwd = qn.launches, qn.bwd_launches
+        if dev == "cuda":
+            yq, yk = qn.qk_norm_rope(*ts, cos, sin)
+        else:
+            yq, yk = qn.QKNormRopeFunction.apply(*ts, cos.cpu(), sin.cpu(), 1e-6)
+        torch.autograd.backward([yq, yk], [d.to(dev) for d in dy])
+        grads[dev] = [yq, yk] + [t.grad for t in ts]
+        if dev == "cuda":
+            assert (qn.launches - fwd, qn.bwd_launches - bwd) == (1, 1)
+    for name, a, b in zip(("yq", "yk", "dq", "dk", "dwq", "dwk"), grads["cuda"], grads["cpu"]):
+        eps = torch.finfo(torch.bfloat16).eps
+        d, r = a.float().cpu() - b.float(), b.float()
+        assert float(d.abs().max()) <= 2 * eps * float(r.abs().max()), name
+
+
+@pytest.mark.cuda
+def test_qk_norm_rope_without_autograd_launches_the_forward_alone(card):
+    """Under no_grad (the sampler, the anchor) the entry launches the
+    forward kernel straight, with the function's outputs."""
+    q, k, wq, wk, cos, sin = _qk_inputs(card, 2, 45, 4, 128, None, 0, torch.bfloat16,
+                                        seed=96)
+    fwd, bwd = qn.launches, qn.bwd_launches
+    with torch.no_grad():
+        yq, yk = qn.qk_norm_rope(q, k, wq, wk, cos, sin)
+    assert (qn.launches - fwd, qn.bwd_launches - bwd) == (1, 0)
+    assert yq.shape == q.shape and yk.shape == k.shape and yq.is_contiguous()
+    fq, fk = qn.QKNormRopeFunction.apply(q, k, wq, wk, cos, sin, 1e-6)
+    assert torch.equal(yq, fq) and torch.equal(yk, fk)
+
+
+@pytest.mark.cuda
+def test_qk_norm_rope_raises_on_what_it_does_not_take(card):
+    q, k, wq, wk, cos, sin = _qk_inputs(card, 1, 40, 2, 128, None, 0, torch.bfloat16,
+                                        seed=95)
+    flat = torch.zeros(q.numel() + 1, device=card, dtype=q.dtype)
+    with pytest.raises(ValueError):  # rows off 16-byte alignment
+        qn._kernel_forward(flat[1:].view(q.shape), k, wq, wk, cos, sin, 1e-6)
+    with pytest.raises(ValueError):  # head_dim 48
+        qn._kernel_forward(q[..., :48], k[..., :48], wq[:48], wk[:48], None, None, 1e-6)
+    with pytest.raises(TypeError):
+        qn._kernel_forward(q.float(), k.float(), wq, wk, cos, sin, 1e-6)
